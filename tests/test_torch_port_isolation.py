@@ -1,0 +1,49 @@
+"""The PyTorch port stands alone: no JAX, flax, optax, orbax or yololite_tpu
+import anywhere in yololite_tpu_torch/ or chip_smoke.py, and its entry points
+default to the card."""
+
+import ast
+import inspect
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yololite_tpu"}
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "yololite_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_found():
+    files = _port_files()
+    assert os.path.exists(files[0]), "chip_smoke.py is missing"
+    assert any(f.endswith("cuda_nms.py") for f in files)
+
+
+@pytest.mark.parametrize("rel", [os.path.relpath(p, ROOT) for p in _port_files()])
+def test_no_jax_or_reference_imports(rel):
+    bad = sorted(set(_imported_roots(os.path.join(ROOT, rel))) & FORBIDDEN)
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_entry_points_default_to_cuda():
+    from yololite_tpu_torch.api import YoloLite
+    from yololite_tpu_torch.deploy.predictor import Predictor
+    for fn in (Predictor.__init__, YoloLite.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -1,0 +1,147 @@
+"""PyTorch port parity: NMS and the suppression kernel's plain version.
+
+Discrete outputs (keep masks, indices, classes, padding) must match exactly;
+scores and boxes are gathered, not computed, so they match exactly too. The
+CUDA kernel itself runs only on the card (`chip_smoke.py` and
+`tests/test_torch_port_cuda.py`).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from yololite_tpu.ops.nms import _greedy_keep as jax_greedy_keep
+from yololite_tpu.ops.nms import _suppression_matrix as jax_suppression_matrix
+from yololite_tpu.ops.nms import batched_nms as jax_batched_nms
+from yololite_tpu.ops.nms import nms_numpy as jax_nms_numpy
+from yololite_tpu.ops.nms import nms_single as jax_nms_single
+from yololite_tpu.ops.nms import yolo_scores as jax_yolo_scores
+from yololite_tpu.ops.pallas_nms import pallas_greedy_keep
+
+from yololite_tpu_torch.ops import cuda_nms
+from yololite_tpu_torch.ops.nms import _greedy_keep as _port_greedy_keep
+from yololite_tpu_torch.ops.nms import batched_nms, nms_numpy, yolo_scores
+
+
+def random_boxes(rng, shape, span=500.0, size=(5.0, 90.0)):
+    cx, cy = rng.rand(2, *shape) * span
+    w, h = rng.rand(2, *shape) * (size[1] - size[0]) + size[0]
+    return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).astype(np.float32)
+
+
+def chain_boxes(n=30):
+    """Boxes along a line, each overlapping only its neighbours above 0.5:
+    greedy keeps every other box, and the fixpoint needs ~n/2 steps."""
+    step = 20.0
+    return np.stack([np.arange(n) * step, np.zeros(n), np.arange(n) * step + 100.0,
+                     np.full(n, 50.0)], axis=1).astype(np.float32)
+
+
+def test_reference_equals_pallas_interpret_and_fixpoint():
+    rng = np.random.RandomState(0)
+    B, k = 3, 128
+    boxes = random_boxes(rng, (B, k))
+    valid = rng.rand(B, k) > 0.1
+    got = cuda_nms.greedy_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)
+    assert cuda_nms.LAUNCHES == 0          # CPU tensors never reach the kernel
+    pallas = np.asarray(pallas_greedy_keep(jnp.asarray(boxes), jnp.asarray(valid),
+                                           iou_th=0.5, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    for b in range(B):
+        overlap = jax_suppression_matrix(jnp.asarray(boxes[b]), use_diou=False)
+        want = np.asarray(jax_greedy_keep(overlap, jnp.asarray(valid[b]), 0.5))
+        np.testing.assert_array_equal(got[b].numpy(), want)
+
+
+def _nms_inputs(seed=3, B=2, n=400, num_classes=4):
+    rng = np.random.RandomState(seed)
+    boxes = random_boxes(rng, (B, n), span=600.0, size=(5.0, 85.0))
+    scores = rng.rand(B, n).astype(np.float32)
+    scores[:, : n // 4] = 0.0                       # ties at zero
+    classes = rng.randint(0, num_classes, (B, n)).astype(np.int32)
+    return boxes, scores, classes
+
+
+def _assert_same(got, want):
+    names = ("boxes", "scores", "classes", "valid", "idx")
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("class_aware", [True, False])
+@pytest.mark.parametrize("k", [128, 300])
+@pytest.mark.parametrize("conf", [0.05, 0.001])
+def test_batched_nms_matches_jax(conf, k, class_aware):
+    boxes, scores, classes = _nms_inputs()
+    kw = dict(iou_th=0.5, conf_th=conf, max_det=150, pre_nms_topk=k,
+              class_aware=class_aware)
+    want = jax_batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                           jnp.asarray(classes), **kw)
+    got = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                      torch.from_numpy(classes), **kw)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("class_aware", [True, False])
+def test_batched_nms_diou_matches_jax(class_aware):
+    boxes, scores, classes = _nms_inputs(seed=5)
+    kw = dict(iou_th=0.45, conf_th=0.01, max_det=100, pre_nms_topk=256,
+              class_aware=class_aware, use_diou=True)
+    want = jax_batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                           jnp.asarray(classes), **kw)
+    got = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                      torch.from_numpy(classes), **kw)
+    _assert_same(got, want)
+
+
+def test_deep_chain_is_exact_greedy():
+    """The port's suppression is exact greedy (JAX unroll=0), not the JAX
+    deploy graph's bounded unroll, which diverges on this chain."""
+    n = 30
+    boxes = chain_boxes(n)
+    scores = np.linspace(0.9, 0.3, n).astype(np.float32)
+    classes = np.zeros(n, np.int32)
+    kw = dict(iou_th=0.5, conf_th=0.001, max_det=n, pre_nms_topk=n,
+              class_aware=False)
+    exact = jax_nms_single(jnp.asarray(boxes), jnp.asarray(scores),
+                           jnp.asarray(classes), **kw)
+    unroll2 = jax_nms_single(jnp.asarray(boxes), jnp.asarray(scores),
+                             jnp.asarray(classes), fixpoint_unroll=2, **kw)
+    got = batched_nms(torch.from_numpy(boxes)[None], torch.from_numpy(scores)[None],
+                      torch.from_numpy(classes)[None], **kw)
+    _assert_same([g[0] for g in got], exact)
+    assert not np.array_equal(got[3][0].numpy(), np.asarray(unroll2[3]))
+    assert int(got[3].sum()) == n // 2
+    # the bounded-unroll variant of the plain fixpoint matches JAX's too
+    overlap = jax_suppression_matrix(jnp.asarray(boxes), use_diou=False)
+    valid = np.ones(n, bool)
+    for unroll in (0, 2, 8):
+        want = np.asarray(jax_greedy_keep(overlap, jnp.asarray(valid), 0.5, unroll=unroll))
+        port = _port_greedy_keep(torch.tensor(np.asarray(overlap)),
+                                 torch.from_numpy(valid), 0.5, unroll=unroll)
+        np.testing.assert_array_equal(port.numpy(), want)
+
+
+def test_yolo_scores_and_nms_numpy_match():
+    rng = np.random.RandomState(7)
+    obj = rng.normal(0, 2, (2, 50)).astype(np.float32)
+    cls = rng.normal(0, 2, (2, 50, 4)).astype(np.float32)
+    s, c = yolo_scores(torch.from_numpy(obj), torch.from_numpy(cls))
+    js, jc = jax_yolo_scores(jnp.asarray(obj), jnp.asarray(cls))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    boxes = random_boxes(rng, (60,))
+    scores = rng.rand(60).astype(np.float32)
+    np.testing.assert_array_equal(nms_numpy(boxes, scores, 0.5),
+                                  jax_nms_numpy(boxes, scores, 0.5))
+
+
+def test_wrapper_rejects_other_devices():
+    boxes = torch.zeros(1, 8, 4, device="meta")
+    valid = torch.zeros(1, 8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_nms.greedy_keep(boxes, valid, 0.5)

@@ -1,0 +1,100 @@
+"""PyTorch port, the slice as a whole: Predictor and YoloLite against the JAX
+Predictor on one checkpoint.
+
+Both read a checkpoint written by `save_checkpoint` + `build_meta` for a
+seeded edge_n at img 64. Frames are already 64x64, so the letterbox is the
+identity and both sides see the same pixels. conf 0.001 keeps the JAX side on
+its exact (unroll=0) suppression. Valid detections match one to one: same
+class, box within 1e-3 px, score within 1e-5 (fp32 forward rounding; see
+test_torch_port_models.py), equal count.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from yololite_tpu.deploy.predictor import Predictor as JaxPredictor
+from yololite_tpu.train.checkpoint import build_meta, save_checkpoint
+
+from tests.test_torch_port_models import edge_cfg, jax_edge
+from yololite_tpu_torch.api import YoloLite
+from yololite_tpu_torch.deploy.predictor import Predictor
+from yololite_tpu_torch.ops import cuda_nms
+
+IMG = 64
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    _, params, bs = jax_edge(IMG)
+    meta = build_meta(edge_cfg(IMG), {}, "map", ["a", "b", "c"], (1, 1, 1))
+    return save_checkpoint(str(tmp_path_factory.mktemp("ck") / "edge_n.ckpt"),
+                           params, bs, meta)
+
+
+def _frames(n=2, seed=0):
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(IMG, IMG, 3) * 255).astype(np.uint8) for _ in range(n)]
+
+
+def _assert_matched(got, want):
+    gb, gs, gc = got
+    wb, ws, wc = (np.asarray(x) for x in want)
+    assert len(gb) == len(wb) > 0
+    unmatched = list(range(len(wb)))
+    for b, s, c in zip(gb, gs, gc):
+        hit = [j for j in unmatched if wc[j] == c
+               and np.abs(wb[j] - b).max() <= 1e-3 and abs(ws[j] - s) <= 1e-5]
+        assert hit, f"no JAX detection matches class {c} box {b} score {s}"
+        unmatched.remove(hit[0])
+
+
+def test_predictor_matches_jax(ckpt):
+    port = Predictor(ckpt, device="cpu", dtype=torch.float32)
+    ref = JaxPredictor(ckpt, dtype=jnp.float32)
+    for frame in _frames():
+        got = port.infer_image(frame, conf=0.001, iou=0.45)
+        want = ref.infer_image(frame, conf=0.001, iou=0.45)
+        _assert_matched(got, want)
+    assert cuda_nms.LAUNCHES == 0
+
+
+def test_batch_and_stream_agree_with_single(ckpt):
+    port = Predictor(ckpt, device="cpu", dtype=torch.float32)
+    frames = _frames(3, seed=1)
+    single = [port.infer_image(f, conf=0.01) for f in frames]
+    batched = port.infer_batch(frames, conf=0.01)
+    canvases = np.stack([np.ascontiguousarray(f[..., ::-1]) for f in frames])
+    streamed = [r for out in port.infer_batched_stream(
+        [canvases, canvases[:2]], conf=0.01, prepared=True, depth=1) for r in out]
+    assert len(batched) == 3 and len(streamed) == 5
+    for i, (b, s, c) in enumerate(single):
+        # streamed[3:] is the second batch, canvases[:2]
+        for r in [batched[i], streamed[i]] + ([streamed[3 + i]] if i < 2 else []):
+            np.testing.assert_allclose(r["boxes"], b, atol=1e-3)
+            np.testing.assert_allclose(r["scores"], s, atol=1e-5)
+            np.testing.assert_array_equal(r["classes"], c)
+    assert "total_ms" in batched[0]["speed"]
+
+
+def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
+    model = YoloLite(ckpt, device="cpu")
+    frames = _frames(2, seed=2)
+    res = model.predict(frames, conf=0.01)
+    assert len(res) == 2 and res[0]["boxes"].shape[1] == 4
+    assert res[0]["masks"] is None and "total_ms" in res[0]["speed"]
+    np.save(tmp_path / "f.npy", frames[0])
+    one = model.predict(str(tmp_path / "f.npy"), conf=0.01)[0]
+    np.testing.assert_allclose(one["boxes"], res[0]["boxes"], atol=1e-3)
+    with pytest.raises(ValueError, match="no image codec"):
+        model.predict("image.jpg")
+    for call, item in ((model.train, "item 8"), (model.val, "item 7"),
+                       (model.export, "item 12")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Predictor(ckpt, device="cpu", quantize="int8")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        Predictor(ckpt, device="cpu", s2d_stem=True)

@@ -1,0 +1,262 @@
+"""Reusable predictor over a checkpoint: the deploy-time inference seam.
+
+Port of `deploy/predictor.py`:
+  Predictor(weights).infer_image(img_bgr, img_size, conf, iou, max_det)
+    -> (boxes_xyxy, scores, classes) in ORIGINAL image pixels,
+with letterbox (or square-resize) preprocessing on the host and, on the
+device: uint8 -> folded normalize -> detector (channels_last, `dtype`) ->
+fused heads -> decode (fp32) -> scores -> NMS (fp32, pre-NMS top-k 512, the
+suppression in the CUDA kernel of `ops/cuda_nms.py`).
+
+Suppression is exact greedy (JAX `fixpoint_unroll=0`) at every confidence;
+the JAX Predictor's default `unroll=8` approximates it on chains deeper
+than 8.
+
+Calls launch asynchronously on the current CUDA stream; results come back
+through pinned host buffers and an event, so `infer_batched_stream` keeps
+`depth` batches in flight while the host prepares the next one.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from yololite_tpu_torch.convert import load_flax
+from yololite_tpu_torch.deploy.fold_norm import (
+    fold_normalization, folded_stem, normalize_images, raw_cast,
+)
+from yololite_tpu_torch.deploy.fuse_head import fuse_head_params
+from yololite_tpu_torch.models.detector import YOLOLiteMS
+from yololite_tpu_torch.ops.decode import decode_anchorfree
+from yololite_tpu_torch.ops.letterbox import (
+    letterbox_image, resize_image, unletterbox_boxes,
+)
+from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
+from yololite_tpu_torch.train.checkpoint import load_checkpoint, model_from_meta
+
+PRE_NMS_TOPK = 512
+
+
+def _bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+class Predictor:
+    def __init__(self, weights, device: str = "cuda", dtype=torch.bfloat16,
+                 use_letterbox: bool = True, fold_normalize: bool = True,
+                 quantize: Optional[str] = None, s2d_stem: bool = False):
+        """`weights` is a checkpoint path (JAX msgpack format), or a
+        `(model, state_dict, meta)` triple of an unfused `YOLOLiteMS`, its
+        torch state_dict and a meta dict (img_size, names)."""
+        if quantize is not None:
+            raise NotImplementedError("int8 quantization: ROADMAP Queue 1 item 10")
+        if s2d_stem:
+            raise NotImplementedError("space-to-depth stem: ROADMAP Queue 1 item 5")
+        self.device = torch.device(device)
+        self.dtype = dtype
+        if isinstance(weights, (tuple, list)):
+            model, sd, meta = weights
+        else:
+            flax_sd, meta = load_checkpoint(weights)
+            model = load_flax(model_from_meta(meta), flax_sd["params"],
+                              flax_sd["batch_stats"])
+            sd = model.state_dict()
+        self.meta = meta
+        self.folded = False
+        if fold_normalize:
+            sd, self.folded = fold_normalization(sd)
+        sd, fused = fuse_head_params(sd)
+        self.model = YOLOLiteMS(**dict(model.config, fused_head=fused
+                                       or model.config["fused_head"]))
+        self.model.load_state_dict(sd)
+        if self.folded:
+            folded_stem(self.model)
+        self.model.to(device=self.device, dtype=dtype).eval()
+        if self.device.type == "cuda":
+            self.model.to(memory_format=torch.channels_last)
+        self.img_size = int(meta.get("img_size", 640))
+        self.names = meta.get("names")
+        self.use_letterbox = use_letterbox
+
+    # ------------------------------------------------------------------ #
+    def forward(self, images_u8: torch.Tensor):
+        """[B,S,S,3] uint8 on the device -> per-level [B,A,S,S,5+C] maps.
+        The NHWC batch viewed as NCHW is channels_last already."""
+        x = images_u8.permute(0, 3, 1, 2)
+        x = raw_cast(x, self.dtype) if self.folded else normalize_images(x, self.dtype)
+        return self.model(x)
+
+    def postprocess(self, outs, img_size: int, conf: float, iou: float,
+                    max_det: int):
+        """Per-level maps -> (boxes, scores, classes, valid) [B, max_det, ...]."""
+        d = decode_anchorfree([o.float() for o in outs], img_size)
+        scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
+        out = batched_nms(d["box"], scores, classes, iou_th=iou, conf_th=conf,
+                          max_det=max_det, pre_nms_topk=PRE_NMS_TOPK)
+        return out[:4]
+
+    def _upload(self, batch) -> torch.Tensor:
+        if isinstance(batch, torch.Tensor):
+            return batch.to(self.device, non_blocking=True)
+        t = torch.from_numpy(np.ascontiguousarray(batch))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    @torch.inference_mode()
+    def _run(self, img_size: int, conf: float, iou: float, max_det: int, batch):
+        """Launch one graph call; returns device tensors (not waited for)."""
+        return self.postprocess(self.forward(self._upload(batch)), img_size,
+                                conf, iou, max_det)
+
+    def _launch(self, img_size, conf, iou, max_det, batch):
+        """Launch a call and its copy back to the host. Returns (host tensors,
+        event); the tensors are ready once the event has completed."""
+        out = self._run(img_size, conf, iou, max_det, batch)
+        if self.device.type != "cuda":
+            return out, None
+        host = tuple(t.to("cpu", non_blocking=True) for t in out)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    @staticmethod
+    def _wait(handle):
+        host, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        return tuple(t.numpy() for t in host)
+
+    # ------------------------------------------------------------------ #
+    def preprocess(self, img_rgb: np.ndarray, img_size: int):
+        """Returns (canvas, ((sx, sy), pad_x, pad_y))."""
+        if self.use_letterbox:
+            canvas, scale, px, py = letterbox_image(img_rgb, img_size)
+            return canvas, ((scale, scale), px, py)
+        canvas, sx, sy = resize_image(img_rgb, img_size)
+        return canvas, ((sx, sy), 0, 0)
+
+    def _prepare(self, frames_bgr, img_size: int):
+        canvases, geoms, sizes = [], [], []
+        for f in frames_bgr:
+            canvas, geom = self.preprocess(np.ascontiguousarray(f[..., ::-1]),
+                                           img_size)
+            canvases.append(canvas)
+            geoms.append(geom)
+            sizes.append(f.shape[:2])
+        n = len(frames_bgr)
+        batch = np.zeros((_bucket(n), img_size, img_size, 3), np.uint8)
+        batch[:n] = np.stack(canvases)
+        return batch, geoms, sizes
+
+    def infer_image(self, img_bgr: np.ndarray, img_size: Optional[int] = None,
+                    conf: float = 0.25, iou: float = 0.45, max_det: int = 300
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """BGR frame in -> (boxes xyxy px, scores, classes) in original pixels."""
+        out = self.infer_image_profiled(img_bgr, img_size, conf, iou, max_det)
+        return out["boxes"], out["scores"], out["classes"]
+
+    def infer_image_profiled(self, img_bgr: np.ndarray,
+                             img_size: Optional[int] = None, conf: float = 0.25,
+                             iou: float = 0.45, max_det: int = 300) -> Dict:
+        img_size = int(img_size or self.img_size)
+        h, w = img_bgr.shape[:2]
+        t0 = time.perf_counter()
+        canvas, (scale, px, py) = self.preprocess(
+            np.ascontiguousarray(img_bgr[..., ::-1]), img_size)
+        t1 = time.perf_counter()
+        boxes, scores, classes, valid = self._wait(
+            self._launch(img_size, conf, iou, max_det, canvas[None]))
+        t2 = time.perf_counter()
+        m = valid[0]
+        b = unletterbox_boxes(boxes[0][m], scale, px, py, w, h)
+        t3 = time.perf_counter()
+        return {"boxes": b, "scores": scores[0][m], "classes": classes[0][m],
+                "masks": None, "names": self.names,
+                "speed": {"preprocess_ms": (t1 - t0) * 1e3,
+                          "inference_ms": (t2 - t1) * 1e3,
+                          "postprocess_ms": (t3 - t2) * 1e3,
+                          "total_ms": (t3 - t0) * 1e3}}
+
+    def _results(self, arrays, geoms, sizes, n: int, per: Dict[str, float]):
+        boxes, scores, classes, valid = arrays
+        results = []
+        for i in range(n):
+            m = valid[i]
+            if geoms is None:
+                b = boxes[i][m]
+            else:
+                (scale, px, py), (h, w) = geoms[i], sizes[i]
+                b = unletterbox_boxes(boxes[i][m], scale, px, py, w, h)
+            results.append({"boxes": b, "scores": scores[i][m],
+                            "classes": classes[i][m], "masks": None,
+                            "names": self.names, "speed": dict(per)})
+        return results
+
+    def infer_batch(self, frames_bgr, img_size: Optional[int] = None,
+                    conf: float = 0.25, iou: float = 0.45, max_det: int = 300):
+        """One call per power-of-2 batch bucket; per-image back-mapping.
+        Returns a list of result dicts like infer_image_profiled."""
+        img_size = int(img_size or self.img_size)
+        n = len(frames_bgr)
+        if n == 0:
+            return []
+        t0 = time.perf_counter()
+        batch, geoms, sizes = self._prepare(frames_bgr, img_size)
+        t1 = time.perf_counter()
+        arrays = self._wait(self._launch(img_size, conf, iou, max_det, batch))
+        t2 = time.perf_counter()
+        per_pre, per_inf = (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n
+        return self._results(arrays, geoms, sizes, n,
+                             {"preprocess_ms": per_pre, "inference_ms": per_inf,
+                              "postprocess_ms": 0.0,
+                              "total_ms": per_pre + per_inf})
+
+    def infer_batched_stream(self, batches, img_size: Optional[int] = None,
+                             conf: float = 0.25, iou: float = 0.45,
+                             max_det: int = 300, depth: int = 2,
+                             prepared: bool = False):
+        """Sustained batched serving: a generator over an iterable of frame
+        batches that keeps `depth` calls in flight (depth <= 0: synchronous).
+
+        Each item is a list of BGR frames (padded to a power-of-2 bucket), or,
+        with prepared=True, an already letterboxed uint8 [B, S, S, 3] array
+        (or a tensor already on the device); then back-mapping is skipped and
+        canvas-space boxes are yielded. Yields one list of result dicts per
+        input batch, in order."""
+        img_size = int(img_size or self.img_size)
+        inflight = deque()
+
+        def finalize(item):
+            handle, geoms, sizes, n, t_pre = item
+            return self._results(self._wait(handle), geoms, sizes, n,
+                                 {"preprocess_ms": t_pre * 1e3 / n})
+
+        for item in batches:
+            t0 = time.perf_counter()
+            if prepared:
+                batch, geoms, sizes, n = item, None, None, len(item)
+            else:
+                batch, geoms, sizes = self._prepare(item, img_size)
+                n = len(item)
+            t_pre = time.perf_counter() - t0
+            inflight.append((self._launch(img_size, conf, iou, max_det, batch),
+                             geoms, sizes, n, t_pre))
+            if len(inflight) > max(depth, 0):
+                yield finalize(inflight.popleft())
+        while inflight:
+            yield finalize(inflight.popleft())
+
+    def warmup(self, img_size: Optional[int] = None, conf: float = 0.25,
+               iou: float = 0.45, max_det: int = 300):
+        img_size = int(img_size or self.img_size)
+        self._wait(self._launch(img_size, conf, iou, max_det,
+                                np.zeros((1, img_size, img_size, 3), np.uint8)))
