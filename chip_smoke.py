@@ -6,7 +6,10 @@ Phases (any failure exits non-zero and prints no result line):
   1. device   a CUDA card must be present; prints `nvidia-smi` name, power limit
   2. build    compiles every CUDA source of the serving path (build/kernels/)
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes: the keep masks must be equal
+              the serving path's shapes and beyond (nms_suppress: B=128 at
+              k = 256, 512, 1024, 2048; B=1 at k=512; B=8 at k=8,400): the
+              keep masks must be equal; prints kernel, mask-pass, scan and
+              plain ms beside the bound
   4. fp32     edge_n @640, 2 images, TF32 off: card (kernel) against CPU
               (plain version)
   5. serve    edge_n @640 at full width, seeded heads and the bundled
@@ -59,6 +62,9 @@ BACKBONE_CKPT = os.path.join(ROOT, "weights", "mnv4_050_cls20.ckpt")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 IOU_FLOPS_PER_PAIR = 15   # 4 min/max, 4 sub, 2 clamp, 1 mul, 2 add, 1 div, 1 cmp
+SLEEP_CYCLES_PER_MS = 2.0e6   # at most ~2 GHz SM clock: a sleep at least this long
+NMS_CASES = [(BATCH, 256), (BATCH, PRE_NMS_TOPK), (BATCH, 1024), (BATCH, 2048),
+             (1, PRE_NMS_TOPK), (8, 8400)]    # (B, k); k=8,400: every anchor at 640
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
 
@@ -68,11 +74,20 @@ def log(msg=""):
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+    """Mean device time of fn() over `iters` back-to-back calls (CUDA events).
+
+    The calls are queued behind a sleep kernel that outlasts their host-side
+    launch time, so the device runs them back to back and a short kernel is
+    not paced by the host's launch overhead."""
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * iters * host_ms + 1.0, 200.0) * SLEEP_CYCLES_PER_MS))
     start.record()
     for _ in range(iters):
         fn()
@@ -123,34 +138,78 @@ def _dense_boxes(rng, b, k):
             torch.from_numpy(valid).cuda())
 
 
-def nms_bound_ms(b: int, k: int):
-    ops = b * k * (k - 1) / 2 * IOU_FLOPS_PER_PAIR
+def nms_bound_ms(keep: torch.Tensor, valid: torch.Tensor):
+    """Least time for the suppression on this data: the IoUs exact greedy
+    needs (each kept box against every later valid candidate) at the fp32
+    rate, or the bytes (boxes and valid in, keep out) at the memory rate."""
+    later_valid = valid.flip(-1).cumsum(-1).flip(-1) - valid.long()
+    pairs = int((later_valid * keep).sum())
+    b, k = keep.shape
+    ops = pairs * IOU_FLOPS_PER_PAIR
     nbytes = b * k * (16 + 1 + 1)                # boxes f32, valid, keep
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (t_ops, "operations", pairs) if t_ops >= t_bytes else (t_bytes, "bytes", pairs)
+
+
+def _launch_split(boxes, valid, iou_th):
+    """The kernel's two launches as separate calls, for timing them apart
+    (not counted in cuda_nms.LAUNCHES)."""
+    lib = cuda_nms.library()
+    b, k = valid.shape
+    scratch = torch.empty((b, k, cuda_nms.mask_words(k)), dtype=torch.int32, device="cuda")
+    keep = torch.empty((b, k), dtype=torch.bool, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err, name):
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+    def mask():
+        check(lib.yl_nms_mask(boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+                              b, k, iou_th, stream), "yl_nms_mask")
+
+    def scan():
+        check(lib.yl_nms_scan(scratch.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                              b, k, stream), "yl_nms_scan")
+    return mask, scan, keep
 
 
 def phase_kernels(card: str):
     rng = np.random.RandomState(0)
-    rows = {}
-    for k in (256, 512, 1024):
-        boxes, valid = _dense_boxes(rng, BATCH, k)
-        got = cuda_nms.greedy_keep(boxes, valid, 0.65)
-        want = cuda_nms.greedy_keep_reference(boxes, valid, 0.65)
+    rows, max_err, thr = {}, 0, 0.65
+    for b, k in NMS_CASES:
+        boxes, valid = _dense_boxes(rng, b, k)
+        got = cuda_nms.greedy_keep(boxes, valid, thr)
+        want = cuda_nms.greedy_keep_reference(boxes, valid, thr)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        err = int((got.int() - want.int()).abs().max())
+        max_err = max(max_err, err)
+        if err:
             bad = int((got != want).sum())
-            raise AssertionError(f"nms_suppress k={k}: {bad} keep bits differ")
+            raise AssertionError(f"nms_suppress B={b} k={k}: {bad} keep bits differ")
         if k >= 30 and int(got[0, :30].sum()) != 15:
             raise AssertionError("nms_suppress: the 30-box chain must keep 15")
-        ms = cuda_ms(lambda: cuda_nms.greedy_keep(boxes, valid, 0.65), 50)
-        plain = cuda_ms(lambda: cuda_nms.greedy_keep_reference(boxes, valid, 0.65), 5, 1)
-        bound, by = nms_bound_ms(BATCH, k)
-        rows[k] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                   "kept": int(got.sum())}
-        log(f"kernel nms_suppress B={BATCH} k={k}: equal keep masks "
-            f"({int(got.sum())} kept); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}) [{card}]")
+        mask, scan, split_keep = _launch_split(boxes, valid, thr)
+        mask()
+        scan()
+        torch.cuda.synchronize()
+        if not torch.equal(split_keep, got):
+            raise AssertionError(f"nms_suppress B={b} k={k}: split launches differ")
+        many = 50 if b * k <= 2 ** 17 else 20
+        ms = cuda_ms(lambda: cuda_nms.greedy_keep(boxes, valid, thr), many)
+        ms_mask = cuda_ms(mask, many)
+        ms_scan = cuda_ms(scan, many)
+        plain = cuda_ms(lambda: cuda_nms.greedy_keep_reference(boxes, valid, thr), 3, 1)
+        bound, by, pairs = nms_bound_ms(got, valid)
+        key = f"B{b}_k{k}"
+        rows[key] = {"batch": b, "k": k, "ms": ms, "ms_mask": ms_mask, "ms_scan": ms_scan,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "pairs": pairs, "kept": int(got.sum())}
+        log(f"kernel nms_suppress B={b} k={k}: equal keep masks ({int(got.sum())} kept); "
+            f"kernel {ms:.4f} ms (mask {ms_mask:.4f}, scan {ms_scan:.4f}), "
+            f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {pairs} pairs) [{card}]")
+        del boxes, valid, got, want, mask, scan, split_keep
+        torch.cuda.empty_cache()
     chain = torch.tensor([[i * 20.0, 0.0, i * 20.0 + 100.0, 50.0] for i in range(30)],
                          device="cuda")[None]
     keep = cuda_nms.greedy_keep(chain.contiguous(),
@@ -158,7 +217,7 @@ def phase_kernels(card: str):
     if keep[0].tolist() != [i % 2 == 0 for i in range(30)]:
         raise AssertionError("nms_suppress: chain of 30 must keep every other box")
     log("kernel nms_suppress: 30-box chain keeps every other box (exact greedy)")
-    return rows
+    return rows, max_err
 
 
 def _edge_n_model(seed: int = 0):
@@ -354,14 +413,16 @@ def _decode_scores(outs):
 def main():
     card = phase_device()
     phase_build()
-    krows = phase_kernels(card)
+    krows, max_err = phase_kernels(card)
     fp32 = phase_fp32(card)
     serve = phase_serve(card)
-    main_k = krows[PRE_NMS_TOPK]
-    kernels = [dict(KERNELS[0], launches=serve["launches"], max_abs_err=0.0,
+    main_k = krows[f"B{BATCH}_k{PRE_NMS_TOPK}"]
+    kernels = [dict(KERNELS[0], launches=serve["launches"], max_abs_err=float(max_err),
                     ms=main_k["ms"], plain_ms=main_k["plain_ms"],
                     bound_ms=main_k["bound_ms"], bound_by=main_k["bound_by"],
-                    library_ms=None)]
+                    library_ms=None, ms_mask=main_k["ms_mask"], ms_scan=main_k["ms_scan"],
+                    ms_b1=krows[f"B1_k{PRE_NMS_TOPK}"]["ms"],
+                    ms_by_k={key: r["ms"] for key, r in krows.items()})]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,

@@ -5,6 +5,8 @@ the card's machine, which has none (tests/conftest.py imports JAX, hence
 `--noconftest`):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+Keep masks are discrete, so every comparison is exact.
 """
 
 import numpy as np
@@ -27,27 +29,75 @@ def card():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 33, 256, 512, 1024])
-def test_kernel_matches_reference(card, k):
-    rng = np.random.RandomState(k)
-    boxes = torch.from_numpy(_boxes(rng, 16, k)).cuda()
-    valid = torch.from_numpy(rng.rand(16, k) > 0.1).cuda()
+def _check(boxes, valid, thr=0.5):
+    boxes, valid = boxes.cuda().contiguous(), valid.cuda().contiguous()
     before = cuda_nms.LAUNCHES
-    got = cuda_nms.greedy_keep(boxes, valid, 0.5)
+    got = cuda_nms.greedy_keep(boxes, valid, thr)
     torch.cuda.synchronize()
     assert cuda_nms.LAUNCHES == before + 1
-    assert torch.equal(got, cuda_nms.greedy_keep_reference(boxes, valid, 0.5))
+    want = cuda_nms.greedy_keep_reference(boxes, valid, thr)
+    assert torch.equal(got, want), f"{int((got != want).sum())} keep bits differ"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 63, 64, 65, 511, 512, 1024, 1025, 2048])
+def test_kernel_matches_reference(card, k, b):
+    rng = np.random.RandomState(k * 10 + b)
+    _check(torch.from_numpy(_boxes(rng, b, k)), torch.from_numpy(rng.rand(b, k) > 0.1))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_reference_at_all_anchors(card):
+    """k = 8,400: every anchor of a 640 image, as JAX's batched_nms takes."""
+    rng = np.random.RandomState(8400)
+    boxes = _boxes(rng, 2, 8400)
+    boxes += (rng.randint(0, 3, (2, 8400)) * 8192.0)[..., None].astype(np.float32)
+    _check(torch.from_numpy(boxes), torch.from_numpy(rng.rand(2, 8400) > 0.1))
+
+
+@pytest.mark.cuda
+def test_kernel_edge_cases(card):
+    rng = np.random.RandomState(5)
+    boxes = torch.from_numpy(_boxes(rng, 2, 100))
+    valid = torch.ones(2, 100, dtype=torch.bool)
+    valid[0] = False                                    # an all-invalid image
+    valid[1, 40:] = False                               # an invalid tail
+    keep = _check(boxes, valid)
+    assert not keep[0].any() and not keep[1, 40:].any()
+    same = torch.tensor([[10.0, 10.0, 60.0, 40.0]]).repeat(1, 70, 1)
+    keep = _check(same, torch.ones(1, 70, dtype=torch.bool))
+    assert keep[0].tolist() == [True] + [False] * 69    # only the first is kept
+    n = 100                                             # crosses three word boundaries
+    chain = torch.tensor([[i * 20.0, 0.0, i * 20.0 + 100.0, 50.0] for i in range(n)])[None]
+    keep = _check(chain, torch.ones(1, n, dtype=torch.bool))
+    assert keep[0].tolist() == [i % 2 == 0 for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_iou_equal_to_threshold_does_not_suppress(card):
+    """IoU(big, small) = 1 / ((2 + 1 - 1) + 1e-7) = 0.5 exactly in fp32 (the
+    1e-7 is below half an ulp of 2), and 1 / 4 = 0.25 exactly likewise:
+    `IoU > thr` is false, so both boxes stay."""
+    for big, thr in (([0.0, 0.0, 2.0, 1.0], 0.5), ([0.0, 0.0, 2.0, 2.0], 0.25)):
+        pair = torch.tensor([[big, [0.0, 0.0, 1.0, 1.0]]])
+        keep = _check(pair, torch.ones(1, 2, dtype=torch.bool), thr)
+        assert keep[0].tolist() == [True, True]
+        keep = _check(pair, torch.ones(1, 2, dtype=torch.bool), float(np.nextafter(
+            np.float32(thr), np.float32(0.0))))
+        assert keep[0].tolist() == [True, False]
 
 
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     boxes = torch.zeros(2, 1025, 4, device="cuda")
-    with pytest.raises(ValueError, match="outside"):
-        cuda_nms.greedy_keep(boxes, torch.ones(2, 1025, dtype=torch.bool, device="cuda"), 0.5)
     with pytest.raises(ValueError, match="float32"):
         cuda_nms.greedy_keep(boxes[:, :8].half(), torch.ones(2, 8, dtype=torch.bool,
                                                               device="cuda"), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_nms.greedy_keep(boxes.transpose(0, 1).contiguous().transpose(0, 1),
+                             torch.ones(2, 1025, dtype=torch.bool, device="cuda"), 0.5)
     rng = np.random.RandomState(0)
     b = torch.from_numpy(_boxes(rng, 2, 64)).cuda()
     s = torch.rand(2, 64, device="cuda")

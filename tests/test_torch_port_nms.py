@@ -3,7 +3,9 @@
 Discrete outputs (keep masks, indices, classes, padding) must match exactly;
 scores and boxes are gathered, not computed, so they match exactly too. The
 CUDA kernel itself runs only on the card (`chip_smoke.py` and
-`tests/test_torch_port_cuda.py`).
+`tests/test_torch_port_cuda.py`); here a numpy model of its word layout and
+chunked scan (`_kernel_model_keep`) is held against JAX's exact greedy keep,
+also exactly.
 """
 
 import numpy as np
@@ -145,3 +147,126 @@ def test_wrapper_rejects_other_devices():
     valid = torch.zeros(1, 8, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_nms.greedy_keep(boxes, valid, 0.5)
+
+
+@pytest.mark.parametrize("conf", [0.05, 0.001])
+def test_batched_nms_matches_jax_above_1024_candidates(conf):
+    """k = min(pre_nms_topk, N) = 2048: the port takes any k, as JAX does."""
+    boxes, scores, classes = _nms_inputs(seed=11, B=2, n=2100)
+    kw = dict(iou_th=0.5, conf_th=conf, max_det=300, pre_nms_topk=2048)
+    want = jax_batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                           jnp.asarray(classes), fixpoint_unroll=0, **kw)
+    got = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                      torch.from_numpy(classes), **kw)
+    _assert_same(got, want)
+
+
+MASK_WARPS = 8        # column words per mask-pass block (kMaskWarps)
+SCAN_HELPERS = 8      # helper warps of the scan (kScanHelpers)
+
+
+def _bits(flags):
+    """[..., 32] bool -> [...] int: bit l set where flags[..., l]."""
+    return (flags.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+
+
+def _kernel_model_keep(overlap, valid, thr, rng):
+    """Numpy model of csrc/nms_suppress.cu, in its index arithmetic: the mask
+    pass's blocks, staging and word layout (bit i & 31 of word i >> 5, upper
+    triangle of valid rows only), then the scan's chunks with warp 0's
+    `carry` and the helpers one chunk behind (near words by warp and lane,
+    far words by owner thread). Words the mask pass does not write hold
+    random bits, and every word the scan uses must be written."""
+    k = len(valid)
+    words = (k + 31) // 32
+    mask = rng.randint(0, 2 ** 32, (k, words), dtype=np.uint64).astype(np.uint32)
+    written = np.zeros((k, words), bool)
+    sup = overlap > thr
+    for c in range(words):                               # blockIdx.y
+        for w0 in range(0, words, MASK_WARPS):           # blockIdx.z * 8
+            if w0 + MASK_WARPS - 1 < c:
+                continue
+            staged = 32 * w0 + np.arange(32 * MASK_WARPS)   # scol[t]
+            for warp in range(MASK_WARPS):
+                w = w0 + warp
+                if w < c or w >= words:
+                    continue
+                cols = staged[32 * warp:32 * warp + 32]      # sc[l]
+                assert (cols == 32 * w + np.arange(32)).all()
+                rows = 32 * c + np.arange(32)                # lanes
+                row_valid = (rows < k) & valid[np.minimum(rows, k - 1)]
+                if not row_valid.any():
+                    continue
+                for j in rows[row_valid]:
+                    lo, hi = max(j + 1 - 32 * w, 0), min(k - 32 * w, 32)
+                    keep_cols = np.zeros(32, bool)
+                    keep_cols[lo:hi] = True                  # `cols` bitmask
+                    iou_bits = sup[j, np.minimum(cols, k - 1)] & (cols < k)
+                    mask[j, w] = _bits(iou_bits & keep_cols)
+                    written[j, w] = True
+    vpad = np.zeros(words * 32, bool)
+    vpad[:k] = valid
+    validbits = [int(_bits(vpad[32 * c:32 * c + 32])) for c in range(words)]
+    removed = [0] * words
+    keep = np.zeros(words * 32, bool)
+    carry, kept_prev = 0, 0
+    for c in range(words):
+        # warp 0: (a) resolve chunk c, then word c+1 of its kept rows -> carry
+        vb, kept = validbits[c], 0
+        if vb:
+            cur = removed[c] | carry | (~vb & 0xFFFFFFFF)
+            for r in range(32):
+                if not (cur >> r) & 1:
+                    assert written[32 * c + r, c]
+                    cur |= int(mask[32 * c + r, c])
+            kept = ~cur & vb & 0xFFFFFFFF
+        carry = 0
+        for r in range(32):
+            keep[32 * c + r] = (kept >> r) & 1
+            if (kept >> r) & 1 and c + 1 < words:
+                assert written[32 * c + r, c + 1]
+                carry |= int(mask[32 * c + r, c + 1])
+        # helpers: (b) chunk c-1's kept rows into words c+1 .. c+32 with the
+        # values loaded in the step before (warp g: rows g + 8q, lane l: word
+        # c+1+l), then into each word beyond through its owner thread
+        if c > 0 and kept_prev:
+            for g in range(SCAN_HELPERS):
+                for lane in range(32):
+                    w = c + 1 + lane
+                    assert w == (c - 1) + 2 + lane               # loaded ahead
+                    for r in range(g, 32, SCAN_HELPERS):
+                        if (kept_prev >> r) & 1 and w < words:
+                            assert written[32 * (c - 1) + r, w]
+                            removed[w] |= int(mask[32 * (c - 1) + r, w])
+            for h in range(256):
+                w = h
+                if w < c + 33:
+                    w += ((c + 33 - w + 255) >> 8) << 8
+                assert w >= c + 33 and w % 256 == h and w - 256 < c + 33
+                for w in range(w, words, 256):
+                    for r in range(32):
+                        if (kept_prev >> r) & 1:
+                            assert written[32 * (c - 1) + r, w]
+                            removed[w] |= int(mask[32 * (c - 1) + r, w])
+        kept_prev = kept
+    return keep[:k]
+
+
+@pytest.mark.parametrize("k", [1, 33, 64, 100, 300, 1025, 2100, "chain"])
+def test_kernel_layout_model_matches_jax_greedy(k):
+    """One tile of 8 column words (k <= 256), two (k = 300), five (k = 1025),
+    words beyond the helpers' near stripe (k = 2100), ragged last words, and
+    the 100-box chain across four words."""
+    rng = np.random.RandomState(17)
+    if k == "chain":
+        boxes = chain_boxes(100)
+        valid = np.ones(100, bool)
+    else:
+        boxes = random_boxes(rng, (k,), span=400.0)
+        valid = rng.rand(k) > 0.15
+    overlap = jax_suppression_matrix(jnp.asarray(boxes), use_diou=False)
+    want = np.asarray(jax_greedy_keep(overlap, jnp.asarray(valid), 0.5))
+    got = _kernel_model_keep(np.asarray(overlap), valid, 0.5, rng)
+    np.testing.assert_array_equal(got, want)
+    if k == "chain":
+        assert got.tolist() == [i % 2 == 0 for i in range(100)]

@@ -3,19 +3,28 @@
 Replaces the Pallas TPU kernel `_suppress_kernel` launched by
 `pallas_greedy_keep` (yololite_tpu/ops/pallas_nms.py), which the JAX
 `batched_nms(use_pallas=True)` path calls. The CUDA source is
-`yololite_tpu_torch/csrc/nms_suppress.cu`: one thread block per image builds
-the k x k suppression bitmask in shared memory and one warp runs the greedy
-scan, giving the exact greedy keep mask (the fixpoint's unique solution).
+`yololite_tpu_torch/csrc/nms_suppress.cu`; it gives the exact greedy keep
+mask (the fixpoint's unique solution) for any k.
 
-Bound on the H100: fp32 compute, about 15 operations per pair over
-B*k*(k-1)/2 pairs, ~3.8 us for B=128, k=512 at the card's ~67 TFLOP/s fp32
-(non-tensor) rate; it moves ~1 MB, which is negligible. The greedy scan is a
-chain of k dependent steps, so the kernel is latency-bound well above that
-bound; making the scan shorter is later work.
+Bound on the H100: operations, about 15 fp32 operations per pair, ~3.8 us
+for all B*k*(k-1)/2 pairs at B=128, k=512 at the card's ~67 TFLOP/s fp32
+(non-tensor) rate; it moves ~1 MB, which is negligible.
+
+The first design (one block per image, the mask in shared memory, one warp
+scanning the k rows one by one) lost its time to one SM per image, a mask
+pass over the full square with a ballot per word, and a scan of k dependent
+steps; it also capped k at 1024. The kernel now runs two launches on the
+current stream: a mask pass spread over (image, 32-row chunk, column tile)
+blocks that builds whole 32-bit words of the upper triangle in registers
+into a [B, k, ceil(k/32)] uint32 scratch tensor (allocated here, never
+zeroed), then a scan, one block per image, that resolves 32 rows at a time
+in one warp's registers and ORs the kept rows into a `removed` bitset in
+shared memory.
 
 `greedy_keep` takes CPU tensors to `greedy_keep_reference` (the plain PyTorch
 fixpoint on `box_iou_matrix`); for CUDA tensors it launches the kernel or
-raises. `LAUNCHES` counts kernel launches.
+raises. `LAUNCHES` counts kernel calls (mask pass and scan together count
+one).
 """
 
 from __future__ import annotations
@@ -25,10 +34,9 @@ import ctypes
 import torch
 
 LAUNCHES = 0
-MAX_K = 1024
 SOURCE = "yololite_tpu_torch/csrc/nms_suppress.cu"
 
-_FN = None
+_LIB = None
 
 
 def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
@@ -40,16 +48,27 @@ def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
     return _greedy_keep(box_iou_matrix(boxes, boxes), valid, iou_th)
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
+def library() -> ctypes.CDLL:
+    """The built `nms_suppress` library with its C functions typed:
+    `yl_nms_greedy_keep` (the kernel) and its two launches `yl_nms_mask` and
+    `yl_nms_scan`, which only the card's smoke run calls apart to time them."""
+    global _LIB
+    if _LIB is None:
         from yololite_tpu_torch.csrc.build import load
-        fn = load("nms_suppress").yl_nms_greedy_keep
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        lib = load("nms_suppress")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.yl_nms_greedy_keep.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.yl_nms_mask.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.yl_nms_scan.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+        for fn in (lib.yl_nms_greedy_keep, lib.yl_nms_mask, lib.yl_nms_scan):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def mask_words(k: int) -> int:
+    """32-bit words per row of the kernel's suppression bitmask."""
+    return (k + 31) // 32
 
 
 def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
@@ -73,15 +92,15 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError("greedy_keep: boxes and valid on different devices")
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("greedy_keep: inputs must be contiguous")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"greedy_keep: k={k} outside 1..{MAX_K}")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    if b == 0:
+    if b == 0 or k == 0:
         return keep
+    scratch = torch.empty((b, k, mask_words(k)), dtype=torch.int32, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                        b, k, float(iou_th), stream)
+        err = library().yl_nms_greedy_keep(boxes.data_ptr(), valid.data_ptr(),
+                                           keep.data_ptr(), scratch.data_ptr(),
+                                           b, k, float(iou_th), stream)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
