@@ -7,8 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build    compiles every CUDA source of the serving path (build/kernels/)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the serving path's shapes and beyond (nms_suppress: B=128 at
-              k = 256, 512, 1024, 2048; B=1 at k=512; B=8 at k=8,400): the
-              keep masks must be equal; prints kernel, mask-pass, scan and
+              k = 256, 512, 1024, 2048; B=1 at k=512; B=8 at k=8,400 and
+              k=8,683): the keep masks must be equal; prints kernel, mask-pass, scan and
               plain ms beside the bound
   4. fp32     edge_n @640, 2 images, TF32 off: card (kernel) against CPU
               (plain version)
@@ -17,6 +17,14 @@ Phases (any failure exits non-zero and prints no result line):
               Predictor.infer_batched_stream (b128), Predictor.infer_image and
               YoloLite.predict; the kernel launch counts must grow; prints
               img/s and per-stage ms
+  6. zoo      every detection config under configs/ (15; read with the port's
+              own YAML reader, 3 classes) at full width and depth, seeded
+              weights with BatchNorm statistics set from one forward: fp32
+              card vs CPU at 640 (TF32 off; batched_nms on equal inputs
+              bit-exact), then bf16 channels_last serving at 640 b128
+              (Predictor.infer_batched_stream, device-resident, 2 runs of 4
+              batches, and one YoloLite.predict frame) with the kernel's
+              launches counted; prints params, img/s, forward ms, top kernel
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -24,6 +32,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import subprocess
@@ -37,12 +46,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from yololite_tpu_torch.api import YoloLite  # noqa: E402
+from yololite_tpu_torch.config import read_yaml  # noqa: E402
+from yololite_tpu_torch.config.config import MODEL_DIRS  # noqa: E402
 from yololite_tpu_torch.convert import load_flax  # noqa: E402
 from yololite_tpu_torch.csrc import build as kbuild  # noqa: E402
+from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
 from yololite_tpu_torch.deploy.predictor import PRE_NMS_TOPK, Predictor  # noqa: E402
 from yololite_tpu_torch.models.detector import (  # noqa: E402
     build_model_from_config, count_params, init_weights,
 )
+from yololite_tpu_torch.models.layers import BatchNorm  # noqa: E402
 from yololite_tpu_torch.ops import cuda_nms  # noqa: E402
 from yololite_tpu_torch.ops.decode import decode_anchorfree  # noqa: E402
 from yololite_tpu_torch.ops.nms import (  # noqa: E402
@@ -64,7 +77,41 @@ PEAK_BYTES_S = 3.35e12
 IOU_FLOPS_PER_PAIR = 15   # 4 min/max, 4 sub, 2 clamp, 1 mul, 2 add, 1 div, 1 cmp
 SLEEP_CYCLES_PER_MS = 2.0e6   # at most ~2 GHz SM clock: a sleep at least this long
 NMS_CASES = [(BATCH, 256), (BATCH, PRE_NMS_TOPK), (BATCH, 1024), (BATCH, 2048),
-             (1, PRE_NMS_TOPK), (8, 8400)]    # (B, k); k=8,400: every anchor at 640
+             (1, PRE_NMS_TOPK), (8, 8400),    # (B, k); k=8,400: every anchor at 640
+             (8, 8683)]                       # ConvNeXtV2-tiny's 81²+41²+21² anchors
+# every detection config, with its parameter count at 3 classes (the JAX
+# package's count, held in tests/test_torch_port_zoo_detectors.py)
+ZOO_PARAMS = {
+    "configs/models/edge_l.yaml": 4_351_608,
+    "configs/models/edge_m.yaml": 2_948_948,
+    "configs/models/edge_n.yaml": 549_640,
+    "configs/models/edge_s.yaml": 2_359_736,
+    "configs/models/edge_xl.yaml": 9_344_168,
+    "configs/models/yololite_l.yaml": 30_379_544,
+    "configs/models/yololite_m.yaml": 13_924_752,
+    "configs/models/yololite_n.yaml": 6_293_616,
+    "configs/models/yololite_s.yaml": 9_369_368,
+    "configs/models/yololite_xl.yaml": 44_597_528,
+    "configs/v2_models/yololite_l.yaml": 52_219_704,
+    "configs/v2_models/yololite_m.yaml": 17_913_598,
+    "configs/v2_models/yololite_n.yaml": 8_921_632,
+    "configs/v2_models/yololite_s.yaml": 12_431_916,
+    "configs/custom/custom.yaml": 5_338_840,
+}
+# fp32 card vs CPU, two checks. (1) Both are fp32 evaluations of one
+# function, so each is held against the CPU's fp64 forward of the same
+# weights and image: the card's max abs error there must stay within
+# ZOO_FP32_FACTOR times the CPU fp32 forward's own (cuDNN may pick other conv
+# algorithms, such as Winograd, whose rounding differs by a small factor; a
+# wrong op or weight errs by the outputs' scale). (2) Card vs CPU directly,
+# within ZOO_FP32_RTOL of the outputs' scale. The seeded nets' BatchNorm
+# divides some channels by a small calibrated std, which amplifies rounding:
+# the CPU fp32's own error against fp64 reaches ~1.4e-4 of the scale
+# (HGNetV2-B0, whose ReLU taps leave channels of small std), so two fp32
+# forwards may differ by about twice that; 1e-3 leaves room.
+ZOO_FP32_FACTOR = 10.0
+ZOO_FP32_RTOL = 1e-3
+ZOO_BATCHES, ZOO_RUNS = 4, 2
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
 
@@ -377,9 +424,9 @@ def phase_serve(card: str, n_batches: int = 8, rounds: int = 3, n_single: int = 
             "profile": profile_graph(pred, x, card, kw)}
 
 
-def profile_graph(pred, x, card: str, kw, iters: int = 3):
+def profile_graph(pred, x, card: str, kw, iters: int = 3, rows: int = 10):
     """torch.profiler over `iters` device-resident b128 graph calls: device
-    busy share of the window and the kernels that take the most time."""
+    busy share of the window and the `rows` kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -393,7 +440,7 @@ def profile_graph(pred, x, card: str, kw, iters: int = 3):
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:rows]
     log(f"profile: {iters} graph calls, device busy {dev_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall ({100 * dev_ms / wall_ms:.1f}% busy; profiler on) [{card}]")
     rows = []
@@ -402,6 +449,179 @@ def profile_graph(pred, x, card: str, kw, iters: int = 3):
         rows.append({"kernel": e.key[:120], "ms_per_call": ms, "count": e.count // iters})
         log(f"  {ms:8.3f} ms/call  x{e.count // iters:<4d} {e.key[:100]}")
     return {"busy_ms": dev_ms, "wall_ms": wall_ms, "iters": iters, "top": rows}
+
+
+def zoo_configs():
+    """(path relative to the repo, config) of every detection config under
+    configs/, read with the port's own YAML reader, at 3 classes."""
+    out = []
+    for sub in MODEL_DIRS:
+        for path in sorted(glob.glob(os.path.join(ROOT, "configs", sub, "*.yaml"))):
+            cfg = read_yaml(path)
+            if "model" in cfg and not cfg["model"].get("with_masks"):
+                cfg["model"]["num_classes"] = 3
+                out.append((os.path.relpath(path, ROOT), cfg))
+    if sorted(rel for rel, _ in out) != sorted(ZOO_PARAMS):
+        raise AssertionError(f"detection configs {[r for r, _ in out]} "
+                             f"!= {sorted(ZOO_PARAMS)}")
+    return out
+
+
+@torch.no_grad()
+def calibrate_batchnorm(model: torch.nn.Module, x: torch.Tensor) -> torch.nn.Module:
+    """Set every BatchNorm's running mean and variance to the statistics of
+    its input over one forward of `x` (layer by layer, in order), as training
+    would. A seeded model otherwise fades to nothing through depth: its
+    convs shrink each signal (U(+-1/sqrt(fan_in)) has gain 1/sqrt(3)) and
+    identity BatchNorm does not restore it, so every level output would be
+    its head bias."""
+    def set_stats(mod, args):
+        h = args[0].float()
+        mod.running_mean.copy_(h.mean((0, 2, 3)))
+        mod.running_var.copy_(h.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return model
+
+
+def _zoo_model(cfg, images_u8: torch.Tensor):
+    """Seeded full-size model (seed 0) whose BatchNorm statistics come from
+    one fp32 forward of `images_u8` on the card, so that activations keep
+    their scale through depth (see calibrate_batchnorm)."""
+    model = init_weights(build_model_from_config(cfg), seed=0).cuda().eval()
+    calibrate_batchnorm(model, normalize_images(images_u8.permute(0, 3, 1, 2)))
+    return model.cpu()
+
+
+def zoo_fp32(model, meta, img: torch.Tensor, kw):
+    """One image at 640, TF32 off: the card's fp32 level maps against the
+    CPU's, and each against the CPU's fp64 forward (see ZOO_FP32_FACTOR and
+    ZOO_FP32_RTOL); batched_nms of
+    the CPU's decoded outputs on the card (kernel) and the CPU (plain
+    version) bit-exact."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        triple = (model, model.state_dict(), meta)
+        gpu = Predictor(triple, device="cuda", dtype=torch.float32)
+        cpu = Predictor(triple, device="cpu", dtype=torch.float32)
+        cpu64 = Predictor(triple, device="cpu", dtype=torch.float64)
+        with torch.inference_mode():
+            og = [o.cpu() for o in gpu.forward(img.cuda())]
+            t1 = time.perf_counter()
+            oc = cpu.forward(img)
+            t_cpu = time.perf_counter() - t1
+            o64 = cpu64.forward(img)
+
+            def max_err(outs):
+                return max(float((a.double() - b).abs().max()) for a, b in zip(outs, o64))
+            err_card, err_cpu = max_err(og), max_err(oc)
+            err = max(float((a - b).abs().max()) for a, b in zip(og, oc))
+            scale = max(float(o.abs().max()) for o in o64)
+            dec = _decode_scores(oc)
+            got = batched_nms(*(t.cuda() for t in dec), **kw)
+            want = batched_nms(*dec, **kw)
+            names = ("boxes", "scores", "classes", "valid", "idx")
+            for name, a, b in zip(names, got, want):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"zoo fp32 batched_nms {name}: card != CPU")
+        if not (err_card <= ZOO_FP32_FACTOR * err_cpu and err <= ZOO_FP32_RTOL * scale):
+            raise AssertionError(f"zoo fp32 forward: card vs CPU {err}, card vs fp64 "
+                                 f"{err_card}, CPU fp32 vs fp64 {err_cpu} (scale {scale})")
+        return {"fwd_max_abs_err": err, "card_vs_fp64": err_card, "cpu_vs_fp64": err_cpu,
+                "scale": scale, "anchors": int(dec[0].shape[1]),
+                "nms_kept": int(want[3].sum()), "cpu_forward_s": t_cpu,
+                "s": time.perf_counter() - t0}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def zoo_serve(model, meta, dev, frame, card: str, kw):
+    """bf16 channels_last Predictor, device-resident b128 batches: warmup,
+    then ZOO_RUNS runs of ZOO_BATCHES batches and one YoloLite.predict frame
+    with the kernel's launches counted; forward ms and the top kernels."""
+    pred = Predictor((model, model.state_dict(), meta), device="cuda", dtype=torch.bfloat16)
+    pred.warmup(**kw)
+    list(pred.infer_batched_stream(dev[:1], prepared=True, **kw))
+    torch.cuda.synchronize()
+
+    def stream():
+        t0 = time.perf_counter()
+        dets = sum(len(r["boxes"]) for out in pred.infer_batched_stream(
+            (dev[i % len(dev)] for i in range(ZOO_BATCHES)), prepared=True, depth=2, **kw)
+            for r in out)
+        return ZOO_BATCHES * BATCH / (time.perf_counter() - t0), dets
+
+    cuda_nms.LAUNCHES = 0
+    runs = [stream() for _ in range(ZOO_RUNS)]
+    api = YoloLite((model, model.state_dict(), meta)).predict(frame, **kw)[0]
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    expected = ZOO_RUNS * ZOO_BATCHES + 1
+    if launches != expected:
+        raise AssertionError(f"zoo: nms_suppress launched {launches} times, "
+                             f"expected {expected} (one per graph call)")
+    b = api["boxes"]
+    if min(d for _, d in runs) == 0 or len(b) == 0:
+        raise AssertionError("zoo: serving returned no detections")
+    if not (np.isfinite(b).all() and (b[:, 2] <= frame.shape[1] - 1).all()
+            and (b[:, 3] <= frame.shape[0] - 1).all()):
+        raise AssertionError("zoo: predict boxes not finite / not in the frame")
+    x = dev[0]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: pred.forward(x), 5, 1)
+    prof = profile_graph(pred, x, card, kw, iters=1, rows=3)
+    return {"launches": launches, "img_s": [r for r, _ in runs],
+            "dets": [d for _, d in runs], "forward_ms": fwd_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": prof}
+
+
+def phase_zoo(card: str):
+    rng = np.random.RandomState(3)
+    dev = [torch.from_numpy((rng.rand(BATCH, IMG, IMG, 3) * 255).astype(np.uint8)).cuda()
+           for _ in range(2)]
+    calib = dev[0][:2].clone()
+    img = torch.from_numpy((rng.rand(1, IMG, IMG, 3) * 255).astype(np.uint8))
+    frame = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+    meta = {"img_size": IMG, "names": ["c0", "c1", "c2"]}
+    kw_nms = dict(iou_th=0.45, conf_th=0.001, max_det=300, pre_nms_topk=PRE_NMS_TOPK)
+    kw = dict(conf=0.001, iou=0.45, max_det=300)
+    rows = {}
+    for rel, cfg in zoo_configs():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = _zoo_model(cfg, calib)
+        params = count_params(model)
+        if params != ZOO_PARAMS[rel]:
+            raise AssertionError(f"{rel}: {params} params, JAX has {ZOO_PARAMS[rel]}")
+        fp32 = zoo_fp32(model, meta, img, kw_nms)
+        serve = zoo_serve(model, meta, dev, frame, card, kw)
+        top = serve["profile"]["top"][0]
+        rows[rel] = {"backbone": cfg["model"]["backbone"], "params": params,
+                     "fp32": fp32, **serve, "s": time.perf_counter() - t0}
+        log(f"zoo {rel} ({cfg['model']['backbone']}): {params} params; fp32 card vs CPU "
+            f"max abs err {fp32['fwd_max_abs_err']:.3e} over |x| <= {fp32['scale']:.2f} "
+            f"(tolerance {ZOO_FP32_RTOL:g} x scale); "
+            f"against CPU fp64: card {fp32['card_vs_fp64']:.3e}, CPU fp32 "
+            f"{fp32['cpu_vs_fp64']:.3e} (card must stay within {ZOO_FP32_FACTOR:g}x); "
+            f"batched_nms over {fp32['anchors']} anchors bit-exact ({fp32['nms_kept']} "
+            f"kept); CPU fp32 forward {fp32['cpu_forward_s']:.2f} s")
+        ips = ", ".join(f"{v:.1f}" for v in serve["img_s"])
+        log(f"zoo {rel}: bf16 b{BATCH} img/s {ips}"
+            f"; forward {serve['forward_ms']:.3f} ms; nms_suppress launches "
+            f"{serve['launches']}; peak {serve['peak_gb']:.2f} GB; top kernel "
+            f"{top['ms_per_call']:.3f} ms {top['kernel'][:80]}; "
+            f"{rows[rel]['s']:.1f} s [{card}]")
+        del model
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _decode_scores(outs):
@@ -416,6 +636,9 @@ def main():
     krows, max_err = phase_kernels(card)
     fp32 = phase_fp32(card)
     serve = phase_serve(card)
+    t_zoo = time.perf_counter()
+    zoo = phase_zoo(card)
+    log(f"zoo: {len(zoo)} configs in {time.perf_counter() - t_zoo:.1f} s")
     main_k = krows[f"B{BATCH}_k{PRE_NMS_TOPK}"]
     kernels = [dict(KERNELS[0], launches=serve["launches"], max_abs_err=float(max_err),
                     ms=main_k["ms"], plain_ms=main_k["plain_ms"],
@@ -426,7 +649,7 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,
-                   "serve": serve}, f, indent=1)
+                   "serve": serve, "zoo": zoo}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

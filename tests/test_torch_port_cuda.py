@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from yololite_tpu_torch.ops import cuda_nms
-from yololite_tpu_torch.ops.nms import batched_nms
+from yololite_tpu_torch.ops.nms import batched_nms, select_candidates
 
 
 def _boxes(rng, b, k):
@@ -55,6 +55,29 @@ def test_kernel_matches_reference_at_all_anchors(card):
     boxes = _boxes(rng, 2, 8400)
     boxes += (rng.randint(0, 3, (2, 8400)) * 8192.0)[..., None].astype(np.float32)
     _check(torch.from_numpy(boxes), torch.from_numpy(rng.rand(2, 8400) > 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [512, 8683])
+def test_kernel_at_convnext_anchor_count(card, k):
+    """N = 8,683 candidates: the anchors of ConvNeXtV2-tiny (v2 yololite_l)
+    at 640, whose 161/81/41/21 maps give levels 81² + 41² + 21². k = 512 is
+    the Predictor's pre-NMS top-k over them (batched_nms card vs CPU must
+    then be bit-exact), k = N takes every one."""
+    n, b = 8683, 2
+    rng = np.random.RandomState(k)
+    boxes = torch.from_numpy(_boxes(rng, b, n) * 640 / 500)
+    scores = torch.from_numpy(rng.rand(b, n).astype(np.float32))
+    classes = torch.from_numpy(rng.randint(0, 3, (b, n)).astype(np.int32))
+    *_, valid, shifted = select_candidates(boxes.cuda(), scores.cuda(), classes.cuda(),
+                                           conf_th=0.05, k=k, class_aware=True)
+    _check(shifted, valid, 0.45)
+    if k < n:
+        kw = dict(iou_th=0.45, conf_th=0.05, max_det=300, pre_nms_topk=k)
+        got = batched_nms(boxes.cuda(), scores.cuda(), classes.cuda(), **kw)
+        want = batched_nms(boxes, scores, classes, **kw)
+        for name, g, w in zip(("boxes", "scores", "classes", "valid", "idx"), got, want):
+            assert torch.equal(g.cpu(), w), f"batched_nms {name}: card != CPU"
 
 
 @pytest.mark.cuda

@@ -86,3 +86,47 @@ def test_correction_map_cached_per_size():
     assert conv.correction(IMG, IMG) is a
     assert tuple(a.shape) == (1, conv.out_channels, IMG // 2, IMG // 2)
     assert tuple(conv.correction(96, 96).shape[2:]) == (48, 48)
+
+
+def test_focus_stem_folds_like_jax():
+    """cs3darknet_focus_s (configs/custom/custom.yaml): the stem conv sees 12
+    channels after the 2x2 space-to-depth, so the slope is tiled 4 times and
+    the correction map is built from a 12-channel constant image."""
+    from tests.test_torch_port_zoo_detectors import (
+        config, jax_model, jax_variables, port_model,
+    )
+    rel = "configs/custom/custom.yaml"
+    m_jax, (params, bs) = jax_model(rel), jax_variables(rel)
+    u8 = _u8(seed=4)
+    x_u8 = torch.from_numpy(u8).permute(0, 3, 1, 2)
+
+    port = port_model(rel, params, bs)
+    sd, folded = fold_normalization(port.state_dict())
+    sd, fused = fuse_head_params(sd)
+    assert folded and fused
+    key = "backbone.Focus_0.ConvBNAct_0.Conv_0.weight"
+    assert sd[key].shape[1] == 12 and not torch.equal(sd[key], port.state_dict()[key])
+    port_ff = build_model_from_config(config(rel), fused_head=True)
+    port_ff.load_state_dict(sd)
+    folded_stem(port_ff).eval()
+    stem = port_ff.backbone.Focus_0.ConvBNAct_0.Conv_0
+    assert isinstance(stem, FoldedStemConv)
+    assert tuple(stem.correction(IMG // 2, IMG // 2).shape) == (1, stem.out_channels,
+                                                              IMG // 2, IMG // 2)
+    with torch.no_grad():
+        ref = port(normalize_images(x_u8, torch.float32))
+        got = port_ff(raw_cast(x_u8, torch.float32))
+
+    fp, fbs, ok = jax_fold(params, bs)
+    assert ok
+    fp, ok = jax_fuse(fp)
+    m_ff = dataclasses.replace(m_jax, fused_head=True)
+
+    def jax_fn(v, x):
+        with jax_folded_stem():
+            return m_ff.apply(v, jax_raw_cast(x, jnp.float32), train=False)
+    want = jax.jit(jax_fn)({"params": fp, "batch_stats": fbs}, jnp.asarray(u8))
+
+    for g, r, w in zip(got, ref, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)

@@ -156,7 +156,7 @@ def test_bridge_layouts_and_key_checks():
 
 def test_unported_options_raise():
     from yololite_tpu_torch.models.backbones import build_backbone
-    with pytest.raises(KeyError, match="not ported"):
-        build_backbone("resnet18")
+    with pytest.raises(KeyError, match="Unknown backbone"):
+        build_backbone("no_such_backbone")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         build_model_from_config(edge_cfg(64, with_masks=True))

@@ -1,12 +1,15 @@
 """Public library API: the `YoloLite` class (port of `api.py`, predict only).
 
+    model = YoloLite("edge_n")      # model name / model yaml / checkpoint
     model = YoloLite("runs/det/1/weights/best_model_state.ckpt")   # on CUDA
     results = model.predict(frame_bgr)[0]
     results["boxes"]   # xyxy np.ndarray (original pixels)
     results["speed"]   # {"preprocess_ms", "inference_ms", ..., "total_ms"}
 
 Sources are decoded BGR uint8 arrays (or `.npy` files of them): the package
-carries no image codec. Training, validation and export are later slices.
+carries no image codec. A model name or yaml resolves as in the JAX API
+(configs/models, then v2_models, then custom); predicting needs a
+checkpoint, as there. Training, validation and export are later slices.
 """
 
 from __future__ import annotations
@@ -17,23 +20,30 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from yololite_tpu_torch.config import resolve_model_arg
+
 
 class YoloLite:
-    def __init__(self, model, device: str = "cuda", task: str = "detect"):
-        """`model` is a checkpoint path or a `(model, state_dict, meta)`
-        triple (see `Predictor`)."""
+    def __init__(self, model="edge_n", device: str = "cuda", task: str = "detect"):
+        """`model` is a model name, a model yaml, a checkpoint path, or a
+        `(model, state_dict, meta)` triple (see `Predictor`)."""
         if task != "detect":
             raise NotImplementedError("segmentation: ROADMAP Queue 1 item 9")
         self.task = task
         self.device = device
-        self._src = model
+        self._src = ({"weights": model} if isinstance(model, (tuple, list))
+                     else resolve_model_arg(str(model)))
         self._predictor = None
 
     @property
     def predictor(self):
         if self._predictor is None:
+            weights = self._src.get("weights", self._src.get("ckpt"))
+            if weights is None:
+                raise RuntimeError("predict() needs a trained checkpoint; "
+                                   "train first or pass a .ckpt path.")
             from yololite_tpu_torch.deploy.predictor import Predictor
-            self._predictor = Predictor(self._src, device=self.device)
+            self._predictor = Predictor(weights, device=self.device)
         return self._predictor
 
     def predict(self, source: Union[str, np.ndarray, Sequence], conf: float = 0.25,

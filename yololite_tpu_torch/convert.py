@@ -5,9 +5,12 @@ Submodules of the port carry their flax names, so the bridge is a path map:
 
   conv kernel HWIO (kh,kw,I,O) -> OIHW; a depthwise kernel (kh,kw,1,C)
       becomes (C,1,kh,kw) by the same (3,2,0,1) permutation;
-  conv bias -> bias;
+  Dense kernel (in, out) -> Linear weight (out, in);
+  conv and Dense bias -> bias;
   BatchNorm scale/bias (params) -> weight/bias,
-  BatchNorm mean/var (batch_stats) -> running_mean/running_var.
+  BatchNorm mean/var (batch_stats) -> running_mean/running_var;
+  LayerNorm scale/bias -> weight/bias; GRN gamma/beta keep their names.
+Any other leaf raises.
 
 Inputs are nested dicts of numpy arrays, as `train/checkpoint.load_checkpoint`
 returns them (this package's reader or flax's).
@@ -21,8 +24,13 @@ import numpy as np
 import torch
 from torch import nn
 
-_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-             "var": "running_var"}
+# leaf renames of the normalization layers, by flax module prefix
+_NORM_NAMES = {
+    "BatchNorm_": {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                   "var": "running_var"},
+    "LayerNorm_": {"scale": "weight", "bias": "bias"},
+    "GRN_": {"gamma": "gamma", "beta": "beta"},
+}
 
 
 def _walk(tree: Mapping, prefix=()):
@@ -36,15 +44,21 @@ def _walk(tree: Mapping, prefix=()):
 def _convert_leaf(path, value) -> tuple:
     *parents, leaf = path
     arr = np.asarray(value)
-    if parents and parents[-1].startswith("BatchNorm_"):
-        if leaf not in _BN_NAMES:
-            raise KeyError(f"unexpected BatchNorm leaf {'/'.join(path)}")
-        name = _BN_NAMES[leaf]
+    norm = next((names for prefix, names in _NORM_NAMES.items()
+                 if parents and parents[-1].startswith(prefix)), None)
+    if norm is not None:
+        if leaf not in norm:
+            raise KeyError(f"unexpected normalization leaf {'/'.join(path)}")
+        name = norm[leaf]
     elif leaf == "kernel":
-        if arr.ndim != 4:
-            raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel, "
-                             f"got shape {arr.shape}")
-        arr, name = arr.transpose(3, 2, 0, 1), "weight"
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:
+            arr = arr.T
+        else:
+            raise ValueError(f"{'/'.join(path)}: expected a 4-D conv or 2-D Dense "
+                             f"kernel, got shape {arr.shape}")
+        name = "weight"
     elif leaf == "bias":
         name = "bias"
     else:

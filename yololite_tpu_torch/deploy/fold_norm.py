@@ -11,11 +11,18 @@ second does not depend on the batch, so `FoldedStemConv` computes it once per
 (input size, dtype, device) as a [1, C, H, W] map and adds it. The model then
 consumes the raw uint8 image cast to the compute dtype (0..255 is exact in
 bf16) and never materializes the normalized image.
+
+The stem conv is found by name: the backbone's `ConvBNAct_0` conv with a
+3-channel input, or the conv of a `Focus_0` stem with a 12-channel input
+(after the 2x2 space-to-depth, whose channels repeat R, G, B four times).
+JAX's interceptor instead corrects every conv with a 3- or 12-channel input,
+which also hits the 12-channel SE convs of EfficientNetV2-B0/B1 (ROADMAP
+Queue 3); the port folds only the stem.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +34,9 @@ _STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 A = (1.0 / (255.0 * _STD)).astype(np.float32)
 B = (-_MEAN / _STD).astype(np.float32)
 
-STEM_KEY = "backbone.ConvBNAct_0.Conv_0.weight"
+# candidate stem conv weights, in the order the JAX `_find_stem` tries them
+STEM_KEYS = ("backbone.ConvBNAct_0.Conv_0.weight",
+             "backbone.Focus_0.ConvBNAct_0.Conv_0.weight")
 
 
 def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -43,16 +52,27 @@ def raw_cast(images_u8: torch.Tensor, dtype) -> torch.Tensor:
     return images_u8.to(dtype)
 
 
+def find_stem(state_dict: Dict[str, torch.Tensor]) -> Optional[str]:
+    """Key of the stem conv weight (3 or 12 input channels), or None."""
+    for key in STEM_KEYS:
+        w = state_dict.get(key)
+        if w is not None and w.ndim == 4 and w.shape[1] in (3, 12):
+            return key
+    return None
+
+
 def fold_normalization(state_dict: Dict[str, torch.Tensor]
                        ) -> Tuple[Dict[str, torch.Tensor], bool]:
-    """Scale the stem conv kernel by the per-channel slope `a`.
-    Returns (state_dict', ok); ok is False when no 3-channel stem is found."""
-    w = state_dict.get(STEM_KEY)
-    if w is None or w.ndim != 4 or w.shape[1] != 3:
+    """Scale the stem conv kernel by the per-channel slope `a` (tiled over
+    the Focus stem's 4 RGB groups). Returns (state_dict', ok); ok is False
+    when no stem is found."""
+    key = find_stem(state_dict)
+    if key is None:
         return state_dict, False
+    w = state_dict[key]
     out = dict(state_dict)
-    a = torch.as_tensor(A, device=w.device)[None, :, None, None]
-    out[STEM_KEY] = (w.to(torch.float32) * a).to(w.dtype)
+    a = torch.as_tensor(np.tile(A, w.shape[1] // 3), device=w.device)
+    out[key] = (w.to(torch.float32) * a[None, :, None, None]).to(w.dtype)
     return out, True
 
 
@@ -69,8 +89,9 @@ class FoldedStemConv(nn.Conv2d):
         key = (h, w, wt.dtype, wt.device, wt._version, wt.data_ptr())
         corr = self._corr.get(key)
         if corr is None:
-            c = torch.as_tensor(B / A, device=wt.device).to(wt.dtype)
-            ones = c[None, :, None, None].expand(1, 3, h, w).contiguous()
+            cin = self.in_channels
+            c = torch.as_tensor(np.tile(B / A, cin // 3), device=wt.device).to(wt.dtype)
+            ones = c[None, :, None, None].expand(1, cin, h, w).contiguous()
             with torch.no_grad():
                 corr = F.conv2d(ones, wt, None, self.stride, self.padding,
                                 self.dilation, self.groups)
@@ -84,7 +105,10 @@ class FoldedStemConv(nn.Conv2d):
 def folded_stem(model: nn.Module) -> nn.Module:
     """Swap the backbone's stem conv for a `FoldedStemConv` holding the same
     (already scaled) weights. The model must then be fed `raw_cast` input."""
-    parent = model.backbone.ConvBNAct_0
+    key = find_stem(model.state_dict())
+    if key is None:
+        raise ValueError("no 3- or 12-channel stem conv to fold")
+    parent = model.get_submodule(key[:-len(".Conv_0.weight")])
     conv = parent.Conv_0
     folded = FoldedStemConv(conv.in_channels, conv.out_channels, conv.kernel_size,
                             stride=conv.stride, padding=conv.padding,

@@ -17,7 +17,7 @@ from torch import nn
 
 from yololite_tpu_torch.models.backbones import backbone_feature_info, build_backbone
 from yololite_tpu_torch.models.layers import (
-    BatchNorm, ConvBNAct, ConvBlock, DWConvBlock, conv2d, upsample_nearest_to,
+    GRN, BatchNorm, ConvBNAct, ConvBlock, DWConvBlock, conv2d, upsample_nearest_to,
 )
 
 
@@ -206,23 +206,29 @@ def build_model_from_config(cfg: Dict[str, Any], **overrides) -> YOLOLiteMS:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random init in the JAX package's scheme: convs U(+-1/sqrt(fan_in))
-    (torch's Conv2d default), BatchNorm identity, conv biases 0 except the head
-    obj/cls biases. Weights differ from `init_model`'s for the same seed."""
+    """Seeded random init in the JAX package's scheme: conv and Linear weights
+    U(+-1/sqrt(fan_in)) from the generator (torch's default bound), biases 0
+    except the head obj/cls biases, BatchNorm and LayerNorm identity, GRN
+    gamma/beta 0 (flax's init). Nothing is drawn from torch's global RNG.
+    Weights differ from `init_model`'s for the same seed."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             mod.weight.copy_(torch.rand(mod.weight.shape, generator=gen) * 2 * bound
                              - bound)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, BatchNorm):
+        elif isinstance(mod, (BatchNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            mod.running_mean.zero_()
-            mod.running_var.fill_(1.0)
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif isinstance(mod, GRN):
+            mod.gamma.zero_()
+            mod.beta.zero_()
     for mod in model.modules():
         if isinstance(mod, DetectHead) and not mod.fused:
             for part in ("box", "obj", "cls"):
