@@ -6,9 +6,10 @@ Phases (any failure exits non-zero and prints no result line):
   1. device   a CUDA card must be present; prints `nvidia-smi` name, power limit
   2. build    compiles every CUDA source of the serving path (build/kernels/)
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes and beyond (nms_suppress: B=128 at
-              k = 256, 512, 1024, 2048; B=1 at k=512; B=8 at k=8,400 and
-              k=8,683): the keep masks must be equal; prints kernel, mask-pass, scan and
+              the serving and training paths' shapes and beyond
+              (nms_suppress: B=128 at k = 256, 512, 1024, 2048; B=1 at
+              k=512; B=8 at k = 1,024 (validation), 8,400 and 8,683): the
+              keep masks must be equal; prints kernel, mask-pass, scan and
               plain ms beside the bound
   4. fp32     edge_n @640, 2 images, TF32 off: card (kernel) against CPU
               (plain version)
@@ -25,6 +26,15 @@ Phases (any failure exits non-zero and prints no result line):
               (Predictor.infer_batched_stream, device-resident, 2 runs of 4
               batches, and one YoloLite.predict frame) with the kernel's
               launches counted; prints params, img/s, forward ms, top kernel
+  7. train    edge_n @640 b8 bf16 trained for 2 epochs by YoloLite.train
+              (standard_train.yaml, augment off, backbone frozen in epoch 1,
+              the bundled backbone) on a synthetic PNG set written from a
+              seed (32 train / 8 val images at 640x480): finite and falling
+              loss, every artifact, best/last checkpoints served by the
+              Predictor, nms_suppress launches equal to the val batches the
+              run implies, an exact resume of epoch 2 from epoch 1's full
+              state; an fp32 step card vs CPU (equal assignment); step,
+              loader, eval and profiler numbers
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -35,9 +45,12 @@ from __future__ import annotations
 import glob
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -47,11 +60,14 @@ sys.path.insert(0, ROOT)
 
 from yololite_tpu_torch.api import YoloLite  # noqa: E402
 from yololite_tpu_torch.config import read_yaml  # noqa: E402
-from yololite_tpu_torch.config.config import MODEL_DIRS  # noqa: E402
-from yololite_tpu_torch.convert import load_flax  # noqa: E402
+from yololite_tpu_torch.config.config import MODEL_DIRS, load_configs  # noqa: E402
+from yololite_tpu_torch.convert import load_flax, to_flax  # noqa: E402
 from yololite_tpu_torch.csrc import build as kbuild  # noqa: E402
+from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
+from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
 from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
 from yololite_tpu_torch.deploy.predictor import PRE_NMS_TOPK, Predictor  # noqa: E402
+from yololite_tpu_torch.eval.evaluate import evaluate_model  # noqa: E402
 from yololite_tpu_torch.models.detector import (  # noqa: E402
     build_model_from_config, count_params, init_weights,
 )
@@ -62,6 +78,8 @@ from yololite_tpu_torch.ops.nms import (  # noqa: E402
     batched_nms, finalize_detections, select_candidates, yolo_scores,
 )
 from yololite_tpu_torch.train.checkpoint import load_checkpoint  # noqa: E402
+from yololite_tpu_torch.train.loop import CSV_HEADER  # noqa: E402
+from yololite_tpu_torch.train.steps import Trainer  # noqa: E402
 
 IMG = 640
 BATCH = 128
@@ -77,7 +95,8 @@ PEAK_BYTES_S = 3.35e12
 IOU_FLOPS_PER_PAIR = 15   # 4 min/max, 4 sub, 2 clamp, 1 mul, 2 add, 1 div, 1 cmp
 SLEEP_CYCLES_PER_MS = 2.0e6   # at most ~2 GHz SM clock: a sleep at least this long
 NMS_CASES = [(BATCH, 256), (BATCH, PRE_NMS_TOPK), (BATCH, 1024), (BATCH, 2048),
-             (1, PRE_NMS_TOPK), (8, 8400),    # (B, k); k=8,400: every anchor at 640
+             (1, PRE_NMS_TOPK), (8, 1024),    # (B, k); B=8 k=1024: the val batch of
+             (8, 8400),                       # the train phase; k=8,400: every anchor
              (8, 8683)]                       # ConvNeXtV2-tiny's 81²+41²+21² anchors
 # every detection config, with its parameter count at 3 classes (the JAX
 # package's count, held in tests/test_torch_port_zoo_detectors.py)
@@ -112,6 +131,34 @@ ZOO_PARAMS = {
 ZOO_FP32_FACTOR = 10.0
 ZOO_FP32_RTOL = 1e-3
 ZOO_BATCHES, ZOO_RUNS = 4, 2
+# train phase: edge_n @640 b8, standard_train.yaml with these overrides
+TRAIN_OVERRIDES = dict(epochs=2, batch_size=8, img_size=640, augment=False, amp=True,
+                       freeze_backbone_epochs=1, pretrained_backbone=BACKBONE_CKPT,
+                       save_optimizer=True)
+TRAIN_N, VAL_N = 32, 8
+# Exact resume: the resumed run's epoch-2 mean train loss against the
+# straight run's, within 1e-3 relative. It came out bit-exact on the card,
+# but cuDNN may pick nondeterministic weight-gradient algorithms, which
+# would move bf16 losses by far less than this; a weights-only resume (fresh
+# EMA and optimizer, printed beside it as a control) misses by ~1.5e-2.
+RESUME_RTOL = 1e-3
+# fp32 card vs CPU train step, TF32 off: loss components within 1e-3
+# relative (fp32 forwards differ by ~1e-6 relative, and the hard-negative
+# top-K picks anchors by value, so near-ties at its boundary swap terms).
+# The loss's backward on equal level outputs: within 1e-6 relative L2 (the
+# same fp32 ops; sums reorder). The model's backward is ill-conditioned in
+# train mode: BatchNorm divides each channel by its batch std, and near-
+# constant channels of this seeded net on dark synthetic images amplify
+# rounding (a 1e-6 relative change of the weights moves the CPU's own
+# gradient by ~2e-3 in relative L2, and the card's fp32 convolutions round
+# otherwise than the CPU's), so each fp32 backward is held against the CPU's
+# fp64 one from the same upstream gradient: the card's error within
+# TRAIN_FP32_FACTOR x the CPU fp32's own. Updated parameters within 2.1 x
+# lr_max (Adam's first step is lr * g / |g|, so an element whose gradient is
+# at rounding level may step either way).
+TRAIN_FP32_LOSS_RTOL = 1e-3
+TRAIN_FP32_LOSS_GRAD_RTOL = 1e-6
+TRAIN_FP32_FACTOR = 10.0
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
 
@@ -624,6 +671,382 @@ def phase_zoo(card: str):
     return rows
 
 
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """8-bit RGB PNG, each row's filter chosen as libpng's heuristic does (the
+    least sum of |filtered byte| as signed), so all five filters occur."""
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.int16)
+    up = np.concatenate([np.zeros((1, w, 3), np.int16), x[:-1]], 0)
+    left = np.concatenate([np.zeros((h, 1, 3), np.int16), x[:, :-1]], 1)
+    upleft = np.concatenate([np.zeros((h, 1, 3), np.int16), up[:, :-1]], 1)
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    cands = np.stack([x, x - left, x - up, x - ((left + up) >> 1), x - paeth]) & 0xFF
+    cost = np.abs(cands.astype(np.int8).astype(np.int16)).sum((2, 3))      # [5, h]
+    best = cost.argmin(0)
+    rows = np.concatenate([best[:, None].astype(np.uint8),
+                           cands[best, np.arange(h)].reshape(h, -1).astype(np.uint8)], 1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
+
+
+def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
+                   h: int = 480, n_cls: int = 3, seed: int = 0) -> str:
+    """A learnable detection set from a seed: 1-4 coloured rectangles (one
+    colour per class) on dark noise, PNG images, YOLO txt labels and a
+    data.yaml. Returns the data.yaml path."""
+    rng = np.random.RandomState(seed)
+    colors = [(220, 30, 30), (30, 220, 30), (30, 30, 220)]
+    for split, n in (("train", n_train), ("valid", n_val)):
+        os.makedirs(os.path.join(root, split, "images"), exist_ok=True)
+        os.makedirs(os.path.join(root, split, "labels"), exist_ok=True)
+        for i in range(n):
+            canvas = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+            lines = []
+            for _ in range(rng.randint(1, 5)):
+                cls = rng.randint(0, n_cls)
+                bw = rng.randint(w // 16, w // 3)
+                bh = rng.randint(h // 16, h // 3)
+                x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+                canvas[y1:y1 + bh, x1:x1 + bw] = colors[cls]
+                lines.append(f"{cls} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
+                             f"{bw / w:.6f} {bh / h:.6f}")
+            write_png(os.path.join(root, split, "images", f"{i:04d}.png"), canvas)
+            with open(os.path.join(root, split, "labels", f"{i:04d}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    data_yaml = os.path.join(root, "data.yaml")
+    with open(data_yaml, "w") as f:
+        f.write(f"train: {root}/train/images\nval: {root}/valid/images\nnc: {n_cls}\n"
+                f"names: [{', '.join(f'c{i}' for i in range(n_cls))}]\n")
+    return data_yaml
+
+
+def _edge_n_train_config(data_yaml: str, amp: bool):
+    cfg = load_configs(os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
+                       os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
+                       data_yaml, make_run_dir=False)
+    cfg["training"].update(augment=False, amp=amp, img_size=IMG, batch_size=8)
+    return cfg
+
+
+def _seeded_flax_edge_n(cfg):
+    """flax-layout variables of edge_n: seed-0 heads, the bundled backbone."""
+    model = init_weights(build_model_from_config(cfg), 0)
+    sd, _ = load_checkpoint(BACKBONE_CKPT)
+    load_flax(model.backbone, sd["params"], sd["batch_stats"])
+    return to_flax(model)
+
+
+def _first_batch(cfg, n: int = 8):
+    ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
+                     img_size=IMG, is_train=True, augment=False,
+                     max_boxes=int(cfg["training"]["max_boxes"]))
+    return collate([ds.get(i) for i in range(n)])
+
+
+def _model_grads(cfg, params, stats, images_u8, upstream, device, dtype):
+    """Parameter gradients of edge_n's train-mode forward (BatchNorm on batch
+    statistics) for a fixed upstream gradient of the level outputs."""
+    model = load_flax(build_model_from_config(cfg), params, stats).to(device, dtype).train()
+    x = normalize_images(torch.from_numpy(images_u8).to(device).permute(0, 3, 1, 2))
+    if device == "cuda":
+        model.to(memory_format=torch.channels_last)
+    outs = model(x.to(dtype))
+    grads = torch.autograd.grad(outs, list(model.parameters()),
+                                grad_outputs=[u.to(device, dtype) for u in upstream],
+                                allow_unused=True, materialize_grads=True)
+    return [g.detach().cpu().double() for g in grads]
+
+
+def train_fp32_parity(data_yaml: str, card: str):
+    """One fp32 train step (TF32 off) on the card and on the CPU from the
+    same weights and batch: equal assignment, losses and updated parameters
+    within TRAIN_FP32_*; the loss's backward on equal outputs equal to
+    rounding; the model's backward held against a CPU fp64 one (see
+    TRAIN_FP32_FACTOR)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = _edge_n_train_config(data_yaml, amp=False)
+        params, stats = _seeded_flax_edge_n(cfg)
+        batch = _first_batch(cfg)
+        lr_vec = None
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=8, device=dev)
+            state = trainer.state_from_weights(params, stats)
+            lr_vec = trainer.lr_vector(float(cfg["training"]["lr"]))
+            b = trainer.put_batch(batch)
+            total, m = trainer.forward_loss(state, b, return_assignment=True)
+            grads = trainer.backward(state, total)
+            trainer.apply(state, grads, lr_vec)
+            out[dev] = {"total": float(total.detach()), **{k: m[k].detach().cpu() for k in m},
+                        "params": [p.detach().cpu() for p in state.params],
+                        "trainer": trainer, "batch": b, "s": time.perf_counter() - t0}
+        g, c = out["cuda"], out["cpu"]
+        pos = c["pos_mask"]
+        matched_equal = (torch.equal(g["pos_mask"], pos)
+                         and torch.equal(g["matched_gt"][pos], c["matched_gt"][pos]))
+        loss_errs = {k: abs(float(g[k]) - float(c[k])) / max(abs(float(c[k])), 1e-12)
+                     for k in ("total", "box", "obj", "cls")}
+        loss_err = max(loss_errs.values())
+        d_param = max(float((a - b).abs().max()) for a, b in zip(g["params"], c["params"]))
+        lr_max = max(lr_vec)
+
+        # the loss's backward on equal outputs: the CPU's train-mode outputs
+        flat = lambda gs: torch.cat([x.reshape(-1).double().cpu() for x in gs])
+        rel = lambda a, b: float((flat(a) - flat(b)).norm() / flat(b).norm())
+        x_c = normalize_images(c["batch"]["image"].permute(0, 3, 1, 2))
+        outs = [o.detach() for o in load_flax(build_model_from_config(cfg), params, stats)
+                .train()(x_c)]
+        upstream = {}
+        for dev in ("cuda", "cpu"):
+            o = [t.to(dev).requires_grad_(True) for t in outs]
+            bt = out[dev]["batch"]
+            total, _ = out[dev]["trainer"].loss(o, {k: bt[k] for k in ("boxes", "labels", "mask")},
+                                                img_size=IMG)
+            upstream[dev] = torch.autograd.grad(total, o)
+        loss_grad_err = rel(upstream["cuda"], upstream["cpu"])
+        # the model's backward from one upstream gradient, fp32 card and CPU
+        # against the CPU in fp64
+        up = upstream["cpu"]
+        ref = _model_grads(cfg, params, stats, batch["image"], up, "cpu", torch.float64)
+        err_card = rel(_model_grads(cfg, params, stats, batch["image"], up, "cuda",
+                                    torch.float32), ref)
+        err_cpu = rel(_model_grads(cfg, params, stats, batch["image"], up, "cpu",
+                                   torch.float32), ref)
+        log(f"train fp32 card vs CPU (TF32 off, b8 @640, M={batch['boxes'].shape[1]}): "
+            f"assignment {'equal' if matched_equal else 'DIFFERS'} ({int(pos.sum())} positives); "
+            f"loss rel err {', '.join(f'{k} {v:.3e}' for k, v in loss_errs.items())} "
+            f"(tolerance {TRAIN_FP32_LOSS_RTOL:g}); loss backward on equal outputs rel L2 "
+            f"{loss_grad_err:.3e} (tolerance {TRAIN_FP32_LOSS_GRAD_RTOL:g}); model backward "
+            f"against CPU fp64, rel L2: card fp32 {err_card:.3e}, CPU fp32 {err_cpu:.3e} (card "
+            f"within {TRAIN_FP32_FACTOR:g}x); updated params max abs diff {d_param:.3e} "
+            f"(tolerance {2.1 * lr_max:.3e}); card {g['s']:.2f} s, CPU {c['s']:.2f} s [{card}]")
+        if not (matched_equal and loss_err <= TRAIN_FP32_LOSS_RTOL
+                and loss_grad_err <= TRAIN_FP32_LOSS_GRAD_RTOL
+                and err_card <= TRAIN_FP32_FACTOR * err_cpu and d_param <= 2.1 * lr_max):
+            raise AssertionError("train fp32 card vs CPU disagree")
+        return {"assignment_equal": matched_equal, "positives": int(pos.sum()),
+                "loss_rel_err": loss_errs, "loss_grad_rel_l2": loss_grad_err,
+                "model_grad_rel_l2_vs_fp64": {"card_fp32": err_card, "cpu_fp32": err_cpu},
+                "param_max_abs_diff": d_param, "card_s": g["s"], "cpu_s": c["s"]}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def _events(n):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
+    """bf16 b8 train step timed by CUDA events (forward+loss, backward,
+    optimizer+EMA), the host loader, eval_step, evaluate_model, the device
+    busy share and top kernels (torch.profiler, 3 steps), peak memory."""
+    cfg = _edge_n_train_config(data_yaml, amp=True)
+    params, stats = _seeded_flax_edge_n(cfg)
+    trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=1000, device="cuda")
+    state = trainer.state_from_weights(params, stats)
+    mb = int(cfg["training"]["max_boxes"])
+    ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
+                     img_size=IMG, is_train=True, augment=False, max_boxes=mb)
+    loader = DataLoader(ds, 8, shuffle=True, num_workers=8)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    t0 = time.perf_counter()
+    for i in range(8):
+        ds.get(i)
+    get_ms = (time.perf_counter() - t0) * 1e3 / 8
+    t0 = time.perf_counter()
+    for i in range(8):
+        ds.load_image(i)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 8
+    dev = [trainer.put_batch(b) for b in batches]
+    lr = trainer.lr_vector(1e-3)
+    for i in range(3):
+        trainer.train_step(state, dev[i % len(dev)], lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split = np.zeros(3)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        e = _events(4)
+        e[0].record()
+        total, _ = trainer.forward_loss(state, dev[i % len(dev)])
+        e[1].record()
+        grads = trainer.backward(state, total)
+        e[2].record()
+        trainer.apply(state, grads, lr)
+        e[3].record()
+        e[3].synchronize()
+        split += [e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3])]
+    split /= iters
+    synced_ms = (time.perf_counter() - t0) * 1e3 / iters
+    s, e = _events(2)
+    s.record()
+    for i in range(iters):
+        trainer.train_step(state, dev[i % len(dev)], lr)
+    e.record()
+    e.synchronize()
+    step_ms = s.elapsed_time(e) / iters
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            trainer.train_step(state, dev[i % len(dev)], lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) is not None
+              and str(ev.device_type).endswith("CUDA")]
+    busy_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    launches = sum(ev.count for ev in events) / 3
+    top = [{"kernel": ev.key[:120], "ms_per_step": ev.self_device_time_total / 3e3,
+            "count": ev.count // 3}
+           for ev in sorted(events, key=lambda ev: -ev.self_device_time_total)[:10]]
+
+    variables = trainer.ema_variables(state)
+    val_ds = YoloDataset(cfg["dataset"]["val_images"], cfg["dataset"]["val_labels"],
+                         img_size=IMG, is_train=False, augment=False, max_boxes=mb)
+    val_loader = DataLoader(val_ds, 8, shuffle=False, drop_last=False)
+    vb = trainer.put_batch(next(iter(val_loader)))
+    eval_ms = {conf: cuda_ms(lambda: trainer.eval_step(variables, vb, conf_th=conf,
+                                                       iou_th=0.65), 10)
+               for conf in (0.1, 0.001)}
+    t0 = time.perf_counter()
+    evaluate_model(trainer, variables, val_loader, os.path.join(tmp, "eval"), 3, IMG,
+                   ["c0", "c1", "c2"])
+    evaluate_s = time.perf_counter() - t0
+    log(f"train step b8 bf16 @640 (M={mb}): {step_ms:.3f} ms per step by CUDA events "
+        f"over {iters} steps ({8e3 / step_ms:.1f} img/s); split (events, synced each "
+        f"step: {synced_ms:.3f} ms host clock): forward+loss {split[0]:.3f}, backward "
+        f"{split[1]:.3f}, optimizer+EMA {split[2]:.3f} ms; peak {peak_gb:.2f} GB [{card}]")
+    log(f"train host loader: {loader_ms:.2f} ms per batch of 8 (8 threads; PNG decode "
+        f"+ letterbox), one thread {get_ms:.2f} ms per image of which decode "
+        f"{decode_ms:.2f} ms; device step {step_ms:.3f} ms [{card}]")
+    log(f"train profile: 3 steps, device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall "
+        f"({100 * busy_ms / wall_ms:.1f}% busy; profiler on), {launches:.0f} kernel "
+        f"launches per step [{card}]")
+    for row in top:
+        log(f"  {row['ms_per_step']:8.3f} ms/step  x{row['count']:<4d} {row['kernel'][:100]}")
+    log(f"eval_step b8 @640: {eval_ms[0.1]:.3f} ms at conf 0.1, {eval_ms[0.001]:.3f} ms "
+        f"at conf 0.001 (val loss + decode + NMS, k=1024); evaluate_model on the "
+        f"{len(val_ds)} val images {evaluate_s:.2f} s (latency benches included) [{card}]")
+    return {"step_ms": step_ms, "img_s": 8e3 / step_ms, "split_ms": split.tolist(),
+            "synced_step_ms": synced_ms, "peak_gb": peak_gb, "loader_ms_per_batch": loader_ms,
+            "get_ms_per_image": get_ms, "decode_ms_per_image": decode_ms,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "launches_per_step": launches,
+            "top": top, "eval_step_ms": eval_ms, "evaluate_model_s": evaluate_s,
+            "max_boxes": mb}
+
+
+def _check_run_dir(log_dir: str) -> None:
+    want = ["merged_config.yaml", "metrics.csv", "last_metrics.json", "best_metrics.json",
+            "eval_results.json", "p_r_f1_curves.csv", "confusion_stats.txt",
+            "weights/best_no_aug.ckpt", "weights/last_model_state.ckpt"]
+    missing = [w for w in want if not os.path.exists(os.path.join(log_dir, w))]
+    if missing:
+        raise AssertionError(f"train: missing artifacts {missing}")
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        if f.readline().strip().split(",") != CSV_HEADER:
+            raise AssertionError("train: metrics.csv header differs from CSV_HEADER")
+
+
+def phase_train(card: str):
+    """edge_n trained at 640 b8 bf16 for 2 epochs through YoloLite.train on a
+    synthetic PNG set; launches of nms_suppress counted over the run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = make_synth_set(os.path.join(tmp, "synth"), TRAIN_N, VAL_N)
+        log(f"train: wrote {TRAIN_N} + {VAL_N} PNG images at 640x480 in "
+            f"{time.perf_counter() - t0:.2f} s")
+        runs = os.path.join(tmp, "runs")
+        api = YoloLite("edge_n", device="cuda")
+        torch.cuda.synchronize()
+        cuda_nms.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = api.train(data=data, workers=8, run_dir=runs, **TRAIN_OVERRIDES)
+        torch.cuda.synchronize()
+        launches = cuda_nms.LAUNCHES
+        train_s = time.perf_counter() - t0
+        val_batches = -(-VAL_N // TRAIN_OVERRIDES["batch_size"])
+        expected = (TRAIN_OVERRIDES["epochs"] + 1) * val_batches
+        hist = res["history"]
+        log(f"train: {TRAIN_OVERRIDES['epochs']} epochs in {train_s:.1f} s; epoch train "
+            f"loss {', '.join(f'{v:.4f}' for v in hist['train_loss'])}; val loss "
+            f"{', '.join(f'{v:.4f}' for v in hist['val_loss'])}; final AP50 "
+            f"{res['coco']['AP50']:.4f}; nms_suppress launched {launches} times "
+            f"(expected {expected}: {val_batches} val batch x {TRAIN_OVERRIDES['epochs']} "
+            f"epochs + {val_batches} in evaluate_model) [{card}]")
+        if launches != expected:
+            raise AssertionError("train: the validation path did not go through the kernel")
+        if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
+            raise AssertionError(f"train: non-finite loss {hist}")
+        if not hist["train_loss"][1] < hist["train_loss"][0]:
+            raise AssertionError("train: epoch 2's train loss is not below epoch 1's")
+        _check_run_dir(res["log_dir"])
+        frame = (np.random.RandomState(4).rand(480, 640, 3) * 255).astype(np.uint8)
+        served = {}
+        for name in ("best_no_aug.ckpt", "last_model_state.ckpt"):
+            pred = Predictor(os.path.join(res["log_dir"], "weights", name), device="cuda")
+            b, sc, _ = pred.infer_image(frame, conf=0.001)
+            if not (np.isfinite(b).all() and len(b) > 0):
+                raise AssertionError(f"train: {name} serves no finite boxes")
+            served[name] = len(b)
+        n_api = len(api.predict(frame, conf=0.001)[0]["boxes"])
+        log(f"train: best_no_aug / last checkpoints reload into the Predictor and serve "
+            f"{served} boxes; YoloLite.predict on the best {n_api}")
+
+        # exact resume: epoch 1 alone, then epoch 2 from its full state
+        chunk1 = YoloLite("edge_n", device="cuda").train(
+            data=data, workers=8, run_dir=runs, **dict(TRAIN_OVERRIDES, epochs=1))
+        last1 = os.path.join(chunk1["log_dir"], "weights", "last_model_state.ckpt")
+        chunk2 = YoloLite("edge_n", device="cuda").train(
+            data=data, workers=8, run_dir=runs, **dict(TRAIN_OVERRIDES, resume=last1,
+                                                        start_epoch=1))
+        # control: a weights-only resume (what resuming a checkpoint saved
+        # without save_optimizer does: its EMA weights, fresh EMA/optimizer)
+        best1 = os.path.join(chunk1["log_dir"], "weights", "best_no_aug.ckpt")
+        control = YoloLite("edge_n", device="cuda").train(
+            data=data, workers=8, run_dir=runs, **dict(TRAIN_OVERRIDES, resume=best1,
+                                                        start_epoch=1))
+        straight = hist["train_loss"][1]
+        resumed = chunk2["history"]["train_loss"][0]
+        weights_only = control["history"]["train_loss"][0]
+        rel = abs(resumed - straight) / abs(straight)
+        log(f"train resume: epoch-2 train loss straight {straight:.6f}, resumed from "
+            f"epoch 1's full state {resumed:.6f} (rel diff {rel:.2e}, tolerance "
+            f"{RESUME_RTOL:g}); weights-only resume (fresh EMA/optimizer) "
+            f"{weights_only:.6f} (rel diff {abs(weights_only - straight) / straight:.2e}); "
+            f"epoch-1 loss straight {hist['train_loss'][0]:.6f}, chunk "
+            f"{chunk1['history']['train_loss'][0]:.6f}")
+        if rel > RESUME_RTOL:
+            raise AssertionError("train: exact resume does not reproduce epoch 2")
+        fp32 = train_fp32_parity(data, card)
+        timing = train_timing(data, card, tmp)
+    return {"launches": launches, "train_s": train_s, "history": hist,
+            "coco": res["coco"], "ms_per_img": res["ms_per_img"],
+            "ms_per_img_cpu": res["ms_per_img_cpu"], "served": served,
+            "resume": {"straight": straight, "resumed": resumed, "rel": rel,
+                       "weights_only": weights_only,
+                       "chunk1_epoch1": chunk1["history"]["train_loss"][0]},
+            "fp32": fp32, "timing": timing}
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -639,17 +1062,21 @@ def main():
     t_zoo = time.perf_counter()
     zoo = phase_zoo(card)
     log(f"zoo: {len(zoo)} configs in {time.perf_counter() - t_zoo:.1f} s")
+    t_train = time.perf_counter()
+    train = phase_train(card)
+    log(f"train phase: {time.perf_counter() - t_train:.1f} s")
     main_k = krows[f"B{BATCH}_k{PRE_NMS_TOPK}"]
     kernels = [dict(KERNELS[0], launches=serve["launches"], max_abs_err=float(max_err),
                     ms=main_k["ms"], plain_ms=main_k["plain_ms"],
                     bound_ms=main_k["bound_ms"], bound_by=main_k["bound_by"],
                     library_ms=None, ms_mask=main_k["ms_mask"], ms_scan=main_k["ms_scan"],
                     ms_b1=krows[f"B1_k{PRE_NMS_TOPK}"]["ms"],
-                    ms_by_k={key: r["ms"] for key, r in krows.items()})]
+                    ms_by_k={key: r["ms"] for key, r in krows.items()},
+                    launches_train=train["launches"])]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,
-                   "serve": serve, "zoo": zoo}, f, indent=1)
+                   "serve": serve, "zoo": zoo, "train": train}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

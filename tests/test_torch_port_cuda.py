@@ -127,3 +127,58 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     c = torch.zeros(2, 64, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError):
         batched_nms(b, s, c, use_diou=True)
+
+
+@pytest.mark.cuda
+def test_train_step_fp32_card_matches_cpu(card):
+    """One fp32 train step (TF32 off) of edge_n at 256 px from the same
+    weights and batch: the SimOTA assignment equal, losses within 1e-3
+    relative, gradients within 2e-2 in relative L2 norm (at 256 px this
+    seeded net's train-mode backward is well-conditioned; chip_smoke.py's
+    train phase holds the 640 px step against a CPU fp64 backward instead),
+    updated parameters within 2.1 x lr_max (Adam's first step is
+    lr * g / |g|, so an element whose gradient is at rounding level may step
+    either way)."""
+    from yololite_tpu_torch.convert import to_flax
+    from yololite_tpu_torch.models.detector import build_model_from_config, init_weights
+    from yololite_tpu_torch.train.steps import Trainer
+    cfg = {"model": {"arch": "YOLOLiteMS_CPU", "backbone": "mobilenetv4_conv_small_050",
+                     "depth_multiple": 0.65, "width_multiple": 0.60, "fpn_channels": 160,
+                     "head_depth": 1, "num_classes": 3},
+           "training": {"img_size": 256, "amp": False, "lr": 1e-3, "grad_clip": 1.0,
+                        "bb_lr_mult": 0.25, "neck_lr_mult": 1.25, "head_lr_mult": 1.75},
+           "loss": {"center_radius_cells": 3.5, "area_cells_min": 0.0, "area_tol": 1.75}}
+    params, stats = to_flax(init_weights(build_model_from_config(cfg), 0))
+    rng = np.random.RandomState(0)
+    xy = rng.uniform(0, 200, (4, 6, 2))
+    batch = {"image": rng.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8),
+             "boxes": np.concatenate([xy, xy + rng.uniform(8, 56, (4, 6, 2))], -1
+                                     ).astype(np.float32),
+             "labels": rng.randint(0, 3, (4, 6)).astype(np.int32),
+             "mask": rng.rand(4, 6) > 0.3}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            trainer = Trainer(build_model_from_config(cfg), cfg, device=dev)
+            state = trainer.state_from_weights(params, stats)
+            total, m = trainer.forward_loss(state, trainer.put_batch(batch),
+                                            return_assignment=True)
+            grads = trainer.backward(state, total)
+            lr_vec = trainer.lr_vector(1e-3)
+            trainer.apply(state, grads, lr_vec)
+            out[dev] = ({k: v.detach().cpu() for k, v in m.items()}, float(total.detach()),
+                        [g.cpu() for g in grads], [p.detach().cpu() for p in state.params])
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    (mg, tg, gg, pg), (mc, tc, gc, pc) = out["cuda"], out["cpu"]
+    assert torch.equal(mg["pos_mask"], mc["pos_mask"]) and int(mc["pos_mask"].sum()) > 0
+    pos = mc["pos_mask"]
+    assert torch.equal(mg["matched_gt"][pos], mc["matched_gt"][pos])
+    np.testing.assert_allclose(tg, tc, rtol=1e-3)
+    for k in ("box", "obj", "cls"):
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-3, err_msg=k)
+    flat = lambda gs: torch.cat([x.reshape(-1).double() for x in gs])
+    assert float((flat(gg) - flat(gc)).norm() / flat(gc).norm()) <= 2e-2
+    assert max(float((a - c).abs().max()) for a, c in zip(pg, pc)) <= 2.1 * max(lr_vec)

@@ -30,7 +30,7 @@ def _close(got, want, tol=1e-5):
 
 def test_anchors_match():
     assert level_shapes_for(IMG, (8, 16, 32)) == jax_level_shapes(IMG, (8, 16, 32))
-    pts, strides = make_anchors(SHAPES, IMG)
+    pts, strides = make_anchors(SHAPES, IMG, device="cpu")
     jp, js = jax_make_anchors(SHAPES, IMG)
     np.testing.assert_array_equal(pts.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(strides.numpy(), np.asarray(js))

@@ -1,0 +1,125 @@
+"""The port's training loop end to end on the CPU (edge_n at 64 px on a tiny
+PNG set written from a seed): artifacts, exact resume, and the options that
+still raise. Port only, apart from JAX's CSV header, which the port's must
+equal."""
+
+import csv
+import json
+import os
+
+import numpy as np
+import pytest
+
+from yololite_tpu.train.loop import CSV_HEADER as JAX_CSV_HEADER
+
+from chip_smoke import make_synth_set
+from yololite_tpu_torch.api import YoloLite
+from yololite_tpu_torch.config import load_configs
+from yololite_tpu_torch.train.checkpoint import load_checkpoint
+from yololite_tpu_torch.train.loop import CSV_HEADER, train_from_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OVERRIDES = dict(epochs=2, batch_size=4, img_size=64, augment=False, amp=False,
+                 freeze_backbone_epochs=1, save_optimizer=True, num_workers=2,
+                 pretrained_backbone=os.path.join(ROOT, "weights", "mnv4_050_cls20.ckpt"))
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("set"))
+    return make_synth_set(root, n_train=8, n_val=6, w=80, h=60)
+
+
+def _config(data, log_dir, **training):
+    cfg = load_configs(os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
+                       os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
+                       data, make_run_dir=False)
+    cfg["training"].update(dict(OVERRIDES, **training))
+    cfg["logging"] = {"log_dir": str(log_dir)}
+    return cfg
+
+
+def _rows(log_dir):
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def test_two_epochs_make_every_artifact(data, tmp_path):
+    model = YoloLite("edge_n", device="cpu")
+    res = model.train(data=data, run_dir=str(tmp_path / "runs"), workers=2,
+                      **{k: v for k, v in OVERRIDES.items() if k != "num_workers"})
+    log_dir = res["log_dir"]
+    for name in ("merged_config.yaml", "metrics.csv", "last_metrics.json",
+                 "best_metrics.json", "eval_results.json", "p_r_f1_curves.csv",
+                 "confusion_stats.txt", "weights/best_no_aug.ckpt",
+                 "weights/last_model_state.ckpt"):
+        assert os.path.exists(os.path.join(log_dir, name)), name
+    # without augmentation the JAX loop never writes best_model_state.ckpt
+    assert not os.path.exists(os.path.join(log_dir, "weights", "best_model_state.ckpt"))
+    assert CSV_HEADER == JAX_CSV_HEADER
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        assert f.readline().strip().split(",") == JAX_CSV_HEADER
+    rows = _rows(log_dir)
+    assert [r["epoch"] for r in rows] == ["1", "2"]
+    assert float(rows[0]["lr_g0"]) > 0                  # lr_g0 logs the schedule
+    hist = res["history"]
+    assert len(hist["step_loss"]) == 4 and np.isfinite(hist["step_loss"]).all()
+    sd, meta = load_checkpoint(os.path.join(log_dir, "weights", "last_model_state.ckpt"))
+    assert {"raw_params", "ema_params", "opt_state", "updates", "micro"} <= set(sd)
+    assert int(sd["updates"]) == 4 and meta["num_classes"] == 3
+    with open(os.path.join(log_dir, "eval_results.json")) as f:
+        assert set(json.load(f)) >= {"coco", "best_f1", "best_conf", "ms_per_img"}
+    # the object now serves and validates the best checkpoint
+    assert model._src["ckpt"].endswith("best_no_aug.ckpt")
+    frame = np.zeros((60, 80, 3), np.uint8)
+    assert model.predict(frame, conf=0.001)[0]["boxes"].shape[1] == 4
+    stats = model.val(data=data, out_dir=str(tmp_path / "val"))
+    assert {"map", "map_50", "AP", "best_f1"} <= set(stats)
+
+
+def _leaves(tree):
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _leaves(v) if isinstance(v, dict) else [np.asarray(v)]
+    return out
+
+
+def test_exact_resume_equals_uninterrupted(data, tmp_path):
+    straight = train_from_config(_config(data, tmp_path / "a"), device="cpu")
+    train_from_config(_config(data, tmp_path / "b", epochs=1), device="cpu")
+    last = str(tmp_path / "b" / "weights" / "last_model_state.ckpt")
+    # freeze_backbone_epochs: 1 -> epoch 1 trains at backbone LR 0, so the
+    # raw backbone weights are still the pretrained checkpoint's
+    sd, _ = load_checkpoint(last)
+    bb, _ = load_checkpoint(OVERRIDES["pretrained_backbone"])
+    bb = bb["params"].get("backbone", bb["params"])
+    for g, w in zip(_leaves(sd["raw_params"]["backbone"]), _leaves(bb)):
+        np.testing.assert_array_equal(g, w)
+    assert not all(np.array_equal(g, w) for g, w in
+                   zip(_leaves(sd["raw_params"]["head3"]), _leaves(sd["params"]["head3"])))
+    resumed = train_from_config(_config(data, tmp_path / "c", resume=last, start_epoch=1),
+                                device="cpu")
+    # the CPU is deterministic: epoch 2's steps and the LR schedule repeat exactly
+    assert resumed["history"]["step_loss"] == straight["history"]["step_loss"][2:]
+    assert [r["epoch"] for r in _rows(tmp_path / "c")] == ["2"]
+    assert _rows(tmp_path / "c")[0]["lr_g1"] == _rows(tmp_path / "a")[1]["lr_g1"]
+    a, _ = load_checkpoint(str(tmp_path / "a" / "weights" / "last_model_state.ckpt"))
+    c, _ = load_checkpoint(str(tmp_path / "c" / "weights" / "last_model_state.ckpt"))
+    for x, y in zip(_leaves(a["params"]), _leaves(c["params"])):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("training,model,item", [
+    ({"augment": True}, {}, "item 8a"),
+    ({"data_parallel": 2}, {}, "item 12"),
+    ({"spatial_parallel": 2}, {}, "item 12"),
+    ({"qat": True}, {}, "item 10"),
+    ({"checkpoint_backend": "orbax_async"}, {}, "item 8c"),
+    ({}, {"with_masks": True}, "item 9"),
+])
+def test_unported_options_raise_naming_their_item(data, tmp_path, training, model, item):
+    cfg = _config(data, tmp_path / "x", **training)
+    cfg["model"].update(model)
+    with pytest.raises(NotImplementedError, match=item):
+        train_from_config(cfg, device="cpu")

@@ -190,13 +190,14 @@ def test_read_yaml_equals_pyyaml(rel):
     "a: yes", "a: Off", "a: ~", "a: null", "a:", "a: 'x # y'", "a: 'it''s'",
     'a: "q"', "a: x#y", "a: x # comment", "1: b", "a: 0", "a: -0.0",
     "a:\n  b:\n  c: 2\nd: 3", "# only a comment\n", "a:\n  b:\n    c: 1\n  d: 2",
+    "a: [1, 2]", "a:\n  - 1",
 ])
 def test_parse_yaml_scalars_and_nesting_equal_pyyaml(text):
     assert parse_yaml(text) == yaml.safe_load(text)
 
 
 @pytest.mark.parametrize("text", [
-    "a: [1, 2]", "a:\n  - 1", "a: &x 1", "a: !!int 3", "a: |\n  x", "a: 012",
+    "a: [1, [2]]", "a:\n  - b: 1", "a: &x 1", "a: !!int 3", "a: |\n  x", "a: 012",
     "a: 0x1f", "a: 1:30", "a: 2001-12-14", "a: b: c", "  a: 1\n b: 2",
     "a:\n\tb: 1", "a: 'x", 'a: "x\\n"', "---\na: 1", "a\n", "a: {b: 1}",
 ])
@@ -228,3 +229,57 @@ def test_unknown_model_and_missing_checkpoint_raise_as_jax():
     model = YoloLite("edge_n", device="cpu")
     with pytest.raises(RuntimeError, match="checkpoint"):
         model.predict(np.zeros((32, 32, 3), np.uint8))
+
+
+# --------------------------------------------------------------------------- #
+# Training configs: the reader on configs/train, data.yaml forms, the 3-way
+# merge against JAX's load_configs, and the merged config's round trip
+TRAIN_YAMLS = sorted(os.path.relpath(p, ROOT)
+                     for p in glob.glob(os.path.join(ROOT, "configs", "train", "*.yaml")))
+
+
+@pytest.mark.parametrize("rel", TRAIN_YAMLS)
+def test_train_yaml_equals_pyyaml(rel):
+    with open(os.path.join(ROOT, rel)) as f:
+        want = yaml.safe_load(f) or {}
+    assert read_yaml(os.path.join(ROOT, rel)) == want
+
+
+@pytest.mark.parametrize("text", [
+    "names: [cat, dog, 'a, b']\nnc: 3", "names:\n- cat\n- dog\nnc: 2",
+    "train: ../train/images\nval: valid/images\nnames:\n  - x\n  - 'y z'\n",
+    "a: []\nb: {}\nc: [1.5, null, true, -3]\nd:\n", "resume:\nsave_by: null\n",
+])
+def test_data_yaml_forms_equal_pyyaml(text):
+    assert parse_yaml(text) == yaml.safe_load(text)
+
+
+def _tiny_data(tmp_path):
+    for split in ("train", "valid"):
+        for kind in ("images", "labels"):
+            (tmp_path / split / kind).mkdir(parents=True)
+    (tmp_path / "data.yaml").write_text("train: train/images\nval: val/images\n"
+                                        "names: [red, green]\n")
+    return str(tmp_path / "data.yaml")
+
+
+def test_load_configs_and_merged_config_round_trip(tmp_path, monkeypatch):
+    from yololite_tpu.config.config import load_configs as jax_load_configs
+    from yololite_tpu_torch.config import dump_yaml, load_configs, save_merged_config
+    data = _tiny_data(tmp_path)
+    model = os.path.join(ROOT, "configs", "models", "edge_n.yaml")
+    train = os.path.join(ROOT, "configs", "train", "standard_train.yaml")
+    got = load_configs(model, train, data, make_run_dir=False)
+    want = jax_load_configs(model, train, data, make_run_dir=False)
+    assert got == want                      # 'val' falls back to valid/, nc from names
+    got["training"]["lr"] = 1e-05           # a float PyYAML would misread as '1e-05'
+    got["dataset"]["names"].append("it's: odd, #1")
+    path = save_merged_config(got, str(tmp_path / "run"))
+    with open(path) as f:
+        assert yaml.safe_load(f) == got
+    assert read_yaml(path) == got
+    assert parse_yaml(dump_yaml(want)) == want
+    monkeypatch.chdir(tmp_path)             # the recipe's log_dir is relative
+    run_dirs = [load_configs(model, train, data)["logging"]["log_dir"] for _ in range(2)]
+    assert [os.path.basename(r) for r in run_dirs] == ["1", "2"]
+    assert os.path.realpath(tmp_path / "runs" / "train" / "latest") == run_dirs[1]

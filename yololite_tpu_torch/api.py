@@ -1,15 +1,18 @@
-"""Public library API: the `YoloLite` class (port of `api.py`, predict only).
+"""Public library API: the `YoloLite` class (port of `api.py`).
 
     model = YoloLite("edge_n")      # model name / model yaml / checkpoint
-    model = YoloLite("runs/det/1/weights/best_model_state.ckpt")   # on CUDA
-    results = model.predict(frame_bgr)[0]
+    model.train(data="data.yaml", epochs=20, augment=False)   # on CUDA
+    results = model.predict(frame_bgr)[0]      # the best checkpoint
     results["boxes"]   # xyxy np.ndarray (original pixels)
     results["speed"]   # {"preprocess_ms", "inference_ms", ..., "total_ms"}
+    stats = model.val(data="data.yaml")        # {"map", "map_50", ...}
 
-Sources are decoded BGR uint8 arrays (or `.npy` files of them): the package
-carries no image codec. A model name or yaml resolves as in the JAX API
-(configs/models, then v2_models, then custom); predicting needs a
-checkpoint, as there. Training, validation and export are later slices.
+Sources are decoded BGR uint8 arrays (or `.npy` files of them); datasets are
+PNG or `.npy` images (`data/dataset.py`): the package carries no JPEG codec.
+A model name or yaml resolves as in the JAX API (configs/models, then
+v2_models, then custom); predicting needs a checkpoint, as there. Everything
+runs on `device` (the card by default; tests pass "cpu"). Host augmentation
+(`augment: true`) is ROADMAP Queue 1 item 8a, export item 12.
 """
 
 from __future__ import annotations
@@ -81,11 +84,102 @@ class YoloLite:
             return sorted(glob.glob(os.path.join(source, "*.npy")))
         return [source]
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError("training: ROADMAP Queue 1 item 8")
+    def train(self, data: str, epochs: int = 100, batch_size: Optional[int] = None,
+              batch: Optional[int] = None, img_size: Optional[int] = None,
+              workers: int = 4, accumulate: int = 1, warmup: int = 0,
+              freeze_backbone: int = 0, lr: Optional[float] = None,
+              train_yaml: Optional[str] = None, run_dir: str = "runs/det",
+              **overrides) -> Dict[str, Any]:
+        """Train on `data` (a data.yaml) with configs/train/standard_train.yaml
+        (or `train_yaml`) and `overrides` of its `training` block; afterwards
+        this object serves the best checkpoint."""
+        from yololite_tpu_torch.config.config import (REPO_ROOT, load_configs, next_run_dir,
+                                                      update_latest_pointer)
+        from yololite_tpu_torch.train.checkpoint import load_checkpoint
+        from yololite_tpu_torch.train.loop import train_from_config
 
-    def val(self, *args, **kwargs):
-        raise NotImplementedError("evaluation: ROADMAP Queue 1 item 7")
+        model_yaml = self._src.get("model_yaml")
+        base_cfg = None
+        if model_yaml is None:
+            if "ckpt" not in self._src:
+                raise RuntimeError("train() needs a model name, yaml or checkpoint path")
+            _, meta = load_checkpoint(self._src["ckpt"])   # fine-tune: config from meta
+            base_cfg = meta.get("config", {})
+        train_yaml = train_yaml or os.path.join(REPO_ROOT, "configs", "train",
+                                                "standard_train.yaml")
+        if not os.path.exists(train_yaml):
+            train_yaml = None
+        cfg = load_configs(model_yaml, train_yaml, data, make_run_dir=False)
+        if base_cfg:
+            model_block = dict(base_cfg.get("model", {}))
+            model_block.update(cfg.get("model", {}))
+            cfg["model"] = model_block
+            cfg["training"].setdefault("resume", self._src["ckpt"])
+
+        tr = cfg.setdefault("training", {})
+        tr["epochs"] = int(epochs)
+        if batch_size or batch:
+            tr["batch_size"] = int(batch_size or batch)
+        tr.setdefault("batch_size", 16)
+        if img_size:
+            tr["img_size"] = int(img_size)
+        tr["num_workers"] = int(workers)
+        tr["accumulate"] = int(accumulate)
+        if warmup:
+            tr["warmup_epochs"] = int(warmup)
+        if freeze_backbone:
+            tr["freeze_backbone_epochs"] = int(freeze_backbone)
+        if lr is not None:
+            tr["lr"] = float(lr)
+        tr.update(overrides)
+
+        rd = next_run_dir(run_dir)
+        cfg["logging"] = {"log_dir": rd}
+        update_latest_pointer(os.path.dirname(rd), rd)
+        results = train_from_config(cfg, device=self.device)
+        for name in ("best_model_state.ckpt", "best_no_aug.ckpt", "last_model_state.ckpt"):
+            best = os.path.join(rd, "weights", name)
+            if os.path.exists(best):
+                self._src = {"ckpt": best}
+                self._predictor = None
+                break
+        return results
+
+    def val(self, data: str, split: str = "val", batch_size: int = 8,
+            conf: float = 0.001, iou: float = 0.65,
+            img_size: Optional[int] = None, out_dir: str = "runs/val") -> Dict[str, Any]:
+        """COCO evaluation of this object's checkpoint on a split of `data`."""
+        from yololite_tpu_torch.config.config import load_configs
+        from yololite_tpu_torch.data.dataset import YoloDataset
+        from yololite_tpu_torch.data.loader import DataLoader
+        from yololite_tpu_torch.eval.evaluate import evaluate_model
+        from yololite_tpu_torch.train.checkpoint import load_checkpoint, model_from_meta
+        from yololite_tpu_torch.train.steps import Trainer
+
+        if "ckpt" not in self._src:
+            raise RuntimeError("val() needs a trained checkpoint; train first or pass "
+                               "a .ckpt path.")
+        sd, meta = load_checkpoint(self._src["ckpt"])
+        cfg = load_configs(None, None, data, make_run_dir=False)
+        ds_cfg = cfg["dataset"]
+        key = "test" if split == "test" and ds_cfg.get("test_images") else "val"
+        img_size = int(img_size or meta.get("img_size", 640))
+        num_classes = int(meta.get("num_classes", len(ds_cfg.get("names", [])) or 1))
+        ds = YoloDataset(ds_cfg.get(f"{key}_images"), ds_cfg.get(f"{key}_labels"),
+                         img_size=img_size, is_train=False, augment=False)
+        loader = DataLoader(ds, batch_size, shuffle=False, drop_last=False)
+        t_cfg = dict(meta.get("config") or {})
+        t_cfg["model"] = dict(t_cfg.get("model") or {}, num_classes=num_classes)
+        t_cfg["training"] = dict(t_cfg.get("training") or {}, img_size=img_size)
+        trainer = Trainer(model_from_meta(meta), t_cfg, device=self.device)
+        variables = trainer.variables_from_flax(sd["params"], sd["batch_stats"])
+        os.makedirs(out_dir, exist_ok=True)
+        results = evaluate_model(trainer, variables, loader, out_dir, num_classes,
+                                 img_size, ds_cfg.get("names"), conf_th=conf, iou_th=iou)
+        stats = results["coco"]
+        return {"map": stats["AP"], "map_50": stats["AP50"], "map_75": stats["AP75"],
+                **stats, "best_f1": results["best_f1"], "best_conf": results["best_conf"],
+                "ms_per_img": results["ms_per_img"]}
 
     def export(self, *args, **kwargs):
         raise NotImplementedError("export: ROADMAP Queue 1 item 12")

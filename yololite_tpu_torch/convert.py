@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax variables -> this package's state_dict.
+"""Weight bridge between the JAX package's flax variables and this package's
+state_dict, both ways.
 
 Submodules of the port carry their flax names, so the bridge is a path map:
 `a/b/Conv_0/kernel` -> `a.b.Conv_0.weight`, plus the layout transforms
@@ -13,12 +14,14 @@ Submodules of the port carry their flax names, so the bridge is a path map:
 Any other leaf raises.
 
 Inputs are nested dicts of numpy arrays, as `train/checkpoint.load_checkpoint`
-returns them (this package's reader or flax's).
+returns them (this package's reader or flax's). `to_flax` is the inverse, and
+`to_flax_params` maps any per-parameter tensors (Adam moments, an SGD trace)
+into flax's params layout, for optimizer state in a checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,3 +98,86 @@ def load_flax(module: nn.Module, params: Mapping, batch_stats: Mapping) -> nn.Mo
                              f"model shape {tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def _flax_leaf_names(module: nn.Module) -> Dict[str, Tuple[str, str, str]]:
+    """torch state_dict key -> (flax collection, flax leaf, layout) for every
+    parameter and buffer of `module`; layout is "conv", "dense" or "same"."""
+    from yololite_tpu_torch.models.layers import GRN, BatchNorm
+    out = {}
+    for prefix, mod in module.named_modules():
+        def add(name, coll, leaf, layout="same"):
+            out[f"{prefix}.{name}" if prefix else name] = (coll, leaf, layout)
+        if isinstance(mod, nn.Conv2d):
+            add("weight", "params", "kernel", "conv")
+            if mod.bias is not None:
+                add("bias", "params", "bias")
+        elif isinstance(mod, nn.Linear):
+            add("weight", "params", "kernel", "dense")
+            add("bias", "params", "bias")
+        elif isinstance(mod, BatchNorm):
+            add("weight", "params", "scale")
+            add("bias", "params", "bias")
+            add("running_mean", "batch_stats", "mean")
+            add("running_var", "batch_stats", "var")
+        elif isinstance(mod, nn.LayerNorm):
+            add("weight", "params", "scale")
+            add("bias", "params", "bias")
+        elif isinstance(mod, GRN):
+            add("gamma", "params", "gamma")
+            add("beta", "params", "beta")
+    return out
+
+
+def _to_flax_array(t: torch.Tensor, layout: str) -> np.ndarray:
+    arr = t.detach().to("cpu", torch.float32).numpy()
+    if layout == "conv":
+        arr = arr.transpose(2, 3, 1, 0)
+    elif layout == "dense":
+        arr = arr.T
+    return np.ascontiguousarray(arr)
+
+
+def _nest(tree: dict, key: str, leaf: str, value) -> None:
+    *parents, _ = key.split(".")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def to_flax(module: nn.Module, tensors: Optional[Mapping[str, torch.Tensor]] = None):
+    """`module`'s state_dict (or `tensors`, keyed like it) -> nested flax
+    (params, batch_stats) of numpy float32 arrays; the inverse of
+    `from_flax`. Raises on a key the module has no flax name for."""
+    names = _flax_leaf_names(module)
+    tensors = module.state_dict() if tensors is None else tensors
+    trees = {"params": {}, "batch_stats": {}}
+    for key, t in tensors.items():
+        if key not in names:
+            raise KeyError(f"no flax name for {key}")
+        coll, leaf, layout = names[key]
+        _nest(trees[coll], key, leaf, _to_flax_array(t, layout))
+    return trees["params"], trees["batch_stats"]
+
+
+def to_flax_params(module: nn.Module, tensors: Mapping[str, torch.Tensor]) -> dict:
+    """Per-parameter tensors keyed by `module.named_parameters()` names (Adam
+    moments, an SGD trace) -> a nested tree in flax's params layout."""
+    params, stats = to_flax(module, tensors)
+    if stats:
+        raise KeyError("to_flax_params got buffers, not parameters")
+    return params
+
+
+def from_flax_params(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse of `to_flax_params`: a tree in flax's params layout -> a
+    flat dict keyed by `module.named_parameters()` names (exact key set)."""
+    flat = {}
+    for path, value in _walk(tree):
+        key, t = _convert_leaf(path, value)
+        flat[key] = t
+    want = {k for k, _ in module.named_parameters()}
+    if set(flat) != want:
+        raise KeyError(f"params tree keys differ from the module's: missing "
+                       f"{sorted(want - set(flat))[:8]}, leftover {sorted(set(flat) - want)[:8]}")
+    return flat

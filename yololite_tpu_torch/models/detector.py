@@ -173,6 +173,10 @@ class YOLOLiteMS(nn.Module):
         outs += [self.head3(p3), self.head4(p4), self.head5(p5)]
         if self.use_p6:
             outs.append(self.head6(self.smooth6(self.p6_down(p5))))
+        elif self.training:
+            # JAX computes p6_down/smooth6 and discards them without use_p6,
+            # so in training their BatchNorm statistics still move
+            self.smooth6(self.p6_down(p5))
         return outs
 
 

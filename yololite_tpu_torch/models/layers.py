@@ -37,9 +37,18 @@ def make_divisible(v: float, divisor: int = 8) -> int:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm (eps 1e-5) holding flax's scale/bias/mean/var as
-    weight/bias/running_mean/running_var. Training-mode statistics wait for
-    the training slice."""
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` holding scale/bias/
+    mean/var as weight/bias/running_mean/running_var.
+
+    In eval mode it normalizes with the running statistics. In train mode
+    (`module.train()`) it normalizes with the batch mean and the *biased*
+    batch variance (what `F.batch_norm(training=True)` does), and updates
+    `running = 0.9 * running + 0.1 * batch` with the biased variance too, as
+    flax does. `F.batch_norm` would fold the *unbiased* variance into
+    `running_var`, so it gets no running buffers here; the statistics for
+    the update are taken apart, in fp32 also under bf16 autocast."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -50,8 +59,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                            eps=self.eps)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,

@@ -27,12 +27,16 @@ def _make_anchors_np(level_hw: Tuple[Tuple[int, int], ...], img_size: int):
 @lru_cache(maxsize=64)
 def _make_anchors_on(level_hw, img_size: int, device: str):
     pts, strides = _make_anchors_np(level_hw, img_size)
-    return torch.from_numpy(pts).to(device), torch.from_numpy(strides).to(device)
+    # normal tensors even when first asked for under inference_mode (serving),
+    # so training's autograd may use the cached ones too
+    with torch.inference_mode(False):
+        return torch.from_numpy(pts).to(device), torch.from_numpy(strides).to(device)
 
 
-def make_anchors(level_hw: Sequence[Tuple[int, int]], img_size: int,
-                 device="cpu"):
-    """Return (anchor_points [N,2] float32 (gx,gy), strides [N] float32).
+def make_anchors(level_hw: Sequence[Tuple[int, int]], img_size: int, device):
+    """Return (anchor_points [N,2] float32 (gx,gy), strides [N] float32) on
+    `device`, which callers name (no default, so no grid lands on the CPU
+    unasked).
 
     Cached per device, so the serving loop does no host-to-device copy (and no
     host wait) for them after the first call. Callers must not write to them."""
