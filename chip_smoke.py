@@ -26,15 +26,28 @@ Phases (any failure exits non-zero and prints no result line):
               (Predictor.infer_batched_stream, device-resident, 2 runs of 4
               batches, and one YoloLite.predict frame) with the kernel's
               launches counted; prints params, img/s, forward ms, top kernel
-  7. train    edge_n @640 b8 bf16 trained for 2 epochs by YoloLite.train
-              (standard_train.yaml, augment off, backbone frozen in epoch 1,
-              the bundled backbone) on a synthetic PNG set written from a
-              seed (32 train / 8 val images at 640x480): finite and falling
-              loss, every artifact, best/last checkpoints served by the
-              Predictor, nms_suppress launches equal to the val batches the
-              run implies, an exact resume of epoch 2 from epoch 1's full
-              state; an fp32 step card vs CPU (equal assignment); step,
-              loader, eval and profiler numbers
+Then, on a synthetic PNG set written from a seed (32 train / 8 val images
+at 640x480, 1-4 coloured rectangles on dark noise):
+  7. augment  host augmentation on this machine (numpy, no cv2): 64 samples
+              each of the base and strong presets from fixed seeds, every
+              branch counted by wrappers (flips, affine, the five colour
+              ops, noise, blur, mosaic, cutmix, elastic, dropout, shadow,
+              flare), a second pass on 8 threads equal to the first; host ms
+              per op and per sample; the loader's ms per batch of 8 with
+              augmentation on and off
+  8. train    edge_n @640 b8 bf16 trained for 2 epochs by YoloLite.train
+              (standard_train.yaml with its host augmentation, tapered in
+              epoch 2; backbone frozen in epoch 1, the bundled backbone):
+              finite loss, falling val loss, every artifact, best/last
+              checkpoints served by the Predictor, nms_suppress launches
+              equal to the val batches the run implies, an exact resume of
+              epoch 2 from the full state of the same run stopped after
+              epoch 1; an fp32 step card vs CPU on unaugmented batches
+              (equal assignment); step (augmented batches), loader, eval
+              and profiler numbers
+  9. device_augment  the photometric step card vs CPU on equal draws
+              (within 1 level), its ms at b8 and b64, and one epoch of
+              edge_n b8 by hardsynth_device_aug.yaml (device_augment: true)
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -63,6 +76,8 @@ from yololite_tpu_torch.config import read_yaml  # noqa: E402
 from yololite_tpu_torch.config.config import MODEL_DIRS, load_configs  # noqa: E402
 from yololite_tpu_torch.convert import load_flax, to_flax  # noqa: E402
 from yololite_tpu_torch.csrc import build as kbuild  # noqa: E402
+from yololite_tpu_torch.data import augment as host_aug  # noqa: E402
+from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
 from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
 from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
@@ -78,6 +93,7 @@ from yololite_tpu_torch.ops.nms import (  # noqa: E402
     batched_nms, finalize_detections, select_candidates, yolo_scores,
 )
 from yololite_tpu_torch.train.checkpoint import load_checkpoint  # noqa: E402
+from yololite_tpu_torch.train import loop as train_loop  # noqa: E402
 from yololite_tpu_torch.train.loop import CSV_HEADER  # noqa: E402
 from yololite_tpu_torch.train.steps import Trainer  # noqa: E402
 
@@ -132,10 +148,22 @@ ZOO_FP32_FACTOR = 10.0
 ZOO_FP32_RTOL = 1e-3
 ZOO_BATCHES, ZOO_RUNS = 4, 2
 # train phase: edge_n @640 b8, standard_train.yaml with these overrides
-TRAIN_OVERRIDES = dict(epochs=2, batch_size=8, img_size=640, augment=False, amp=True,
+# (augment: true, the recipe's default: mosaic and cutmix in epoch 1, tapered
+# off in epoch 2 as int(0.7 * 2) = 1)
+TRAIN_OVERRIDES = dict(epochs=2, batch_size=8, img_size=640, augment=True, amp=True,
                        freeze_backbone_epochs=1, pretrained_backbone=BACKBONE_CKPT,
                        save_optimizer=True)
 TRAIN_N, VAL_N = 32, 8
+# augment phase: samples per preset, each from RandomState(seed base + i)
+AUG_SAMPLES = 64
+AUG_SEEDS = {"base": 1000, "strong": 2000}
+# every branch of host augmentation, each counted by a wrapper: module
+# functions of data/augment.py, its COLOR_OPS, the dataset's mix-ins
+AUG_FUNCS = ("hflip", "vflip", "random_affine", "gauss_noise", "motion_blur",
+             "elastic_transform", "coarse_dropout", "add_shadow", "add_sunflare")
+AUG_MIXES = ("mosaic", "cutmix_focus_small")
+# device_augment: the train phase's batch and hardsynth_device_aug.yaml's
+DEVAUG_BATCHES = (8, 64)
 # Exact resume: the resumed run's epoch-2 mean train loss against the
 # straight run's, within 1e-3 relative. It came out bit-exact on the card,
 # but cuDNN may pick nondeterministic weight-gradient algorithms, which
@@ -849,50 +877,29 @@ def _events(n):
     return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
 
-def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
-    """bf16 b8 train step timed by CUDA events (forward+loss, backward,
-    optimizer+EMA), the host loader, eval_step, evaluate_model, the device
-    busy share and top kernels (torch.profiler, 3 steps), peak memory."""
-    cfg = _edge_n_train_config(data_yaml, amp=True)
+def _step_profile(cfg, data_yaml: str, card: str, label: str, iters: int = 10):
+    """The bf16 train step of `cfg` on batches from its own train loader (its
+    augmentation settings): ms per step by CUDA events over `iters` steps,
+    then the device busy share, launches per step and top kernels
+    (torch.profiler, 3 steps). Returns the numbers and (trainer, state,
+    device batches, lr)."""
     params, stats = _seeded_flax_edge_n(cfg)
     trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=1000, device="cuda")
     state = trainer.state_from_weights(params, stats)
-    mb = int(cfg["training"]["max_boxes"])
+    tr = cfg["training"]
     ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
-                     img_size=IMG, is_train=True, augment=False, max_boxes=mb)
+                     img_size=IMG, is_train=True, augment=bool(tr["augment"]),
+                     max_boxes=int(tr["max_boxes"]),
+                     photometric=not bool(tr.get("device_augment", False)))
     loader = DataLoader(ds, 8, shuffle=True, num_workers=8)
     t0 = time.perf_counter()
     batches = list(loader)
     loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-    t0 = time.perf_counter()
-    for i in range(8):
-        ds.get(i)
-    get_ms = (time.perf_counter() - t0) * 1e3 / 8
-    t0 = time.perf_counter()
-    for i in range(8):
-        ds.load_image(i)
-    decode_ms = (time.perf_counter() - t0) * 1e3 / 8
     dev = [trainer.put_batch(b) for b in batches]
     lr = trainer.lr_vector(1e-3)
     for i in range(3):
         trainer.train_step(state, dev[i % len(dev)], lr)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    split = np.zeros(3)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        e = _events(4)
-        e[0].record()
-        total, _ = trainer.forward_loss(state, dev[i % len(dev)])
-        e[1].record()
-        grads = trainer.backward(state, total)
-        e[2].record()
-        trainer.apply(state, grads, lr)
-        e[3].record()
-        e[3].synchronize()
-        split += [e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3])]
-    split /= iters
-    synced_ms = (time.perf_counter() - t0) * 1e3 / iters
     s, e = _events(2)
     s.record()
     for i in range(iters):
@@ -900,7 +907,6 @@ def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
     e.record()
     e.synchronize()
     step_ms = s.elapsed_time(e) / iters
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -918,6 +924,59 @@ def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
     top = [{"kernel": ev.key[:120], "ms_per_step": ev.self_device_time_total / 3e3,
             "count": ev.count // 3}
            for ev in sorted(events, key=lambda ev: -ev.self_device_time_total)[:10]]
+    gt = float(np.mean([b["mask"].sum(1).mean() for b in batches]))
+    log(f"{label}: step {step_ms:.3f} ms by CUDA events over {iters} steps "
+        f"({8e3 / step_ms:.1f} img/s; M={int(tr['max_boxes'])}, {gt:.1f} GT boxes per image); "
+        f"profile of 3 steps: device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall "
+        f"({100 * busy_ms / wall_ms:.1f}% busy; profiler on), {launches:.0f} kernel launches "
+        f"per step; loader {loader_ms:.1f} ms per batch of 8 [{card}]")
+    for row in top:
+        log(f"  {row['ms_per_step']:8.3f} ms/step  x{row['count']:<4d} {row['kernel'][:100]}")
+    numbers = {"step_ms": step_ms, "img_s": 8e3 / step_ms, "busy_ms": busy_ms,
+               "wall_ms": wall_ms, "launches_per_step": launches, "top": top,
+               "loader_ms_per_batch": loader_ms, "gt_per_image": gt,
+               "max_boxes": int(tr["max_boxes"])}
+    return numbers, (trainer, state, dev, lr)
+
+
+def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
+    """bf16 b8 train step on augmented batches (the recipe's default): step
+    ms, device busy share and top kernels (`_step_profile`); the step split
+    (forward+loss, backward, optimizer+EMA), one thread's ms per sample and
+    PNG decode, eval_step, evaluate_model, peak memory."""
+    cfg = _edge_n_train_config(data_yaml, amp=True)
+    cfg["training"]["augment"] = True
+    prof, (trainer, state, dev, lr) = _step_profile(cfg, data_yaml, card,
+                                                    f"train step b8 bf16 @{IMG}, augment on", iters)
+    mb = int(cfg["training"]["max_boxes"])
+    ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
+                     img_size=IMG, is_train=True, augment=True, max_boxes=mb)
+    t0 = time.perf_counter()
+    for i in range(8):
+        ds.get(i, np.random.RandomState(i))
+    get_ms = (time.perf_counter() - t0) * 1e3 / 8
+    t0 = time.perf_counter()
+    for i in range(8):
+        ds.load_image(i)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split = np.zeros(3)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        e = _events(4)
+        e[0].record()
+        total, _ = trainer.forward_loss(state, dev[i % len(dev)])
+        e[1].record()
+        grads = trainer.backward(state, total)
+        e[2].record()
+        trainer.apply(state, grads, lr)
+        e[3].record()
+        e[3].synchronize()
+        split += [e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3])]
+    split /= iters
+    synced_ms = (time.perf_counter() - t0) * 1e3 / iters
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     variables = trainer.ema_variables(state)
     val_ds = YoloDataset(cfg["dataset"]["val_images"], cfg["dataset"]["val_labels"],
@@ -931,33 +990,23 @@ def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
     evaluate_model(trainer, variables, val_loader, os.path.join(tmp, "eval"), 3, IMG,
                    ["c0", "c1", "c2"])
     evaluate_s = time.perf_counter() - t0
-    log(f"train step b8 bf16 @640 (M={mb}): {step_ms:.3f} ms per step by CUDA events "
-        f"over {iters} steps ({8e3 / step_ms:.1f} img/s); split (events, synced each "
-        f"step: {synced_ms:.3f} ms host clock): forward+loss {split[0]:.3f}, backward "
-        f"{split[1]:.3f}, optimizer+EMA {split[2]:.3f} ms; peak {peak_gb:.2f} GB [{card}]")
-    log(f"train host loader: {loader_ms:.2f} ms per batch of 8 (8 threads; PNG decode "
-        f"+ letterbox), one thread {get_ms:.2f} ms per image of which decode "
-        f"{decode_ms:.2f} ms; device step {step_ms:.3f} ms [{card}]")
-    log(f"train profile: 3 steps, device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall "
-        f"({100 * busy_ms / wall_ms:.1f}% busy; profiler on), {launches:.0f} kernel "
-        f"launches per step [{card}]")
-    for row in top:
-        log(f"  {row['ms_per_step']:8.3f} ms/step  x{row['count']:<4d} {row['kernel'][:100]}")
+    log(f"train step split (events, synced each step: {synced_ms:.3f} ms host clock): "
+        f"forward+loss {split[0]:.3f}, backward {split[1]:.3f}, optimizer+EMA "
+        f"{split[2]:.3f} ms; peak {peak_gb:.2f} GB [{card}]")
+    log(f"train host: one thread {get_ms:.2f} ms per augmented sample, of which PNG decode "
+        f"{decode_ms:.2f} ms per image (a mosaic decodes 4, a cutmix 2) [{card}]")
     log(f"eval_step b8 @640: {eval_ms[0.1]:.3f} ms at conf 0.1, {eval_ms[0.001]:.3f} ms "
         f"at conf 0.001 (val loss + decode + NMS, k=1024); evaluate_model on the "
         f"{len(val_ds)} val images {evaluate_s:.2f} s (latency benches included) [{card}]")
-    return {"step_ms": step_ms, "img_s": 8e3 / step_ms, "split_ms": split.tolist(),
-            "synced_step_ms": synced_ms, "peak_gb": peak_gb, "loader_ms_per_batch": loader_ms,
-            "get_ms_per_image": get_ms, "decode_ms_per_image": decode_ms,
-            "busy_ms": busy_ms, "wall_ms": wall_ms, "launches_per_step": launches,
-            "top": top, "eval_step_ms": eval_ms, "evaluate_model_s": evaluate_s,
-            "max_boxes": mb}
+    return dict(prof, split_ms=split.tolist(), synced_step_ms=synced_ms, peak_gb=peak_gb,
+                get_ms_per_image=get_ms, decode_ms_per_image=decode_ms, eval_step_ms=eval_ms,
+                evaluate_model_s=evaluate_s)
 
 
 def _check_run_dir(log_dir: str) -> None:
     want = ["merged_config.yaml", "metrics.csv", "last_metrics.json", "best_metrics.json",
             "eval_results.json", "p_r_f1_curves.csv", "confusion_stats.txt",
-            "weights/best_no_aug.ckpt", "weights/last_model_state.ckpt"]
+            "weights/best_model_state.ckpt", "weights/last_model_state.ckpt"]
     missing = [w for w in want if not os.path.exists(os.path.join(log_dir, w))]
     if missing:
         raise AssertionError(f"train: missing artifacts {missing}")
@@ -966,85 +1015,294 @@ def _check_run_dir(log_dir: str) -> None:
             raise AssertionError("train: metrics.csv header differs from CSV_HEADER")
 
 
-def phase_train(card: str):
-    """edge_n trained at 640 b8 bf16 for 2 epochs through YoloLite.train on a
-    synthetic PNG set; launches of nms_suppress counted over the run."""
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data = make_synth_set(os.path.join(tmp, "synth"), TRAIN_N, VAL_N)
-        log(f"train: wrote {TRAIN_N} + {VAL_N} PNG images at 640x480 in "
-            f"{time.perf_counter() - t0:.2f} s")
-        runs = os.path.join(tmp, "runs")
-        api = YoloLite("edge_n", device="cuda")
-        torch.cuda.synchronize()
-        cuda_nms.LAUNCHES = 0
-        t0 = time.perf_counter()
-        res = api.train(data=data, workers=8, run_dir=runs, **TRAIN_OVERRIDES)
-        torch.cuda.synchronize()
-        launches = cuda_nms.LAUNCHES
-        train_s = time.perf_counter() - t0
-        val_batches = -(-VAL_N // TRAIN_OVERRIDES["batch_size"])
-        expected = (TRAIN_OVERRIDES["epochs"] + 1) * val_batches
-        hist = res["history"]
-        log(f"train: {TRAIN_OVERRIDES['epochs']} epochs in {train_s:.1f} s; epoch train "
-            f"loss {', '.join(f'{v:.4f}' for v in hist['train_loss'])}; val loss "
-            f"{', '.join(f'{v:.4f}' for v in hist['val_loss'])}; final AP50 "
-            f"{res['coco']['AP50']:.4f}; nms_suppress launched {launches} times "
-            f"(expected {expected}: {val_batches} val batch x {TRAIN_OVERRIDES['epochs']} "
-            f"epochs + {val_batches} in evaluate_model) [{card}]")
-        if launches != expected:
-            raise AssertionError("train: the validation path did not go through the kernel")
-        if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
-            raise AssertionError(f"train: non-finite loss {hist}")
-        if not hist["train_loss"][1] < hist["train_loss"][0]:
-            raise AssertionError("train: epoch 2's train loss is not below epoch 1's")
-        _check_run_dir(res["log_dir"])
-        frame = (np.random.RandomState(4).rand(480, 640, 3) * 255).astype(np.uint8)
-        served = {}
-        for name in ("best_no_aug.ckpt", "last_model_state.ckpt"):
-            pred = Predictor(os.path.join(res["log_dir"], "weights", name), device="cuda")
-            b, sc, _ = pred.infer_image(frame, conf=0.001)
-            if not (np.isfinite(b).all() and len(b) > 0):
-                raise AssertionError(f"train: {name} serves no finite boxes")
-            served[name] = len(b)
-        n_api = len(api.predict(frame, conf=0.001)[0]["boxes"])
-        log(f"train: best_no_aug / last checkpoints reload into the Predictor and serve "
-            f"{served} boxes; YoloLite.predict on the best {n_api}")
+class _ChunkEnd(Exception):
+    """Raised after an epoch's checkpoints to end a training chunk."""
 
-        # exact resume: epoch 1 alone, then epoch 2 from its full state
-        chunk1 = YoloLite("edge_n", device="cuda").train(
-            data=data, workers=8, run_dir=runs, **dict(TRAIN_OVERRIDES, epochs=1))
-        last1 = os.path.join(chunk1["log_dir"], "weights", "last_model_state.ckpt")
-        chunk2 = YoloLite("edge_n", device="cuda").train(
-            data=data, workers=8, run_dir=runs, **dict(TRAIN_OVERRIDES, resume=last1,
-                                                        start_epoch=1))
-        # control: a weights-only resume (what resuming a checkpoint saved
-        # without save_optimizer does: its EMA weights, fresh EMA/optimizer)
-        best1 = os.path.join(chunk1["log_dir"], "weights", "best_no_aug.ckpt")
-        control = YoloLite("edge_n", device="cuda").train(
-            data=data, workers=8, run_dir=runs, **dict(TRAIN_OVERRIDES, resume=best1,
-                                                        start_epoch=1))
-        straight = hist["train_loss"][1]
-        resumed = chunk2["history"]["train_loss"][0]
-        weights_only = control["history"]["train_loss"][0]
-        rel = abs(resumed - straight) / abs(straight)
-        log(f"train resume: epoch-2 train loss straight {straight:.6f}, resumed from "
-            f"epoch 1's full state {resumed:.6f} (rel diff {rel:.2e}, tolerance "
-            f"{RESUME_RTOL:g}); weights-only resume (fresh EMA/optimizer) "
-            f"{weights_only:.6f} (rel diff {abs(weights_only - straight) / straight:.2e}); "
-            f"epoch-1 loss straight {hist['train_loss'][0]:.6f}, chunk "
-            f"{chunk1['history']['train_loss'][0]:.6f}")
-        if rel > RESUME_RTOL:
-            raise AssertionError("train: exact resume does not reproduce epoch 2")
-        fp32 = train_fp32_parity(data, card)
-        timing = train_timing(data, card, tmp)
-    return {"launches": launches, "train_s": train_s, "history": hist,
+
+def train_chunk(epochs_done: int, **kw):
+    """YoloLite.train stopped after `epochs_done` epochs of the configured
+    run, as a time-limited chunk of tools/run_chunked_train.sh is killed: the
+    taper and schedule stay those of the whole run. Returns the run's
+    log_dir and its per-epoch train losses from metrics.csv."""
+    real = train_loop._save_loss_curve
+
+    def end_of_epoch(train_losses, *a):
+        real(train_losses, *a)
+        if len(train_losses) >= epochs_done:
+            raise _ChunkEnd
+
+    train_loop._save_loss_curve = end_of_epoch
+    runs = kw.pop("run_dir")
+    before = set(os.listdir(runs)) if os.path.isdir(runs) else set()
+    try:
+        YoloLite("edge_n", device="cuda").train(run_dir=runs, **kw)
+        raise AssertionError("train chunk: the run did not stop")
+    except _ChunkEnd:
+        pass
+    finally:
+        train_loop._save_loss_curve = real
+    new = sorted(set(os.listdir(runs)) - before - {"latest"}, key=int)
+    log_dir = os.path.join(runs, new[-1])
+    with open(os.path.join(log_dir, "metrics.csv")) as f:
+        rows = f.read().strip().splitlines()[1:]
+    return log_dir, [float(r.split(",")[CSV_HEADER.index("train_loss")]) for r in rows]
+
+
+def phase_train(card: str, data: str, tmp: str):
+    """edge_n trained at 640 b8 bf16 for 2 epochs through YoloLite.train with
+    the recipe's host augmentation; launches of nms_suppress counted over
+    the run."""
+    runs = os.path.join(tmp, "runs")
+    api = YoloLite("edge_n", device="cuda")
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = api.train(data=data, workers=8, run_dir=runs, **TRAIN_OVERRIDES)
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    train_s = time.perf_counter() - t0
+    epoch_s = [float(r.split(",")[CSV_HEADER.index("elapsed_s")]) for r in
+               open(os.path.join(res["log_dir"], "metrics.csv")).read().strip().splitlines()[1:]]
+    val_batches = -(-VAL_N // TRAIN_OVERRIDES["batch_size"])
+    expected = (TRAIN_OVERRIDES["epochs"] + 1) * val_batches
+    hist = res["history"]
+    log(f"train (augment on): {TRAIN_OVERRIDES['epochs']} epochs in {train_s:.1f} s (epoch "
+        f"seconds {', '.join(f'{v:.2f}' for v in epoch_s)}, validation included); epoch "
+        f"train loss {', '.join(f'{v:.4f}' for v in hist['train_loss'])}; val loss "
+        f"{', '.join(f'{v:.4f}' for v in hist['val_loss'])}; final AP50 "
+        f"{res['coco']['AP50']:.4f}; nms_suppress launched {launches} times "
+        f"(expected {expected}: {val_batches} val batch x {TRAIN_OVERRIDES['epochs']} "
+        f"epochs + {val_batches} in evaluate_model) [{card}]")
+    if launches != expected:
+        raise AssertionError("train: the validation path did not go through the kernel")
+    if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
+        raise AssertionError(f"train: non-finite loss {hist}")
+    # the train losses of the two epochs are not comparable (epoch 1 trains
+    # on mosaics of four images, epoch 2 after the taper on single ones), so
+    # the loss that must fall is the EMA model's on the unaugmented val set
+    if not hist["val_loss"][1] < hist["val_loss"][0]:
+        raise AssertionError("train: epoch 2's val loss is not below epoch 1's")
+    _check_run_dir(res["log_dir"])
+    frame = (np.random.RandomState(4).rand(480, 640, 3) * 255).astype(np.uint8)
+    served = {}
+    for name in ("best_model_state.ckpt", "last_model_state.ckpt"):
+        pred = Predictor(os.path.join(res["log_dir"], "weights", name), device="cuda")
+        b, sc, _ = pred.infer_image(frame, conf=0.001)
+        if not (np.isfinite(b).all() and len(b) > 0):
+            raise AssertionError(f"train: {name} serves no finite boxes")
+        served[name] = len(b)
+    n_api = len(api.predict(frame, conf=0.001)[0]["boxes"])
+    log(f"train: best_model_state / last checkpoints reload into the Predictor and serve "
+        f"{served} boxes; YoloLite.predict on the best {n_api}")
+
+    # exact resume under augmentation: the same 2-epoch run stopped after
+    # epoch 1 (the taper stays the whole run's), then epoch 2 from its full
+    # state, and as a control from its EMA weights alone (fresh EMA/optimizer)
+    log1, chunk1_loss = train_chunk(1, data=data, workers=8, run_dir=runs, **TRAIN_OVERRIDES)
+    chunk2 = YoloLite("edge_n", device="cuda").train(
+        data=data, workers=8, run_dir=runs, **dict(
+            TRAIN_OVERRIDES, resume=os.path.join(log1, "weights", "last_model_state.ckpt"),
+            start_epoch=1))
+    control = YoloLite("edge_n", device="cuda").train(
+        data=data, workers=8, run_dir=runs, **dict(
+            TRAIN_OVERRIDES, resume=os.path.join(log1, "weights", "best_model_state.ckpt"),
+            start_epoch=1))
+    straight = hist["train_loss"][1]
+    resumed = chunk2["history"]["train_loss"][0]
+    weights_only = control["history"]["train_loss"][0]
+    rel = abs(resumed - straight) / abs(straight)
+    log(f"train resume (augment on): epoch-2 train loss straight {straight:.6f}, resumed "
+        f"from epoch 1's full state {resumed:.6f} (rel diff {rel:.2e}, tolerance "
+        f"{RESUME_RTOL:g}); weights-only resume (fresh EMA/optimizer) "
+        f"{weights_only:.6f} (rel diff {abs(weights_only - straight) / straight:.2e}); "
+        f"epoch-1 loss straight {hist['train_loss'][0]:.6f}, chunk {chunk1_loss[0]:.6f}")
+    if rel > RESUME_RTOL:
+        raise AssertionError("train: exact resume does not reproduce epoch 2")
+    fp32 = train_fp32_parity(data, card)
+    timing = train_timing(data, card, tmp)
+    return {"launches": launches, "train_s": train_s, "epoch_s": epoch_s, "history": hist,
             "coco": res["coco"], "ms_per_img": res["ms_per_img"],
             "ms_per_img_cpu": res["ms_per_img_cpu"], "served": served,
             "resume": {"straight": straight, "resumed": resumed, "rel": rel,
-                       "weights_only": weights_only,
-                       "chunk1_epoch1": chunk1["history"]["train_loss"][0]},
+                       "weights_only": weights_only, "chunk1_epoch1": chunk1_loss[0]},
             "fp32": fp32, "timing": timing}
+
+
+# --------------------------------------------------------------------------- #
+def _instrument_host_aug():
+    """Wrap every branch of host augmentation with a call counter and timer
+    (thread-safe). Returns (stats {name: [calls, seconds]}, undo)."""
+    import threading
+    lock = threading.Lock()
+    stats = {}
+
+    def wrap(fn, name):
+        stats[name] = [0, 0.0]
+
+        def counted(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            with lock:
+                stats[name][0] += 1
+                stats[name][1] += time.perf_counter() - t0
+            return out
+        return counted
+
+    saved = [(host_aug, n, getattr(host_aug, n)) for n in AUG_FUNCS + ("COLOR_OPS",)]
+    saved += [(YoloDataset, n, getattr(YoloDataset, n)) for n in AUG_MIXES]
+    for mod, name, fn in saved:
+        if name == "COLOR_OPS":
+            setattr(mod, name, tuple(wrap(f, f.__name__) for f in fn))
+        else:
+            setattr(mod, name, wrap(fn, name))
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return stats, undo
+
+
+def _aug_samples(ds, seed0, n, pool=None):
+    draw = lambda i: ds.get(i % len(ds), np.random.RandomState(seed0 + i))  # noqa: E731
+    return list(pool.map(draw, range(n))) if pool else [draw(i) for i in range(n)]
+
+
+def _same_samples(a, b) -> bool:
+    return all(all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a, b))
+
+
+def _loader_epoch_ms(ds) -> float:
+    """ms per batch of 8 of one shuffled epoch, 8 loader threads."""
+    loader = DataLoader(ds, 8, shuffle=True, seed=0, num_workers=8)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_augment(card: str, data: str):
+    """Host augmentation on the card's machine (numpy, no cv2) at 640x480 ->
+    640: every branch fires, the same seeds give the same samples on a second
+    pass and on 8 threads, host ms per op and per preset, and the loader's
+    ms per batch of 8 with augmentation on and off."""
+    from concurrent.futures import ThreadPoolExecutor
+    cfg = read_yaml(data)
+    root = os.path.dirname(data)
+    imgs, labels = cfg["train"], os.path.join(root, "train", "labels")
+    stats, undo = _instrument_host_aug()
+    out = {"per_preset_ms": {}}
+    try:
+        for preset, seed0 in AUG_SEEDS.items():
+            # decoded images cached: the numbers are augmentation + letterbox
+            ds = YoloDataset(imgs, labels, img_size=IMG, is_train=True, augment=True,
+                             aug_preset=preset, cache_images=True)
+            for i in range(len(ds)):
+                ds.load_image(i)
+            t0 = time.perf_counter()
+            first = _aug_samples(ds, seed0, AUG_SAMPLES)
+            out["per_preset_ms"][preset] = (time.perf_counter() - t0) * 1e3 / AUG_SAMPLES
+            with ThreadPoolExecutor(8) as pool:        # a second pass, on 8 threads
+                again = _aug_samples(ds, seed0, AUG_SAMPLES, pool)
+            if not _same_samples(first, again):
+                raise AssertionError(f"augment {preset}: the same seeds gave other samples")
+            for smp in first:
+                b = smp["boxes"][smp["mask"]]
+                if not (smp["image"].shape == (IMG, IMG, 3) and smp["image"].dtype == np.uint8
+                        and np.isfinite(b).all() and (b >= 0).all() and (b <= IMG).all()
+                        and (b[:, 2:] > b[:, :2]).all()
+                        and ((smp["labels"][smp["mask"]] >= 0)
+                             & (smp["labels"][smp["mask"]] < 3)).all()):
+                    raise AssertionError(f"augment {preset}: a malformed sample")
+            out[f"{preset}_boxes_per_sample"] = float(np.mean([s["mask"].sum() for s in first]))
+    finally:
+        undo()
+    missing = [n for n, (calls, _) in stats.items() if calls == 0]
+    # two passes per preset: counts and times over both
+    out["ops"] = {n: {"calls": c, "ms": 1e3 * t / max(c, 1)} for n, (c, t) in stats.items()}
+    log(f"augment: {AUG_SAMPLES} samples per preset (base, strong) at 640x480 -> {IMG}, "
+        f"decoded images cached: base {out['per_preset_ms']['base']:.2f} ms, strong "
+        f"{out['per_preset_ms']['strong']:.2f} ms per sample (one thread); identical on a "
+        f"second pass on 8 threads [{card}]")
+    log("augment host ms per call (calls over 2 passes of both presets): " + ", ".join(
+        f"{n} {v['ms']:.2f} (x{v['calls']})" for n, v in sorted(out["ops"].items())))
+    if missing:
+        raise AssertionError(f"augment: branches that never fired: {missing}")
+    # the train loader on the same images, augmentation off and on in turns
+    on = YoloDataset(imgs, labels, img_size=IMG, is_train=True, augment=True)
+    off = YoloDataset(imgs, labels, img_size=IMG, is_train=True, augment=False)
+    ms = {"off": [], "on": []}
+    for name, ds in (("off", off), ("on", on), ("on", on), ("off", off)):
+        ms[name].append(_loader_epoch_ms(ds))
+    out["loader_ms_per_batch"] = {k: float(np.mean(v)) for k, v in ms.items()}
+    out["loader_runs_ms"] = ms
+    log(f"augment loader: {out['loader_ms_per_batch']['on']:.1f} ms per batch of 8 with "
+        f"augmentation, {out['loader_ms_per_batch']['off']:.1f} ms without (8 threads, PNG "
+        f"decode included; runs off/on/on/off: {ms['off'][0]:.1f}/{ms['on'][0]:.1f}/"
+        f"{ms['on'][1]:.1f}/{ms['off'][1]:.1f}) [{card}]")
+    return out
+
+
+def phase_device_augment(card: str, data: str, tmp: str):
+    """Photometric augmentation on the card: the apply step on equal draws
+    card vs CPU (within 1 level), its time at b8 and b64, and one epoch of
+    edge_n at b8 with hardsynth_device_aug.yaml's device_augment."""
+    cfg = read_yaml(data)
+    val = YoloDataset(cfg["val"], os.path.join(os.path.dirname(data), "valid", "labels"),
+                      img_size=IMG, is_train=False, augment=False)
+    base = torch.from_numpy(collate([val.get(i) for i in range(8)])["image"])
+    # card vs CPU on equal draws (every image coloured and noised or blurred)
+    params = dev_aug.draw(base.shape, torch.Generator().manual_seed(0), 1.0, 1.0)
+    want = dev_aug.apply(base, params)
+    got = dev_aug.apply(base.cuda(), {k: v.cuda() for k, v in params.items()}).cpu()
+    d = (got.int() - want.int()).abs()
+    out = {"max_diff": int(d.max()), "share_differ": float((d > 0).float().mean()),
+           "apply_ms": {}, "draw_apply_ms": {}, "bound_ms": {}}
+    log(f"device_augment b8 @{IMG} (p_color = p_noise = 1): apply card vs CPU on equal draws, "
+        f"max diff {out['max_diff']} level(s) on {out['share_differ']:.2e} of the values "
+        f"(tolerance 1)")
+    if out["max_diff"] > 1:
+        raise AssertionError("device_augment: card and CPU differ by more than 1 level")
+    for b in DEVAUG_BATCHES:
+        x = base.cuda().repeat(b // 8, 1, 1, 1)
+        gen = torch.Generator(device=x.device).manual_seed(b)
+        p = dev_aug.draw(x.shape, gen, 0.4, 0.15, x.device)
+        out["apply_ms"][b] = cuda_ms(lambda: dev_aug.apply(x, p), 20)
+        out["draw_apply_ms"][b] = cuda_ms(lambda: dev_aug.photometric_augment(x, gen), 20)
+        # uint8 images in and out, the fp32 noise in
+        out["bound_ms"][b] = 6 * x.numel() / PEAK_BYTES_S * 1e3
+        log(f"device_augment b{b} @{IMG}: apply {out['apply_ms'][b]:.3f} ms, draw+apply "
+            f"{out['draw_apply_ms'][b]:.3f} ms, bytes bound {out['bound_ms'][b]:.4f} ms "
+            f"[{card}]")
+        del x, p
+        torch.cuda.empty_cache()
+    # one epoch as hardsynth_device_aug.yaml writes it, at the train phase's b8
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = YoloLite("edge_n", device="cuda").train(
+        data=data, epochs=1, batch_size=8, img_size=IMG, workers=8,
+        run_dir=os.path.join(tmp, "runs_devaug"), pretrained_backbone=BACKBONE_CKPT,
+        train_yaml=os.path.join(ROOT, "configs", "train", "hardsynth_device_aug.yaml"))
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    out["train_s"] = time.perf_counter() - t0
+    hist = res["history"]
+    if not np.isfinite(hist["step_loss"]).all():
+        raise AssertionError(f"device_augment: non-finite loss {hist}")
+    if launches != 2:
+        raise AssertionError(f"device_augment: {launches} nms_suppress launches, expected 2")
+    out["step_loss"] = hist["step_loss"]
+    out["nms_launches"] = launches
+    # the step itself: device_augment on, geometry-only host batches
+    tcfg = load_configs(os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
+                        os.path.join(ROOT, "configs", "train", "hardsynth_device_aug.yaml"),
+                        data, make_run_dir=False)
+    tcfg["training"].update(batch_size=8, img_size=IMG)
+    out["step"] = _step_profile(tcfg, data, card, f"train step b8 bf16 @{IMG}, device_augment")[0]
+    log(f"device_augment: 1 epoch of edge_n b8 by hardsynth_device_aug.yaml in "
+        f"{out['train_s']:.1f} s, step losses "
+        f"{', '.join(f'{v:.3f}' for v in hist['step_loss'])}, nms_suppress launched "
+        f"{launches} times (1 val batch + 1 in evaluate_model) [{card}]")
+    return out
 
 
 def _decode_scores(outs):
@@ -1062,9 +1320,19 @@ def main():
     t_zoo = time.perf_counter()
     zoo = phase_zoo(card)
     log(f"zoo: {len(zoo)} configs in {time.perf_counter() - t_zoo:.1f} s")
-    t_train = time.perf_counter()
-    train = phase_train(card)
-    log(f"train phase: {time.perf_counter() - t_train:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = make_synth_set(os.path.join(tmp, "synth"), TRAIN_N, VAL_N)
+        log(f"wrote {TRAIN_N} + {VAL_N} PNG images at 640x480 in "
+            f"{time.perf_counter() - t0:.2f} s")
+        phases = {}
+        for name, fn in (("augment", lambda: phase_augment(card, data)),
+                         ("train", lambda: phase_train(card, data, tmp)),
+                         ("device_augment", lambda: phase_device_augment(card, data, tmp))):
+            t0 = time.perf_counter()
+            phases[name] = fn()
+            log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    train = phases["train"]
     main_k = krows[f"B{BATCH}_k{PRE_NMS_TOPK}"]
     kernels = [dict(KERNELS[0], launches=serve["launches"], max_abs_err=float(max_err),
                     ms=main_k["ms"], plain_ms=main_k["plain_ms"],
@@ -1072,11 +1340,12 @@ def main():
                     library_ms=None, ms_mask=main_k["ms_mask"], ms_scan=main_k["ms_scan"],
                     ms_b1=krows[f"B1_k{PRE_NMS_TOPK}"]["ms"],
                     ms_by_k={key: r["ms"] for key, r in krows.items()},
-                    launches_train=train["launches"])]
+                    launches_train=train["launches"],
+                    launches_device_augment_train=phases["device_augment"]["nms_launches"])]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,
-                   "serve": serve, "zoo": zoo, "train": train}, f, indent=1)
+                   "serve": serve, "zoo": zoo, **phases}, f, indent=1, default=float)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The CUDA suppression kernel against its plain PyTorch version, on the card.
+"""The CUDA suppression kernel against its plain PyTorch version, on the card
+(and the device photometric augmentation, card vs CPU).
 
 Marked `cuda`; skips without a card. This file imports no JAX, so it runs on
 the card's machine, which has none (tests/conftest.py imports JAX, hence
@@ -182,3 +183,19 @@ def test_train_step_fp32_card_matches_cpu(card):
     flat = lambda gs: torch.cat([x.reshape(-1).double() for x in gs])
     assert float((flat(gg) - flat(gc)).norm() / flat(gc).norm()) <= 2e-2
     assert max(float((a - c).abs().max()) for a, c in zip(pg, pc)) <= 2.1 * max(lr_vec)
+
+
+@pytest.mark.cuda
+def test_device_augment_card_matches_cpu(card):
+    """The photometric step on equal draws: card vs CPU within 1 level (the
+    fp32 colour product may round the other way at a half)."""
+    from yololite_tpu_torch.data import device_augment as dev_aug
+    images = torch.from_numpy((np.random.RandomState(0).rand(8, 64, 80, 3) * 255)
+                              .astype(np.uint8))
+    p = dev_aug.draw(images.shape, torch.Generator().manual_seed(1), 1.0, 1.0)
+    want = dev_aug.apply(images, p)
+    got = dev_aug.apply(images.cuda(), {k: v.cuda() for k, v in p.items()}).cpu()
+    assert int((got.int() - want.int()).abs().max()) <= 1
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = dev_aug.photometric_augment(images.cuda(), gen)
+    assert out.dtype == torch.uint8 and out.shape == images.shape and out.is_cuda

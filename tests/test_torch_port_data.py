@@ -8,6 +8,14 @@ Tolerances, each with its reason:
     tests/test_torch_port_letterbox.py (the port's bilinear resize is
     torch's, cv2's rounds its fixed-point weights: at most 1 level apart);
     boxes 1e-4 px (fp32 scale and pad of the same geometry);
+  - augmented samples (mosaic, cutmix, the base and strong presets, with
+    and without the photometric ops) on the same RandomState: labels exact,
+    boxes 1e-4 px, the RandomState's state equal afterwards; pixels within
+    1 level (the final letterbox; the warps, tests/test_torch_port_augment.py)
+    when the mosaic tiles need no resize or no colour op follows, else
+    within RESIZED_TOL on at most RESIZED_SHARE of the values (a tile's
+    1-level resize difference passes through contrast and HSV, which widen
+    it);
   - batch order, padding and `nvalid`: exact.
 """
 
@@ -187,8 +195,11 @@ def test_unsupported_images_raise_and_damaged_ones_go_black(synth, tmp_path):
     out = YoloDataset(str(dmg), labels, img_size=64, is_train=False, augment=False).get(0)
     assert out["image"].shape == (64, 64, 3) and not out["image"].any()
     assert not out["mask"].any()
-    with pytest.raises(NotImplementedError, match="item 8a"):
-        YoloDataset(imgs, labels, img_size=64, is_train=True, augment=True)
+    # a training set with augmentation builds and draws a sample (this
+    # raised before host augmentation was ported)
+    aug = YoloDataset(imgs, labels, img_size=64, is_train=True, augment=True).get(
+        0, np.random.RandomState(0))
+    assert aug["image"].shape == (64, 64, 3) and aug["image"].dtype == np.uint8
 
 
 @pytest.mark.parametrize("shuffle,workers", [(True, 0), (True, 3), (False, 2)])
@@ -221,3 +232,143 @@ def test_loader_reraises_a_worker_error(synth):
     ds.get = lambda i, rng=None: 1 / 0
     with pytest.raises(RuntimeError, match="worker failed"):
         list(DataLoader(ds, 2, shuffle=False, num_workers=2))
+
+
+# --------------------------------------------------------------------------- #
+# Augmentation: mosaic, cutmix, the presets, the taper's switches
+# --------------------------------------------------------------------------- #
+# tiles resized for a mosaic, then colour ops: 2 levels on 6.5e-4 of the
+# values at most over 40 seeds
+RESIZED_TOL, RESIZED_SHARE = 4, 3e-3
+AUG_CASES = {   # name: (split, dataset keyword arguments, tolerance, share > 1 level)
+    "mosaic": ("square", dict(mosaic_p=1.0, cutmix_p=0.0), 1, 0.0),
+    "mosaic_resized_tiles": ("wide", dict(mosaic_p=1.0, cutmix_p=0.0),
+                             RESIZED_TOL, RESIZED_SHARE),
+    "cutmix": ("wide", dict(mosaic_p=0.0, cutmix_p=1.0), 1, 0.0),
+    "base": ("wide", {}, RESIZED_TOL, RESIZED_SHARE),
+    "base_square": ("square", {}, 1, 0.0),
+    "strong": ("square", dict(aug_preset="strong"), 1, 0.0),
+    "geometry_only": ("wide", dict(photometric=False), 1, 0.0),
+    "strong_geometry_only": ("wide", dict(aug_preset="strong", photometric=False), 1, 0.0),
+}
+
+
+def _same_rng(a, b):
+    sa, sb = a.get_state(), b.get_state()
+    assert sa[0] == sb[0] and sa[2:] == sb[2:]
+    np.testing.assert_array_equal(sa[1], sb[1])
+
+
+def _assert_sample(p, j, tol, share):
+    for k in ("labels", "mask", "image_id"):
+        np.testing.assert_array_equal(p[k], j[k], err_msg=k)
+    np.testing.assert_allclose(p["boxes"], j["boxes"], atol=1e-4, rtol=0)
+    d = np.abs(p["image"].astype(int) - j["image"].astype(int))
+    assert d.max() <= tol, f"max diff {d.max()}"
+    assert (d > 1).mean() <= share, f"{(d > 1).mean():.2e} of the values > 1 level apart"
+
+
+@pytest.mark.parametrize("case", sorted(AUG_CASES))
+def test_augmented_get_matches_jax(synth, case):
+    root, _ = synth
+    split, kw, tol, share = AUG_CASES[case]
+    imgs, labels = _split(root, split)
+    args = dict(img_size=64, is_train=True, augment=True, max_boxes=24, **kw)
+    jds, pds = JaxYoloDataset(imgs, labels, **args), YoloDataset(imgs, labels, **args)
+    for seed in range(12):
+        i = seed % len(pds)
+        rj, rp = np.random.RandomState(seed), np.random.RandomState(seed)
+        j, p = jds.get(i, rj), pds.get(i, rp)
+        _same_rng(rj, rp)
+        _assert_sample(p, j, tol, share)
+
+
+def test_mosaic_and_cutmix_alone_match_jax(synth):
+    root, _ = synth
+    for split, tol in (("square", 0), ("wide", 1)):
+        imgs, labels = _split(root, split)
+        args = dict(img_size=64, is_train=True, augment=True, max_boxes=24)
+        jds, pds = JaxYoloDataset(imgs, labels, **args), YoloDataset(imgs, labels, **args)
+        for seed in range(6):
+            rj, rp = np.random.RandomState(seed), np.random.RandomState(seed)
+            (ji, jb, jl), (pi, pb, pl) = jds.mosaic(seed % len(jds), rj), pds.mosaic(seed % len(pds), rp)
+            _same_rng(rj, rp)
+            assert np.abs(pi.astype(int) - ji.astype(int)).max() <= tol
+            np.testing.assert_allclose(pb, jb, atol=1e-4, rtol=0)
+            np.testing.assert_array_equal(pl, jl)
+            img = jds.load_image(0)
+            b, l = jds.load_label_processed(0, *img.shape[:2])
+            other = (seed + 1) % len(jds)
+            ji, jb, jl = jds.cutmix_focus_small(img, b, l, other, rj)
+            pi, pb, pl = pds.cutmix_focus_small(pds.load_image(0), b, l, other, rp)
+            _same_rng(rj, rp)
+            np.testing.assert_array_equal(pi, ji)
+            np.testing.assert_allclose(pb, jb, atol=1e-4, rtol=0)
+            np.testing.assert_array_equal(pl, jl)
+
+
+def test_taper_switches_match_jax(synth):
+    """set_mosaic_cutmix / set_augment / set_img_size leave the port's
+    dataset in the JAX dataset's state, and its samples follow."""
+    root, _ = synth
+    imgs, labels = _split(root, "square")
+    args = dict(img_size=64, is_train=True, augment=True, max_boxes=24)
+    jds, pds = JaxYoloDataset(imgs, labels, **args), YoloDataset(imgs, labels, **args)
+
+    def state(ds):
+        return (ds.mosaic_p, ds.cutmix_p, ds.augment_enabled, type(ds.transform).__name__,
+                ds.transform.img_size)
+
+    def same_sample(seed):
+        rj, rp = np.random.RandomState(seed), np.random.RandomState(seed)
+        _assert_sample(pds.get(1, rp), jds.get(1, rj), 1, 0.0)
+        _same_rng(rj, rp)
+
+    assert state(pds) == state(jds) == (0.2, 0.2, True, "TrainTransform", 64)
+    for step in (lambda d: d.set_mosaic_cutmix(0.0, 0.0), lambda d: d.set_img_size(96),
+                 lambda d: d.set_img_size(64), lambda d: d.set_augment(False),
+                 lambda d: d.set_augment(True)):
+        step(jds)
+        step(pds)
+        assert state(pds) == state(jds)
+        same_sample(3)
+    assert state(pds) == (0.0, 0.0, True, "TrainTransform", 64)
+    val = YoloDataset(imgs, labels, img_size=64, is_train=False, augment=True)
+    assert not val.augment_enabled and val.mosaic_p == 0.0 and val.cutmix_p == 0.0
+
+
+def test_augmented_loader_matches_jax_across_threads(synth):
+    """The loader's per-sample RNGs give JAX's augmented batches, and the
+    same batches on a second pass over the same epoch."""
+    root, _ = synth
+    imgs, labels = _split(root, "square")
+    kw = dict(img_size=64, is_train=True, augment=True, max_boxes=24)
+    jl = JaxDataLoader(JaxYoloDataset(imgs, labels, **kw), 3, shuffle=True, seed=5,
+                       num_workers=4)
+    pl = DataLoader(YoloDataset(imgs, labels, **kw), 3, shuffle=True, seed=5, num_workers=4)
+    jb, pb = list(jl), list(pl)
+    pl.epoch = 0
+    again = list(pl)
+    for j, p, q in zip(jb, pb, again):
+        for k in ("image", "boxes", "labels", "mask", "image_id"):
+            np.testing.assert_array_equal(q[k], p[k])
+        np.testing.assert_array_equal(p["labels"], j["labels"])
+        np.testing.assert_allclose(p["boxes"], j["boxes"], atol=1e-4, rtol=0)
+        assert np.abs(p["image"].astype(int) - j["image"].astype(int)).max() <= 1
+
+
+def test_strong_preset_kept_across_a_size_switch(synth):
+    """JAX's set_img_size keeps only a TrainTransform, so its strong preset
+    falls back to letterbox-only samples after a multi-scale switch; the
+    port keeps the preset (ROADMAP Queue 3)."""
+    root, _ = synth
+    imgs, labels = _split(root, "square")
+    args = dict(img_size=64, is_train=True, augment=True, aug_preset="strong")
+    jds, pds = JaxYoloDataset(imgs, labels, **args), YoloDataset(imgs, labels, **args)
+    for ds in (jds, pds):
+        assert type(ds.transform).__name__ == "StrongTrainTransform"
+        ds.set_img_size(96)
+    assert type(jds.transform).__name__ == "ValTransform"
+    assert type(pds.transform).__name__ == "StrongTrainTransform"
+    assert pds.transform.img_size == 96 and pds.get(0, np.random.RandomState(0))[
+        "image"].shape == (96, 96, 3)

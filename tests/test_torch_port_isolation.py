@@ -57,5 +57,6 @@ def test_training_modules_are_covered():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     for rel in ("losses/simota.py", "train/steps.py", "train/optim.py", "train/loop.py",
                 "data/png.py", "data/dataset.py", "data/loader.py", "eval/coco.py",
-                "eval/evaluate.py"):
+                "eval/evaluate.py", "data/imgops.py", "data/augment.py", "data/weather.py",
+                "data/device_augment.py", "data/coco_ingest.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files

@@ -160,9 +160,11 @@ def test_unported_options_raise():
         build_backbone("no_such_backbone")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         build_model_from_config(edge_cfg(64, with_masks=True))
-    # training is ported; host augmentation and multiple devices still raise
+    # training and its augmentation are ported; multiple devices and the
+    # orbax backend still raise
     from yololite_tpu_torch.train.loop import train_from_config
-    for training, item in (({"augment": True}, "item 8a"),
-                           ({"augment": False, "data_parallel": 2}, "item 12")):
+    for training, item in (({"augment": True, "data_parallel": 2}, "item 12"),
+                           ({"augment": False, "checkpoint_backend": "orbax_async"},
+                            "item 8c")):
         with pytest.raises(NotImplementedError, match=item):
             train_from_config({"model": {}, "training": training}, device="cpu")

@@ -93,10 +93,11 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
     with pytest.raises(NotImplementedError, match="item 12"):
         model.export()
     # training and validation are ported; what they still refuse raises
-    # naming its ROADMAP item: host augmentation, multiple devices
+    # naming its ROADMAP item: multiple devices (with or without the
+    # recipe's augmentation, which is ported)
     from chip_smoke import make_synth_set
     data = make_synth_set(str(tmp_path / "set"), n_train=2, n_val=1, w=32, h=24)
-    for overrides, item in (({"augment": True}, "item 8a"),
+    for overrides, item in (({"augment": True, "data_parallel": 2}, "item 12"),
                             ({"augment": False, "data_parallel": 2}, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             model.train(data=data, epochs=1, run_dir=str(tmp_path / "runs"), **overrides)

@@ -1,7 +1,8 @@
 """The port's training loop end to end on the CPU (edge_n at 64 px on a tiny
-PNG set written from a seed): artifacts, exact resume, and the options that
-still raise. Port only, apart from JAX's CSV header, which the port's must
-equal."""
+PNG set written from a seed): artifacts, exact resume, host augmentation
+with its taper (also across a chunked resume), device augmentation on a
+COCO-json dataset, and the options that still raise. Port only, apart from
+JAX's CSV header, which the port's must equal."""
 
 import csv
 import json
@@ -13,7 +14,9 @@ import pytest
 from yololite_tpu.train.loop import CSV_HEADER as JAX_CSV_HEADER
 
 from chip_smoke import make_synth_set
+from test_torch_port_coco_ingest import make_coco_set
 from yololite_tpu_torch.api import YoloLite
+from yololite_tpu_torch.data.dataset import YoloDataset
 from yololite_tpu_torch.config import load_configs
 from yololite_tpu_torch.train.checkpoint import load_checkpoint
 from yololite_tpu_torch.train.loop import CSV_HEADER, train_from_config
@@ -111,7 +114,6 @@ def test_exact_resume_equals_uninterrupted(data, tmp_path):
 
 
 @pytest.mark.parametrize("training,model,item", [
-    ({"augment": True}, {}, "item 8a"),
     ({"data_parallel": 2}, {}, "item 12"),
     ({"spatial_parallel": 2}, {}, "item 12"),
     ({"qat": True}, {}, "item 10"),
@@ -123,3 +125,103 @@ def test_unported_options_raise_naming_their_item(data, tmp_path, training, mode
     cfg["model"].update(model)
     with pytest.raises(NotImplementedError, match=item):
         train_from_config(cfg, device="cpu")
+
+
+def test_augmented_run_writes_best_model_state(data, tmp_path):
+    """augment: true (the recipe's default): mosaic and cutmix in epoch 1,
+    tapered off in epoch 2 (int(0.7 * 2) = 1); the best checkpoint while
+    augmenting is best_model_state.ckpt, as in the JAX loop."""
+    res = YoloLite("edge_n", device="cpu").train(
+        data=data, run_dir=str(tmp_path / "runs"), workers=2,
+        **dict({k: v for k, v in OVERRIDES.items() if k != "num_workers"}, augment=True))
+    weights = os.path.join(res["log_dir"], "weights")
+    assert os.path.exists(os.path.join(weights, "best_model_state.ckpt"))
+    assert not os.path.exists(os.path.join(weights, "best_no_aug.ckpt"))
+    assert np.isfinite(res["history"]["step_loss"]).all()
+    sd, meta = load_checkpoint(os.path.join(weights, "last_model_state.ckpt"))
+    assert int(sd["updates"]) == 4
+
+
+class _SpyDataset(YoloDataset):
+    """Records the taper state each training sample is drawn under."""
+    seen = []
+
+    def get(self, idx, rng=None):
+        if self.is_train:
+            _SpyDataset.seen.append((self.mosaic_p, self.cutmix_p, self.augment_enabled))
+        return super().get(idx, rng)
+
+
+def _taper_states(epochs, start):
+    """JAX loop.py's taper: mosaic and cutmix off from int(0.7 * epochs), all
+    augmentation off after int(0.9 * epochs)."""
+    return [(0.0 if e >= int(0.7 * epochs) else 0.2,) * 2 + (e <= int(0.9 * epochs),)
+            for e in range(start, epochs)]
+
+
+class _ChunkEnd(Exception):
+    pass
+
+
+def test_taper_schedule_and_chunked_resume(tmp_path, monkeypatch):
+    """12 epochs (taper at 8, augmentation off in 11) straight, and chunked
+    as tools/run_chunked_train.sh runs them: a process killed after epoch 9
+    (emulated by raising after its last checkpoint), then one resumed at
+    epoch 9 from that full state. The taper states follow JAX's schedule and
+    the chunks' steps repeat the straight run's exactly (the CPU is
+    deterministic)."""
+    import yololite_tpu_torch.train.loop as loop
+    monkeypatch.setattr(loop, "YoloDataset", _SpyDataset)
+    data = make_synth_set(str(tmp_path / "set"), n_train=4, n_val=2, w=80, h=60)
+    kw = dict(epochs=12, batch_size=4, num_workers=0, augment=True, eval_every=100,
+              freeze_backbone_epochs=0, pretrained_backbone=None)
+    last1 = str(tmp_path / "chunk1" / "weights" / "last_model_state.ckpt")
+    history = {}
+    real_curve = loop._save_loss_curve
+    for name, extra, stop in (("straight", {}, None), ("chunk1", {}, 9),
+                              ("chunk2", dict(start_epoch=9, resume=last1), None)):
+        _SpyDataset.seen = []
+
+        def end_of_epoch(train_losses, *a, stop=stop):
+            real_curve(train_losses, *a)
+            if len(train_losses) == stop:
+                raise _ChunkEnd
+
+        monkeypatch.setattr(loop, "_save_loss_curve", end_of_epoch)
+        cfg = _config(data, tmp_path / name, **dict(kw, **extra))
+        try:
+            history[name] = train_from_config(cfg, device="cpu")["history"]["step_loss"]
+        except _ChunkEnd:
+            history[name] = [float(r["train_loss"]) for r in _rows(tmp_path / name)]
+        per_epoch = _SpyDataset.seen[::4]              # 4 samples per epoch
+        want = _taper_states(12, extra.get("start_epoch", 0))
+        assert per_epoch == want[:len(per_epoch)] and len(per_epoch) == (stop or len(want))
+    straight = history["straight"]
+    assert history["chunk2"] == straight[9:]
+    epoch_loss = [float(r["train_loss"]) for r in _rows(tmp_path / "straight")]
+    assert history["chunk1"] == epoch_loss[:9]
+
+
+def test_device_augment_on_a_coco_json_set(tmp_path, monkeypatch):
+    """hardsynth_device_aug.yaml as written (device_augment: true) on a
+    data.yaml with train_json/val_json: the host pipeline drops its colour
+    and noise ops, every train step runs the device augmentation."""
+    import yololite_tpu_torch.train.steps as steps
+    calls = []
+    real = steps.photometric_augment
+
+    def counted(images, gen, *a, **k):
+        calls.append(tuple(images.shape))
+        return real(images, gen, *a, **k)
+
+    monkeypatch.setattr(steps, "photometric_augment", counted)
+    data = make_coco_set(str(tmp_path / "coco"), n=8, w=80, h=60)
+    res = YoloLite("edge_n", device="cpu").train(
+        data=data, epochs=1, batch_size=4, img_size=64, workers=2,
+        run_dir=str(tmp_path / "runs"),
+        train_yaml=os.path.join(ROOT, "configs", "train", "hardsynth_device_aug.yaml"),
+        amp=False, cache_images=False)
+    assert calls == [(4, 64, 64, 3)] * 2
+    assert np.isfinite(res["history"]["step_loss"]).all()
+    cfg_text = open(os.path.join(res["log_dir"], "merged_config.yaml")).read()
+    assert "device_augment: true" in cfg_text and "labels_from_coco" in cfg_text

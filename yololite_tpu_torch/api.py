@@ -1,7 +1,7 @@
 """Public library API: the `YoloLite` class (port of `api.py`).
 
     model = YoloLite("edge_n")      # model name / model yaml / checkpoint
-    model.train(data="data.yaml", epochs=20, augment=False)   # on CUDA
+    model.train(data="data.yaml", epochs=20)   # on CUDA, the recipe's augmentation
     results = model.predict(frame_bgr)[0]      # the best checkpoint
     results["boxes"]   # xyxy np.ndarray (original pixels)
     results["speed"]   # {"preprocess_ms", "inference_ms", ..., "total_ms"}
@@ -11,8 +11,8 @@ Sources are decoded BGR uint8 arrays (or `.npy` files of them); datasets are
 PNG or `.npy` images (`data/dataset.py`): the package carries no JPEG codec.
 A model name or yaml resolves as in the JAX API (configs/models, then
 v2_models, then custom); predicting needs a checkpoint, as there. Everything
-runs on `device` (the card by default; tests pass "cpu"). Host augmentation
-(`augment: true`) is ROADMAP Queue 1 item 8a, export item 12.
+runs on `device` (the card by default; tests pass "cpu"). Export is ROADMAP
+Queue 1 item 12.
 """
 
 from __future__ import annotations

@@ -24,6 +24,8 @@ import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+from yololite_tpu_torch.data.coco_ingest import coco_to_yolo_labels
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # where a bare model name is looked up, in this order (as yololite_tpu/api.py)
 MODEL_DIRS = ("models", "v2_models", "custom")
@@ -379,15 +381,23 @@ def load_configs(model_yaml: Optional[str], train_yaml: Optional[str],
     config: Dict[str, Any] = {}
 
     if data_yaml:
-        if any(data_cfg.get(k) for k in ("train_json", "val_json", "test_json")):
-            raise NotImplementedError("COCO-json datasets (data/coco_ingest.py): "
-                                      "ROADMAP Queue 1 item 8a")
         split_img = {s: _ensure_or_fallback(_abs_from_yaml_dir(data_cfg.get(s, ""), data_yaml),
                                             s, data_yaml) for s in ("train", "val", "test")}
         labels_cfg = data_cfg.get("labels") if isinstance(data_cfg.get("labels"), dict) else {}
-        split_lbl = {s: _labels_or_fallback(
-            _abs_from_yaml_dir(labels_cfg.get(s, ""), data_yaml) if labels_cfg.get(s) else "",
-            split_img[s], s, data_yaml) for s in ("train", "val", "test")}
+        given_lbl = {s: _abs_from_yaml_dir(labels_cfg.get(s, ""), data_yaml)
+                     if labels_cfg.get(s) else "" for s in ("train", "val", "test")}
+        # COCO-json: train_json/val_json/test_json are converted (mtime-cached)
+        # to YOLO-txt dirs, which win over the label-dir fallbacks
+        coco_names = None
+        for split in ("train", "val", "test"):
+            jp = data_cfg.get(f"{split}_json")
+            if jp:
+                given_lbl[split], coco_names = coco_to_yolo_labels(
+                    _abs_from_yaml_dir(jp, data_yaml))
+        if coco_names and not data_cfg.get("names"):
+            data_cfg["names"] = coco_names
+        split_lbl = {s: _labels_or_fallback(given_lbl[s], split_img[s], s, data_yaml)
+                     for s in ("train", "val", "test")}
         for tag, p in [("train_images", split_img["train"]), ("val_images", split_img["val"]),
                        ("train_labels", split_lbl["train"]), ("val_labels", split_lbl["val"])]:
             if p and not Path(p).exists():

@@ -3,7 +3,13 @@
 
   - scans the image dir for image files, sorted; caches every YOLO-txt label
     file as an [N, 5] array (polygon rows collapse to their box);
-  - xywhn -> xyxy pixels at load; letterbox (`ValTransform`);
+  - xywhn -> xyxy pixels at load;
+  - training samples (`augment=True`): mosaic 2x2 (p `mosaic_p`) or a
+    small-object cutmix paste (p `cutmix_p`), then `TrainTransform` (or
+    `StrongTrainTransform` for `aug_preset: strong`; `photometric=False`
+    leaves the colour and noise ops to the device, `data/device_augment.py`);
+    every draw comes from the caller's RandomState in the JAX package's order;
+  - otherwise letterbox only (`ValTransform`);
   - `get` returns fixed-shape padded targets: image uint8 [S,S,3], boxes f32
     [M,4], labels i32 [M], mask bool [M], image_id.
 
@@ -16,8 +22,7 @@ raise `UnsupportedImage` naming the file. A damaged file of a readable
 format falls back to a black image with no targets, as in the JAX package;
 nothing else is swallowed, so an unreadable format never trains on zeros.
 
-Host augmentation (TrainTransform, mosaic, cutmix) is ROADMAP Queue 1 item
-8a: `augment=True` on a training set raises. Segmentation is item 9.
+Segmentation datasets are ROADMAP Queue 1 item 9 and raise.
 """
 
 from __future__ import annotations
@@ -30,12 +35,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from yololite_tpu_torch.data.augment import ValTransform
+from yololite_tpu_torch.data.augment import StrongTrainTransform, TrainTransform, ValTransform
 from yololite_tpu_torch.data.png import UnsupportedImage, read_png
+from yololite_tpu_torch.ops.letterbox import resize_image
 
 VALID_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".npy"}
 READABLE_EXTS = (".png", ".npy")
-AUGMENT_TODO = "host augmentation (TrainTransform, mosaic, cutmix): ROADMAP Queue 1 item 8a"
 
 
 def list_images(img_dir: str) -> List[str]:
@@ -155,13 +160,13 @@ class _LRUImageCache:
 class YoloDataset:
     def __init__(self, img_dir: str, label_dir: str, img_size: int = 640,
                  is_train: bool = True, max_boxes: int = 100,
-                 use_resize: bool = False, augment: bool = True,
+                 use_resize: bool = False, mosaic_p: float = 0.2,
+                 cutmix_p: float = 0.2, augment: bool = True, seed: int = 0,
                  task: str = "detect", cache_images: bool = False,
+                 photometric: bool = True, aug_preset: str = "base",
                  cache_budget_mb: Optional[float] = None):
         if task != "detect":
             raise NotImplementedError("segmentation datasets: ROADMAP Queue 1 item 9")
-        if is_train and augment:
-            raise NotImplementedError(AUGMENT_TODO)
         self.img_dir = Path(img_dir)
         self.label_dir = Path(label_dir)
         self.img_files = list_images(str(img_dir))
@@ -174,7 +179,15 @@ class YoloDataset:
         self.img_size = int(img_size)
         self.is_train = bool(is_train)
         self.max_boxes = int(max_boxes)
-        self.transform = ValTransform(img_size, use_resize)
+        self.mosaic_p = float(mosaic_p) if (is_train and augment) else 0.0
+        self.cutmix_p = float(cutmix_p) if (is_train and augment) else 0.0
+        self.augment_enabled = bool(augment) and self.is_train
+        self.photometric = bool(photometric)
+        self.aug_preset = str(aug_preset)
+        self.val_transform = ValTransform(img_size, use_resize)
+        self.transform = (self._make_train_transform(use_resize)
+                          if self.augment_enabled else self.val_transform)
+        self.seed = seed
         self.labels_cache = self._cache_labels()
         self.lru_cache: Optional[_LRUImageCache] = None
         self.image_cache: Optional[List[Optional[np.ndarray]]] = None
@@ -183,15 +196,35 @@ class YoloDataset:
         elif cache_images:
             self.image_cache = [None] * len(self.img_files)
 
+    def _make_train_transform(self, use_resize: bool):
+        if self.aug_preset == "strong":
+            return StrongTrainTransform(self.img_size, use_resize,
+                                        photometric=self.photometric)
+        if self.photometric:
+            return TrainTransform(self.img_size, use_resize)
+        return TrainTransform(self.img_size, use_resize, p_color=0.0, p_noise=0.0)
+
     def set_img_size(self, img_size: int):
-        """Multi-scale training: switch the letterbox target size."""
+        """Multi-scale training: switch the target size, keeping the kind of
+        transform (train or letterbox only)."""
         self.img_size = int(img_size)
-        self.transform = ValTransform(self.img_size, self.transform.use_resize)
+        use_resize = self.val_transform.use_resize
+        self.val_transform = ValTransform(self.img_size, use_resize)
+        self.transform = (self._make_train_transform(use_resize)
+                          if self.augment_enabled else self.val_transform)
+
+    # -- the augmentation taper ---------------------------------------------- #
+    def set_mosaic_cutmix(self, mosaic_p: float, cutmix_p: float):
+        self.mosaic_p = mosaic_p
+        self.cutmix_p = cutmix_p
 
     def set_augment(self, enabled: bool):
-        """The augmentation taper's switch; only `False` is ported."""
-        if enabled and self.is_train:
-            raise NotImplementedError(AUGMENT_TODO)
+        self.augment_enabled = enabled and self.is_train
+        self.transform = (self._make_train_transform(self.val_transform.use_resize)
+                          if self.augment_enabled else self.val_transform)
+        if not enabled:
+            self.mosaic_p = 0.0
+            self.cutmix_p = 0.0
 
     def _cache_labels(self) -> List[np.ndarray]:
         cache = []
@@ -232,6 +265,70 @@ class YoloDataset:
         y2 = (xywh[:, 1] + xywh[:, 3] / 2) * img_h
         return np.stack([x1, y1, x2, y2], axis=1).astype(np.float32), cls
 
+    # ------------------------------ Mosaic ---------------------------------- #
+    def mosaic(self, index: int, rng: np.random.RandomState):
+        """2x2 mosaic on a 2S canvas of 114: this image and three drawn ones,
+        each resized to S x S."""
+        indices = [index] + list(rng.randint(0, len(self), size=3))
+        s = self.img_size
+        canvas = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+        offsets = [(0, 0), (0, s), (s, 0), (s, s)]
+        all_boxes, all_labels = [], []
+        for i, idx in enumerate(indices):
+            img = self.load_image(idx)
+            h, w = img.shape[:2]
+            boxes, labels = self.load_label_processed(idx, h, w)
+            img = resize_image(img, s)[0]
+            if len(boxes):
+                boxes = boxes * np.array([s / w, s / h, s / w, s / h], np.float32)
+            oy, ox = offsets[i]
+            canvas[oy:oy + s, ox:ox + s] = img
+            if len(boxes):
+                boxes[:, [0, 2]] += ox
+                boxes[:, [1, 3]] += oy
+                all_boxes.append(boxes)
+                all_labels.append(labels)
+        if all_boxes:
+            fb = np.vstack(all_boxes)
+            fl = np.concatenate(all_labels)
+            valid = (fb[:, 2] > fb[:, 0]) & (fb[:, 3] > fb[:, 1])
+            return canvas, fb[valid], fl[valid]
+        return canvas, np.zeros((0, 4), np.float32), np.zeros((0,), np.int64)
+
+    # ------------------------------ CutMix ---------------------------------- #
+    def cutmix_focus_small(self, img, boxes, labels, other_idx: int,
+                           rng: np.random.RandomState, alpha: float = 0.7):
+        """Blend the other image's smallest box at a random place of this
+        one (alpha 0.7) and add it as a target."""
+        img2 = self.load_image(other_idx)
+        h2, w2 = img2.shape[:2]
+        boxes2, labels2 = self.load_label_processed(other_idx, h2, w2)
+        if len(boxes2) == 0:
+            return img, boxes, labels
+        areas = (boxes2[:, 2] - boxes2[:, 0]) * (boxes2[:, 3] - boxes2[:, 1])
+        si = int(np.argmin(areas))
+        x1, y1, x2, y2 = boxes2[si].astype(int)
+        x1, y1 = max(x1, 0), max(y1, 0)
+        patch = img2[y1:y2, x1:x2]
+        if patch.size == 0:
+            return img, boxes, labels
+        ph, pw = patch.shape[:2]
+        h, w = img.shape[:2]
+        if ph >= h or pw >= w:
+            return img, boxes, labels
+        cx = rng.randint(0, max(1, w - pw))
+        cy = rng.randint(0, max(1, h - ph))
+        roi = img[cy:cy + ph, cx:cx + pw]
+        if roi.shape[:2] != patch.shape[:2]:
+            return img, boxes, labels
+        img = img.copy()
+        img[cy:cy + ph, cx:cx + pw] = (alpha * patch + (1 - alpha) * roi).astype(np.uint8)
+        new_box = np.array([[cx, cy, cx + pw, cy + ph]], np.float32)
+        new_lbl = np.array([labels2[si]], np.int64)
+        boxes = np.vstack([boxes, new_box]) if len(boxes) else new_box
+        labels = np.concatenate([labels, new_lbl]) if len(labels) else new_lbl
+        return img, boxes, labels
+
     def _pad_targets(self, boxes, labels):
         m = self.max_boxes
         out_b = np.zeros((m, 4), np.float32)
@@ -250,6 +347,17 @@ class YoloDataset:
             img = self.load_image(idx)
             h, w = img.shape[:2]
             boxes, labels = self.load_label_processed(idx, h, w)
+            if self.augment_enabled:
+                p = rng.rand()
+                if p < self.mosaic_p:
+                    img, boxes, labels = self.mosaic(idx, rng)
+                elif p < self.mosaic_p + self.cutmix_p:
+                    img, boxes, labels = self.cutmix_focus_small(
+                        img, boxes, labels, rng.randint(0, len(self)), rng)
+                h, w = img.shape[:2]
+                if len(boxes):
+                    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
+                    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
             canvas, boxes, labels = self.transform(img, boxes, labels, rng)
         except UnsupportedImage:
             raise

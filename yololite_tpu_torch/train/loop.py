@@ -4,6 +4,11 @@
   - merged_config.yaml, seeds, optional pretrained backbone, resume (weights
     only, or exact: EMA + optimizer + counters from a `save_optimizer`
     checkpoint), chunked resume at `start_epoch`;
+  - host augmentation (`augment`, the recipes' default: mosaic, cutmix and
+    the `aug_preset` transform) with the reference's taper: mosaic and
+    cutmix off from epoch int(0.7 * epochs), all host augmentation off after
+    int(0.9 * epochs); `device_augment` moves the colour and noise ops into
+    the train step (`data/device_augment.py`);
   - per epoch: LR from the host scheduler (warmup, cosine/step/...; backbone
     LR 0 for `freeze_backbone_epochs`), train steps, then the EMA model's val
     loss + decode + NMS -> COCO stats at conf 0.1 / iou 0.65 (`eval_every`);
@@ -14,10 +19,10 @@
   - the final `evaluate_model` (conf 0.001) on the best checkpoint.
 
 Runs on one device (`device`, the card by default). Not ported, each raising
-`NotImplementedError` with its ROADMAP item: host augmentation (8a), the
-device mesh / multi-host / data_parallel > 1 (12), the orbax checkpoint
-backend (8c); the sanity and val-debug images need `utils/viz.py` (8d) and
-are skipped with a message, as the JAX loop does when drawing fails.
+`NotImplementedError` with its ROADMAP item: segmentation (9), the device
+mesh / multi-host / data_parallel > 1 (12), the orbax checkpoint backend
+(8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
+skipped with a message, as the JAX loop does when drawing fails.
 """
 
 from __future__ import annotations
@@ -33,8 +38,7 @@ import torch
 
 from yololite_tpu_torch.config.config import save_merged_config
 from yololite_tpu_torch.convert import to_flax
-from yololite_tpu_torch.data.dataset import (AUGMENT_TODO, YoloDataset,
-                                             max_instances_per_image)
+from yololite_tpu_torch.data.dataset import YoloDataset, max_instances_per_image
 from yololite_tpu_torch.data.loader import DataLoader
 from yololite_tpu_torch.eval.coco import coco_eval_from_lists
 from yololite_tpu_torch.eval.evaluate import dets_to_coco, evaluate_model, gts_to_coco
@@ -93,9 +97,6 @@ def _save_loss_curve(train_losses, val_losses, path):
 def _check_supported(config: Dict[str, Any]) -> None:
     tr = config["training"]
     m = config.get("model", {}) or {}
-    if bool(tr.get("augment", True)):
-        raise NotImplementedError(f"training.augment: true needs {AUGMENT_TODO}; "
-                                  f"set augment: false")
     if m.get("with_masks") or str(m.get("task", tr.get("task", "detect"))).lower() \
             in ("segment", "seg"):
         raise NotImplementedError("segmentation training: ROADMAP Queue 1 item 9")
@@ -138,16 +139,19 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
     img_size = int(tr.get("img_size", 640))
     epochs = int(tr.get("epochs", 100))
     batch_size = int(tr.get("batch_size", 16))
-    use_augment = False                 # augment: true raised above (item 8a)
+    use_augment = bool(tr.get("augment", True))
     use_resize = bool(tr.get("resize", False))
     max_boxes = _max_boxes(config, use_augment)
     class_names = config.get("dataset", {}).get("names")
     cache_images = bool(tr.get("cache_images", False))
     cache_budget_mb = tr.get("cache_budget_mb")
+    device_augment = bool(tr.get("device_augment", False))
     train_ds = YoloDataset(config["dataset"]["train_images"],
                            config["dataset"]["train_labels"], img_size=img_size,
                            is_train=True, augment=use_augment, max_boxes=max_boxes,
                            use_resize=use_resize, cache_images=cache_images,
+                           photometric=not device_augment,
+                           aug_preset=str(tr.get("aug_preset", "base")),
                            cache_budget_mb=cache_budget_mb)
     val_ds = YoloDataset(config["dataset"]["val_images"], config["dataset"]["val_labels"],
                          img_size=img_size, is_train=False, augment=False,
@@ -221,8 +225,17 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
     for _ in range(start_epoch):
         if multi_scale:  # burn the per-epoch size draws of skipped epochs
             ms_rng.randint(len(multi_scale))
+    mosaic_tapered = False
 
     for epoch in range(start_epoch, epochs):
+        # the augmentation taper: a chunk resumed past either threshold
+        # applies it at its first epoch, as the straight run had
+        if epoch >= int(epochs * 0.7) and use_augment and not mosaic_tapered:
+            train_ds.set_mosaic_cutmix(0.0, 0.0)
+            mosaic_tapered = True
+        if epoch > int(epochs * 0.9) and use_augment:
+            train_ds.set_augment(False)
+            use_augment = False
         if multi_scale:
             size = int(multi_scale[ms_rng.randint(len(multi_scale))])
             if size != train_ds.img_size:

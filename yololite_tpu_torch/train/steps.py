@@ -1,6 +1,9 @@
 """Train / eval / predict steps (port of `train/steps.py`).
 
-One train step: uint8 batch -> normalize -> detector (train mode, bf16 under
+One train step: uint8 batch -> (with `device_augment`: photometric
+augmentation, `data/device_augment.py`, its generator seeded from the seed
+and the micro-step counter, so a resumed run replays the same stream) ->
+normalize -> detector (train mode, bf16 under
 autocast when `amp`) -> SimOTA loss (fp32) -> gradients -> the grouped
 optax-equivalent update (`train/optim.py`) -> EMA of parameters and BatchNorm
 statistics (`train/ema.py`). With `accumulate = k > 1` the gradients of k
@@ -27,6 +30,7 @@ from torch import nn
 
 from yololite_tpu_torch.convert import (from_flax, from_flax_params, load_flax, to_flax,
                                         to_flax_params)
+from yololite_tpu_torch.data.device_augment import photometric_augment
 from yololite_tpu_torch.losses import LossConfig, SimOTALoss
 from yololite_tpu_torch.models.detector import init_weights
 from yololite_tpu_torch.ops.decode import decode_anchorfree
@@ -77,8 +81,6 @@ class Trainer:
         tr = config.get("training", {})
         if bool(tr.get("qat", False)):
             raise NotImplementedError("quantization-aware training: ROADMAP Queue 1 item 10")
-        if bool(tr.get("device_augment", False)) and bool(tr.get("augment", True)):
-            raise NotImplementedError("device_augment: ROADMAP Queue 1 item 8b")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         if self.device.type == "cuda":
@@ -92,6 +94,12 @@ class Trainer:
         self.accumulate = max(1, int(tr.get("accumulate", 1) or 1))
         self.amp = bool(tr.get("amp", True))
         self.hyper = GroupedOptimizer(config, []).hyper
+        # photometric augmentation in the train step, only when the host
+        # pipeline skips its own (device_augment) and augmentation is on
+        self.device_augment = bool(tr.get("device_augment", False)) and \
+            bool(tr.get("augment", True))
+        self.aug_seed = int(tr.get("seed", 1337) or 0) + 7
+        self._aug_gen = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------ #
     def _autocast(self):
@@ -191,13 +199,21 @@ class Trainer:
                      return_assignment: bool = False):
         """Train-mode forward (BatchNorm statistics update) and loss."""
         state.model.train()
-        x = normalize_images(batch["image"])
+        images = batch["image"]
+        if self.device_augment:
+            images = photometric_augment(images, self.aug_generator(state.micro))
+        x = normalize_images(images)
         targets = {k: batch[k] for k in ("boxes", "labels", "mask")}
         with self._autocast():
             outs = state.model(x)
         return self.loss([o.float() for o in outs], targets,
                          img_size=int(batch["image"].shape[1]),
                          return_assignment=return_assignment)
+
+    def aug_generator(self, micro: int) -> torch.Generator:
+        """The device augmentation's generator for this micro-step, seeded
+        from (seed, micro) as JAX's fold_in(key, micro)."""
+        return self._aug_gen.manual_seed((self.aug_seed << 32) | int(micro))
 
     def backward(self, state: TrainState, total: torch.Tensor) -> List[torch.Tensor]:
         """Gradients of every parameter; zeros for the ones the loss does not
