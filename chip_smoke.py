@@ -48,6 +48,17 @@ at 640x480, 1-4 coloured rectangles on dark noise):
   9. device_augment  the photometric step card vs CPU on equal draws
               (within 1 level), its ms at b8 and b64, and one epoch of
               edge_n b8 by hardsynth_device_aug.yaml (device_augment: true)
+ 10. seg      instance segmentation: edge_n_seg fp32 card vs CPU at 640
+              (level maps, prototypes, mask probabilities of equal inputs,
+              binarized frame masks); both seg configs served at 640 b128
+              bf16 device-resident with masks assembled for every max_det
+              slot (per-stage ms, mask assembly included, peak GB) and one
+              YoloLite(ckpt, task="segment").predict frame with uint8 masks,
+              nms_suppress launches counted; edge_n_seg trained 2 epochs at
+              640 b8 by standard_train.yaml on a synthetic polygon set (seg
+              mosaic and cutmix counted, finite mask loss, falling val loss,
+              coco_segm, launches equal to the val batches), an fp32
+              forward+loss card vs CPU, the step timed and split
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -78,6 +89,7 @@ from yololite_tpu_torch.convert import load_flax, to_flax  # noqa: E402
 from yololite_tpu_torch.csrc import build as kbuild  # noqa: E402
 from yololite_tpu_torch.data import augment as host_aug  # noqa: E402
 from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
+from yololite_tpu_torch.data import imgops  # noqa: E402
 from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
 from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
 from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
@@ -88,14 +100,18 @@ from yololite_tpu_torch.models.detector import (  # noqa: E402
 )
 from yololite_tpu_torch.models.layers import BatchNorm  # noqa: E402
 from yololite_tpu_torch.ops import cuda_nms  # noqa: E402
-from yololite_tpu_torch.ops.decode import decode_anchorfree  # noqa: E402
+from yololite_tpu_torch.losses.simota import mask_losses  # noqa: E402
+from yololite_tpu_torch.ops.decode import decode_anchorfree, flatten_levels  # noqa: E402
+from yololite_tpu_torch.ops.masks import assemble_masks_batch  # noqa: E402
 from yololite_tpu_torch.ops.nms import (  # noqa: E402
     batched_nms, finalize_detections, select_candidates, yolo_scores,
 )
-from yololite_tpu_torch.train.checkpoint import load_checkpoint  # noqa: E402
+from yololite_tpu_torch.train.checkpoint import (  # noqa: E402
+    build_meta, load_checkpoint, save_checkpoint,
+)
 from yololite_tpu_torch.train import loop as train_loop  # noqa: E402
 from yololite_tpu_torch.train.loop import CSV_HEADER  # noqa: E402
-from yololite_tpu_torch.train.steps import Trainer  # noqa: E402
+from yololite_tpu_torch.train.steps import Trainer, gt_masks_from_batch  # noqa: E402
 
 IMG = 640
 BATCH = 128
@@ -187,6 +203,20 @@ RESUME_RTOL = 1e-3
 TRAIN_FP32_LOSS_RTOL = 1e-3
 TRAIN_FP32_LOSS_GRAD_RTOL = 1e-6
 TRAIN_FP32_FACTOR = 10.0
+# seg phase: both segmentation configs, their parameter counts at 3 classes
+# (the JAX package's, held in tests/test_torch_port_zoo_detectors.py)
+SEG_CONFIGS = ("configs/models/edge_n_seg.yaml", "configs/models/yololite_n_seg.yaml")
+SEG_PARAMS = {"configs/models/edge_n_seg.yaml": 728_328,
+              "configs/models/yololite_n_seg.yaml": 7_011_104}
+SEG_BATCHES = 4
+# fp32 card vs CPU: mask probabilities of equal inputs within 1e-3 (an fp32
+# matmul over K = 32 and a sigmoid; ~1e-6 expected); binarized frame masks
+# may differ on 1e-3 of the pixels (a probability within rounding of 0.5
+# falls on either side, and the forward's own 1e-6 differences move it)
+SEG_PROB_TOL = 1e-3
+SEG_PIXEL_SHARE = 1e-3
+SEG_MIXES = ("mosaic_segment", "cutmix_segment")
+SEG_TRAIN_OVERRIDES = dict(TRAIN_OVERRIDES, save_optimizer=False)
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
 
@@ -543,20 +573,21 @@ def zoo_configs():
 
 
 @torch.no_grad()
-def calibrate_batchnorm(model: torch.nn.Module, x: torch.Tensor) -> torch.nn.Module:
-    """Set every BatchNorm's running mean and variance to the statistics of
-    its input over one forward of `x` (layer by layer, in order), as training
-    would. A seeded model otherwise fades to nothing through depth: its
-    convs shrink each signal (U(+-1/sqrt(fan_in)) has gain 1/sqrt(3)) and
-    identity BatchNorm does not restore it, so every level output would be
-    its head bias."""
+def calibrate_batchnorm(model: torch.nn.Module, x: torch.Tensor,
+                        skip: str = "") -> torch.nn.Module:
+    """Set every BatchNorm's running mean and variance (but those under the
+    submodule `skip`) to the statistics of its input over one forward of `x`
+    (layer by layer, in order), as training would. A seeded model otherwise
+    fades to nothing through depth: its convs shrink each signal
+    (U(+-1/sqrt(fan_in)) has gain 1/sqrt(3)) and identity BatchNorm does not
+    restore it, so every level output would be its head bias."""
     def set_stats(mod, args):
         h = args[0].float()
         mod.running_mean.copy_(h.mean((0, 2, 3)))
         mod.running_var.copy_(h.var((0, 2, 3), unbiased=False))
 
-    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
-             if isinstance(m, BatchNorm)]
+    hooks = [m.register_forward_pre_hook(set_stats) for name, m in model.named_modules()
+             if isinstance(m, BatchNorm) and not (skip and name.startswith(skip + "."))]
     try:
         model(x)
     finally:
@@ -758,6 +789,54 @@ def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
     return data_yaml
 
 
+SEG_SHAPES = ("rect", "tri", "ell")
+
+
+def seg_polygon(rng, kind: str, w: int, h: int):
+    """Integer vertices of one shape in a w x h frame: a rectangle, a
+    triangle or a non-convex L."""
+    bw, bh = rng.randint(w // 10, w // 3), rng.randint(h // 10, h // 3)
+    x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+    x2, y2 = x1 + bw, y1 + bh
+    if kind == "rect":
+        return [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    if kind == "tri":
+        return [(x1, y2), (x2, y2), (x1 + bw // 2, y1)]
+    xm, ym = x1 + bw // 3, y1 + 2 * bh // 3
+    return [(x1, y1), (xm, y1), (xm, ym), (x2, ym), (x2, y2), (x1, y2)]
+
+
+def make_seg_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
+                 h: int = 480, seed: int = 0) -> str:
+    """A learnable instance-segmentation set from a seed: 1-4 filled shapes
+    (a rectangle, a triangle or a non-convex L; one colour per class) on
+    dark noise, PNG images, YOLO polygon labels and a data.yaml. Returns the
+    data.yaml path."""
+    rng = np.random.RandomState(seed)
+    colors = [(220, 30, 30), (30, 220, 30), (30, 30, 220)]
+    for split, n in (("train", n_train), ("valid", n_val)):
+        os.makedirs(os.path.join(root, split, "images"), exist_ok=True)
+        os.makedirs(os.path.join(root, split, "labels"), exist_ok=True)
+        for i in range(n):
+            canvas = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+            lines = []
+            for _ in range(rng.randint(1, 5)):
+                cls = rng.randint(0, len(SEG_SHAPES))
+                poly = seg_polygon(rng, SEG_SHAPES[cls], w, h)
+                fill = np.zeros((h, w), np.uint8)
+                imgops.fill_poly(fill, np.asarray(poly, np.int32), 1)
+                canvas[fill > 0] = colors[cls]
+                lines.append(f"{cls} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in poly))
+            write_png(os.path.join(root, split, "images", f"{i:04d}.png"), canvas)
+            with open(os.path.join(root, split, "labels", f"{i:04d}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    data_yaml = os.path.join(root, "data.yaml")
+    with open(data_yaml, "w") as f:
+        f.write(f"train: {root}/train/images\nval: {root}/valid/images\n"
+                f"nc: {len(SEG_SHAPES)}\nnames: [{', '.join(SEG_SHAPES)}]\n")
+    return data_yaml
+
+
 def _edge_n_train_config(data_yaml: str, amp: bool):
     cfg = load_configs(os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
                        os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
@@ -889,7 +968,7 @@ def _step_profile(cfg, data_yaml: str, card: str, label: str, iters: int = 10):
     tr = cfg["training"]
     ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
                      img_size=IMG, is_train=True, augment=bool(tr["augment"]),
-                     max_boxes=int(tr["max_boxes"]),
+                     max_boxes=int(tr["max_boxes"]), task=_task(cfg), want_rles=False,
                      photometric=not bool(tr.get("device_augment", False)))
     loader = DataLoader(ds, 8, shuffle=True, num_workers=8)
     t0 = time.perf_counter()
@@ -939,6 +1018,34 @@ def _step_profile(cfg, data_yaml: str, card: str, label: str, iters: int = 10):
     return numbers, (trainer, state, dev, lr)
 
 
+def _task(cfg) -> str:
+    return "segment" if cfg["model"].get("with_masks") else "detect"
+
+
+def _step_split(trainer, state, dev, lr, iters: int):
+    """Synced train steps split by CUDA events into forward+loss, backward
+    and optimizer+EMA ms; also the host ms per synced step, the peak GB and
+    the last step's loss metrics."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split = np.zeros(3)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        e = _events(4)
+        e[0].record()
+        total, metrics = trainer.forward_loss(state, dev[i % len(dev)])
+        e[1].record()
+        grads = trainer.backward(state, total)
+        e[2].record()
+        trainer.apply(state, grads, lr)
+        e[3].record()
+        e[3].synchronize()
+        split += [e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3])]
+    synced_ms = (time.perf_counter() - t0) * 1e3 / iters
+    return (split / iters, synced_ms, torch.cuda.max_memory_allocated() / 1e9,
+            {k: float(v.detach()) for k, v in metrics.items()})
+
+
 def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
     """bf16 b8 train step on augmented batches (the recipe's default): step
     ms, device busy share and top kernels (`_step_profile`); the step split
@@ -959,24 +1066,7 @@ def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
     for i in range(8):
         ds.load_image(i)
     decode_ms = (time.perf_counter() - t0) * 1e3 / 8
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    split = np.zeros(3)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        e = _events(4)
-        e[0].record()
-        total, _ = trainer.forward_loss(state, dev[i % len(dev)])
-        e[1].record()
-        grads = trainer.backward(state, total)
-        e[2].record()
-        trainer.apply(state, grads, lr)
-        e[3].record()
-        e[3].synchronize()
-        split += [e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3])]
-    split /= iters
-    synced_ms = (time.perf_counter() - t0) * 1e3 / iters
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split, synced_ms, peak_gb, _ = _step_split(trainer, state, dev, lr, iters)
 
     variables = trainer.ema_variables(state)
     val_ds = YoloDataset(cfg["dataset"]["val_images"], cfg["dataset"]["val_labels"],
@@ -1305,6 +1395,361 @@ def phase_device_augment(card: str, data: str, tmp: str):
     return out
 
 
+# --------------------------------------------------------------------------- #
+def _seg_config(rel: str):
+    cfg = read_yaml(os.path.join(ROOT, rel))
+    cfg["model"]["num_classes"] = 3
+    cfg["training"] = {"img_size": IMG}
+    return cfg
+
+
+def _seg_model(rel: str, cfg, calib: torch.Tensor):
+    """Seed-0 weights with BatchNorm statistics from one fp32 forward of
+    `calib` (calibrate_batchnorm), so that prototypes and coefficients keep
+    their scale (an uncalibrated seeded ProtoNet's prototypes are ~1e-2, and
+    every mask probability sits at 0.5); edge_n_seg keeps the bundled
+    MobileNetV4 backbone and its statistics."""
+    if cfg["model"]["backbone"] == EDGE_N["model"]["backbone"]:
+        model = init_weights(build_model_from_config(cfg), 0)
+        sd, _ = load_checkpoint(BACKBONE_CKPT)
+        load_flax(model.backbone, sd["params"], sd["batch_stats"])
+        model = model.cuda().eval()
+        calibrate_batchnorm(model, normalize_images(calib.permute(0, 3, 1, 2)),
+                            skip="backbone")
+        model = model.cpu()
+    else:
+        model = _zoo_model(cfg, calib)
+    if count_params(model) != SEG_PARAMS[rel]:
+        raise AssertionError(f"{rel}: {count_params(model)} params, JAX has {SEG_PARAMS[rel]}")
+    return model
+
+
+def _seg_decode(outs):
+    d = decode_anchorfree([o.float() for o in outs], IMG, num_classes=3)
+    scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
+    return d, scores, classes
+
+
+def _paired_mask_share(got, want, box_tol, score_tol):
+    """Detections matched one to one (class, box, score) and the share of
+    frame-mask pixels that differ over the matched pairs."""
+    diff = pixels = matched = 0
+    for g, w in zip(got, want):
+        free = list(range(len(w["boxes"])))
+        for i in range(len(g["boxes"])):
+            hit = [j for j in free if w["classes"][j] == g["classes"][i]
+                   and np.abs(w["boxes"][j] - g["boxes"][i]).max() <= box_tol
+                   and abs(w["scores"][j] - g["scores"][i]) <= score_tol]
+            if hit:
+                free.remove(hit[0])
+                matched += 1
+                diff += int((g["masks"][i] != w["masks"][hit[0]]).sum())
+                pixels += g["masks"][i].size
+    total = sum(len(g["boxes"]) for g in got)
+    return matched / max(total, 1), total, diff / max(pixels, 1)
+
+
+def seg_fp32(card: str, model, meta):
+    """edge_n_seg at 640, 2 images, TF32 off: level maps and prototypes card
+    vs CPU; batched_nms + mask assembly of the CPU's outputs on the card
+    (kernel) and the CPU (plain version): detections bit-exact, mask
+    probabilities within SEG_PROB_TOL; then two 480x640 frames end to end:
+    detections matched, binarized frame masks differing on at most
+    SEG_PIXEL_SHARE of the pixels."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        triple = (model, model.state_dict(), meta)
+        gpu = Predictor(triple, device="cuda", dtype=torch.float32)
+        cpu = Predictor(triple, device="cpu", dtype=torch.float32)
+        rng = np.random.RandomState(5)
+        imgs = (rng.rand(2, IMG, IMG, 3) * 255).astype(np.uint8)
+        kw = dict(conf=0.001, iou=0.45, max_det=300)
+        with torch.inference_mode():
+            og, pg = gpu.forward(torch.from_numpy(imgs).cuda())
+            oc, pc = cpu.forward(torch.from_numpy(imgs))
+            err = max(float((a.cpu() - b).abs().max()) for a, b in zip(og, oc))
+            err_p = float((pg.cpu() - pc).abs().max())
+            scale = max(float(b.abs().max()) for b in oc)
+            scale_p = float(pc.abs().max())
+            # the CPU's decoded outputs through NMS and the mask assembly on
+            # the card (kernel) and on the CPU (plain version)
+            d, scores, classes = _seg_decode(oc)
+            kw_nms = dict(iou_th=kw["iou"], conf_th=kw["conf"], max_det=kw["max_det"],
+                          pre_nms_topk=PRE_NMS_TOPK)
+            want = batched_nms(d["box"], scores, classes, **kw_nms)
+            got = batched_nms(d["box"].cuda(), scores.cuda(), classes.cuda(), **kw_nms)
+            for name, a, b in zip(("boxes", "scores", "classes", "valid", "idx"), got, want):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"seg fp32 detections {name}: card != CPU")
+            coef = torch.gather(d["coef"], 1, want[4][..., None].long().expand(
+                -1, -1, d["coef"].shape[-1]))
+            m_c = assemble_masks_batch(pc, coef, want[0], float(IMG))
+            m_g = assemble_masks_batch(pc.cuda(), coef.cuda(), want[0].cuda(), float(IMG))
+            prob_err = float((m_g.cpu() - m_c).abs().max())
+        frames = [(rng.rand(480, 640, 3) * 255).astype(np.uint8) for _ in range(2)]
+        dg = [gpu.infer_image_profiled(f, conf=0.001, max_det=100) for f in frames]
+        dc = [cpu.infer_image_profiled(f, conf=0.001, max_det=100) for f in frames]
+        frac, total, share = _paired_mask_share(dg, dc, 1e-2, 1e-5)
+        fg = int(sum(int(d["masks"].sum()) for d in dc))
+        log(f"seg fp32 card vs CPU (TF32 off, edge_n_seg @640, 2 images): level maps max abs "
+            f"err {err:.3e} over |x| <= {scale:.2f}, prototypes {err_p:.3e} over |p| <= "
+            f"{scale_p:.2f} (tolerance 1e-3); batched_nms of equal decoded inputs bit-exact "
+            f"({int(want[3].sum())} valid), their mask probabilities max abs err {prob_err:.3e} "
+            f"(tolerance {SEG_PROB_TOL:g}); 480x640 frames: {total} card detections, "
+            f"{frac:.4f} matched (need >= 0.99), binarized masks differ on {share:.3e} of the "
+            f"pixels (tolerance {SEG_PIXEL_SHARE:g}; {fg} foreground pixels) [{card}]")
+        if not (err <= 1e-3 and err_p <= 1e-3 and prob_err <= SEG_PROB_TOL
+                and total > 0 and fg > 0 and frac >= 0.99 and share <= SEG_PIXEL_SHARE):
+            raise AssertionError("seg fp32 card vs CPU disagree")
+        return {"fwd_max_abs_err": err, "protos_max_abs_err": err_p, "prob_max_abs_err": prob_err,
+                "frame_dets": total, "matched": frac, "pixel_share": share}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def seg_stages(pred, x, kw):
+    """Per-stage device ms of one b128 seg graph (CUDA events)."""
+    with torch.inference_mode():
+        stages = {"forward": cuda_ms(lambda: pred.forward(x), 5)}
+        outs, protos = pred.forward(x)
+        stages["decode+scores"] = cuda_ms(lambda: _seg_decode(outs), 10)
+        d, scores, classes = _seg_decode(outs)
+        sel = lambda: select_candidates(d["box"], scores, classes, conf_th=kw["conf"],
+                                        k=PRE_NMS_TOPK, class_aware=True)
+        stages["topk+gather"] = cuda_ms(sel, 10)
+        top, idx, boxes_k, cls_k, valid, shifted = sel()
+        shifted = shifted.contiguous()
+        stages["suppression"] = cuda_ms(
+            lambda: cuda_nms.greedy_keep(shifted, valid, kw["iou"]), 20)
+        keep = cuda_nms.greedy_keep(shifted, valid, kw["iou"])
+        fin = lambda: finalize_detections(keep, top, idx, boxes_k, cls_k, max_det=kw["max_det"])
+        stages["final top-k"] = cuda_ms(fin, 10)
+        boxes, _, _, _, det_idx = fin()
+
+        def assemble():
+            coef = torch.gather(d["coef"], 1, det_idx[..., None].long().expand(
+                -1, -1, d["coef"].shape[-1]))
+            return assemble_masks_batch(protos.float(), coef, boxes, float(IMG))
+        stages["mask assembly"] = cuda_ms(assemble, 5)
+        stages["whole graph"] = cuda_ms(
+            lambda: pred.postprocess(pred.forward(x), IMG, **kw), 5)
+    return stages
+
+
+def seg_serve(rel: str, cfg, model, dev, frame, card: str, tmp: str):
+    """bf16 channels_last b128 device-resident serving with masks: 2 runs of
+    SEG_BATCHES batches through infer_batched_stream and one
+    YoloLite(ckpt, task="segment").predict frame, the kernel's launches
+    counted; per-stage ms, peak GB."""
+    meta = {"img_size": IMG, "names": ["c0", "c1", "c2"]}
+    kw = dict(conf=0.001, iou=0.45, max_det=300)
+    pred = Predictor((model, model.state_dict(), meta), device="cuda", dtype=torch.bfloat16)
+    pred.warmup(**kw)
+    list(pred.infer_batched_stream(dev[:1], prepared=True, **kw))
+    ckpt = os.path.join(tmp, os.path.basename(rel).replace(".yaml", ".ckpt"))
+    save_checkpoint(ckpt, *to_flax(model),
+                    build_meta(cfg, {}, "AP", meta["names"], model.get_num_anchors_per_level()))
+    api = YoloLite(ckpt, device="cuda", task="segment")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def stream():
+        t0 = time.perf_counter()
+        dets = sum(len(r["boxes"]) for out in pred.infer_batched_stream(
+            (dev[i % len(dev)] for i in range(SEG_BATCHES)), prepared=True, depth=2, **kw)
+            for r in out)
+        return SEG_BATCHES * BATCH / (time.perf_counter() - t0), dets
+
+    cuda_nms.LAUNCHES = 0
+    runs = [stream() for _ in range(2)]
+    r = api.predict(frame, **kw)[0]
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = 2 * SEG_BATCHES + 1
+    if launches != expected:
+        raise AssertionError(f"seg {rel}: nms_suppress launched {launches} times, "
+                             f"expected {expected}")
+    m = r["masks"]
+    if not (m is not None and m.dtype == np.uint8 and m.shape == (len(r["boxes"]),) + frame.shape[:2]
+            and len(r["boxes"]) > 0 and min(d for _, d in runs) > 0):
+        raise AssertionError(f"seg {rel}: predict masks {None if m is None else m.shape}")
+    stages = seg_stages(pred, dev[0], kw)
+    ips = ", ".join(f"{v:.1f}" for v, _ in runs)
+    log(f"seg serve {rel}: {count_params(model)} params; bf16 b{BATCH} img/s {ips} "
+        f"(device-resident, masks assembled for all {kw['max_det']} slots and dropped); "
+        f"nms_suppress launches {launches}; peak {peak_gb:.2f} GB; YoloLite.predict: "
+        f"{len(r['boxes'])} masks {m.shape[1]}x{m.shape[2]} uint8 [{card}]")
+    log(f"seg serve {rel} stages (ms per b{BATCH} batch): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" [{card}]")
+    return {"img_s": [v for v, _ in runs], "launches": launches, "peak_gb": peak_gb,
+            "stages_ms": stages, "predict_masks": list(m.shape)}
+
+
+def seg_train_fp32_parity(cfg, card: str):
+    """One fp32 seg forward+loss (TF32 off) on the card and on the CPU from
+    the same weights and unaugmented batch: equal assignment, loss
+    components (mask included) within TRAIN_FP32_LOSS_RTOL."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params, stats = _seeded_flax_edge_n(cfg)
+        ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
+                         img_size=IMG, is_train=True, augment=False, task="segment",
+                         max_boxes=int(cfg["training"]["max_boxes"]), want_rles=False)
+        batch = collate([ds.get(i) for i in range(8)])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=8, device=dev)
+            state = trainer.state_from_weights(params, stats)
+            total, m = trainer.forward_loss(state, trainer.put_batch(batch),
+                                            return_assignment=True)
+            out[dev] = {"total": float(total.detach()),
+                        **{k: m[k].detach().cpu() for k in m}}
+        g, c = out["cuda"], out["cpu"]
+        pos = c["pos_mask"]
+        equal = (torch.equal(g["pos_mask"], pos)
+                 and torch.equal(g["matched_gt"][pos], c["matched_gt"][pos]))
+        errs = {k: abs(float(g[k]) - float(c[k])) / max(abs(float(c[k])), 1e-12)
+                for k in ("total", "box", "obj", "cls", "mask")}
+        log(f"seg train fp32 card vs CPU (TF32 off, b8 @640): assignment "
+            f"{'equal' if equal else 'DIFFERS'} ({int(pos.sum())} positives); loss rel err "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tolerance "
+            f"{TRAIN_FP32_LOSS_RTOL:g}); mask loss {float(c['mask']):.4f} [{card}]")
+        if not (equal and max(errs.values()) <= TRAIN_FP32_LOSS_RTOL):
+            raise AssertionError("seg train fp32 card vs CPU disagree")
+        return {"assignment_equal": equal, "positives": int(pos.sum()), "loss_rel_err": errs}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def _count_seg_mixes():
+    """Count calls of the dataset's seg mosaic and cutmix (thread-safe).
+    Returns (counts, undo)."""
+    import threading
+    lock = threading.Lock()
+    counts = {name: 0 for name in SEG_MIXES}
+    saved = [(name, getattr(YoloDataset, name)) for name in SEG_MIXES]
+
+    def wrap(fn, name):
+        def counted(*a, **k):
+            with lock:
+                counts[name] += 1
+            return fn(*a, **k)
+        return counted
+
+    for name, fn in saved:
+        setattr(YoloDataset, name, wrap(fn, name))
+    return counts, lambda: [setattr(YoloDataset, n, f) for n, f in saved]
+
+
+def _mask_term_ms(trainer, state, batch):
+    """Device ms of the loss's mask term alone (`mask_losses` forward and its
+    backward to the coefficients and prototypes) on one train batch's model
+    outputs and assignment, by CUDA events; and the positives it covers."""
+    _, m = trainer.forward_loss(state, batch, return_assignment=True)
+    with trainer._autocast():
+        outs, protos = state.model(normalize_images(batch["image"].permute(0, 3, 1, 2)))
+    flat, _ = flatten_levels([o.float().detach() for o in outs])
+    coef = flat[..., 5 + trainer.model.num_classes:].contiguous().requires_grad_(True)
+    protos = protos.float().detach().requires_grad_(True)
+    gt_masks = gt_masks_from_batch(batch)
+    pos, matched = m["pos_mask"].detach(), m["matched_gt"].detach()
+
+    def term():
+        loss = mask_losses(trainer.loss.cfg, coef, protos, batch["boxes"].float(), gt_masks,
+                           pos, matched)
+        torch.autograd.grad(loss.sum(), (coef, protos))
+    pos_masks = int(torch.clamp(pos.sum(-1), max=trainer.loss.cfg.max_pos_masks).sum())
+    return cuda_ms(term, 10), pos_masks
+
+
+def seg_train(card: str, tmp: str):
+    """edge_n_seg trained at 640 b8 bf16 for 2 epochs through YoloLite.train
+    on a synthetic polygon set, standard_train.yaml's augmentation (seg
+    mosaic and cutmix counted); nms_suppress launches counted over the run;
+    an fp32 forward+loss card vs CPU; the step timed and split."""
+    data = make_seg_set(os.path.join(tmp, "seg"), TRAIN_N, VAL_N)
+    runs = os.path.join(tmp, "seg_runs")
+    counts, undo = _count_seg_mixes()
+    try:
+        api = YoloLite("edge_n_seg", device="cuda", task="segment")
+        torch.cuda.synchronize()
+        cuda_nms.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = api.train(data=data, workers=8, run_dir=runs, **SEG_TRAIN_OVERRIDES)
+        torch.cuda.synchronize()
+        launches = cuda_nms.LAUNCHES
+        train_s = time.perf_counter() - t0
+    finally:
+        undo()
+    hist = res["history"]
+    val_batches = -(-VAL_N // SEG_TRAIN_OVERRIDES["batch_size"])
+    expected = (SEG_TRAIN_OVERRIDES["epochs"] + 1) * val_batches
+    segm = res.get("coco_segm")
+    log(f"seg train (edge_n_seg, augment on): {SEG_TRAIN_OVERRIDES['epochs']} epochs in "
+        f"{train_s:.1f} s; epoch train loss {', '.join(f'{v:.4f}' for v in hist['train_loss'])}; "
+        f"val loss {', '.join(f'{v:.4f}' for v in hist['val_loss'])}; seg mosaic "
+        f"{counts['mosaic_segment']} and cutmix {counts['cutmix_segment']} calls; final bbox "
+        f"AP50 {res['coco']['AP50']:.4f}, segm AP50 {segm['AP50'] if segm else float('nan'):.4f}; "
+        f"nms_suppress launched {launches} times (expected {expected}) [{card}]")
+    if launches != expected:
+        raise AssertionError("seg train: the validation path did not go through the kernel")
+    if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
+        raise AssertionError(f"seg train: non-finite loss {hist}")
+    if not hist["val_loss"][1] < hist["val_loss"][0]:
+        raise AssertionError("seg train: epoch 2's val loss is not below epoch 1's")
+    if segm is None or min(counts.values()) == 0:
+        raise AssertionError(f"seg train: coco_segm {segm}, mixes {counts}")
+    _check_run_dir(res["log_dir"])
+
+    cfg = load_configs(os.path.join(ROOT, "configs", "models", "edge_n_seg.yaml"),
+                       os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
+                       data, make_run_dir=False)
+    cfg["training"].update(augment=False, amp=False, img_size=IMG, batch_size=8)
+    fp32 = seg_train_fp32_parity(cfg, card)
+    cfg["training"].update(augment=True, amp=True)
+    prof, (trainer, state, dev, lr) = _step_profile(cfg, data, card,
+                                                    f"seg train step b8 bf16 @{IMG}, augment on")
+    split, synced_ms, peak_gb, metrics = _step_split(trainer, state, dev, lr, 10)
+    mask_ms, positives = _mask_term_ms(trainer, state, dev[0])
+    log(f"seg train step split (events, synced each step: {synced_ms:.3f} ms host clock): "
+        f"forward+loss {split[0]:.3f}, backward {split[1]:.3f}, optimizer+EMA {split[2]:.3f} ms; "
+        f"peak {peak_gb:.2f} GB; last step's mask loss {metrics['mask']:.4f}; the mask term "
+        f"(mask_losses forward and backward, {positives} positives) {mask_ms:.3f} ms of device "
+        f"time, {100 * mask_ms * 3 / max(prof['busy_ms'], 1e-9):.1f}% of the step's device "
+        f"busy time "
+        f"[{card}]")
+    if not np.isfinite(metrics["mask"]):
+        raise AssertionError("seg train: non-finite mask loss")
+    return {"launches": launches, "train_s": train_s, "history": hist, "coco": res["coco"],
+            "coco_segm": segm, "mixes": counts, "fp32": fp32,
+            "step": dict(prof, split_ms=split.tolist(), synced_step_ms=synced_ms,
+                         peak_gb=peak_gb, mask_loss=metrics["mask"],
+                         mask_term_ms=mask_ms)}
+
+
+def phase_seg(card: str, tmp: str):
+    """Instance segmentation on the card: fp32 card vs CPU, b128 serving of
+    both seg configs, and 2 epochs of edge_n_seg training."""
+    rng = np.random.RandomState(6)
+    dev = [torch.from_numpy((rng.rand(BATCH, IMG, IMG, 3) * 255).astype(np.uint8)).cuda()
+           for _ in range(2)]
+    frame = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+    out = {"serve": {}}
+    for rel in SEG_CONFIGS:
+        cfg = _seg_config(rel)
+        model = _seg_model(rel, cfg, dev[0][:2].clone())
+        if rel == SEG_CONFIGS[0]:
+            out["fp32"] = seg_fp32(card, model, {"img_size": IMG, "names": ["c0", "c1", "c2"]})
+        out["serve"][rel] = seg_serve(rel, cfg, model, dev, frame, card, tmp)
+        del model
+        torch.cuda.empty_cache()
+    out["train"] = seg_train(card, tmp)
+    return out
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -1328,7 +1773,8 @@ def main():
         phases = {}
         for name, fn in (("augment", lambda: phase_augment(card, data)),
                          ("train", lambda: phase_train(card, data, tmp)),
-                         ("device_augment", lambda: phase_device_augment(card, data, tmp))):
+                         ("device_augment", lambda: phase_device_augment(card, data, tmp)),
+                         ("seg", lambda: phase_seg(card, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -1341,7 +1787,10 @@ def main():
                     ms_b1=krows[f"B1_k{PRE_NMS_TOPK}"]["ms"],
                     ms_by_k={key: r["ms"] for key, r in krows.items()},
                     launches_train=train["launches"],
-                    launches_device_augment_train=phases["device_augment"]["nms_launches"])]
+                    launches_device_augment_train=phases["device_augment"]["nms_launches"],
+                    launches_seg_serve={rel: r["launches"]
+                                        for rel, r in phases["seg"]["serve"].items()},
+                    launches_seg_train=phases["seg"]["train"]["launches"])]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,

@@ -79,8 +79,21 @@ def test_coco_lists_and_stats_equal_jax(seed):
 
 def test_coco_empty_and_segm():
     assert coco_eval_from_lists([], [], [])["AP"] == 0.0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        COCOEvaluator(3, iou_type="segm")
+    # segm is ported: mask IoU on dense masks, equal to JAX's evaluator
+    from yololite_tpu.eval.coco import COCOEvaluator as JaxCOCOEvaluator
+    rng = np.random.RandomState(0)
+    images = [{"id": 1, "width": 16, "height": 16}]
+    anns = [{"id": i + 1, "image_id": 1, "category_id": 1, "bbox": [0, 0, 8, 8],
+             "area": 64.0, "iscrowd": 0, "mask": rng.rand(16, 16) > 0.5} for i in range(3)]
+    dets = [{"image_id": 1, "category_id": 1, "bbox": [0, 0, 8, 8], "score": float(s),
+             "mask": (a["mask"] ^ (rng.rand(16, 16) > 0.9))}
+            for a, s in zip(anns, rng.rand(3))]
+    got = COCOEvaluator(3, iou_type="segm").evaluate(images, anns, dets)
+    assert got == JaxCOCOEvaluator(3, iou_type="segm").evaluate(images, anns, dets)
+    assert got["AP50"] > 0.5
+    assert COCOEvaluator(3, iou_type="segm").evaluate(images, anns, [])["AP"] == 0.0
+    with pytest.raises(ValueError, match="iou_type"):
+        COCOEvaluator(3, iou_type="keypoints")
 
 
 @pytest.mark.parametrize("seed", [0, 5])

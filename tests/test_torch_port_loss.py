@@ -218,12 +218,26 @@ def test_hard_negative_count_and_returned_assignment():
 
 
 def test_mask_loss_raises():
+    """Prototypes and GT masks add the mask term (segmentation), equal to
+    JAX's; without them the loss has no "mask" metric."""
     levels, t = make_case(0)
+    rng = np.random.RandomState(0)
+    levels = [np.concatenate([lv, np.tanh(rng.normal(0, 1, lv.shape[:-1] + (4,)))
+                              .astype(np.float32)], -1) for lv in levels]
+    protos = rng.normal(0, 1, (3, 16, 16, 4)).astype(np.float32)
+    masks = (rng.rand(3, 6, 16, 16) > 0.5).astype(np.float32)
     loss = SimOTALoss(LossConfig.from_config(config()))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loss([torch.from_numpy(l) for l in levels],
-             {**{k: torch.from_numpy(v) for k, v in t.items()},
-              "masks": torch.zeros(3, 6, 16, 16)}, protos=torch.zeros(3, 16, 16, 4))
+    total, m = loss([torch.from_numpy(l) for l in levels],
+                    {**{k: torch.from_numpy(v) for k, v in t.items()},
+                     "masks": torch.from_numpy(masks)}, protos=torch.from_numpy(protos))
+    jt, jm = JaxSimOTALoss(JaxLossConfig.from_config(config()))(
+        [jnp.asarray(l) for l in levels], {**{k: jnp.asarray(v) for k, v in t.items()},
+                                          "masks": jnp.asarray(masks)}, jnp.asarray(protos))
+    np.testing.assert_allclose(float(m["mask"]), float(jm["mask"]), rtol=1e-5)
+    np.testing.assert_allclose(float(total), float(jt), rtol=1e-5)
+    _, plain = loss([torch.from_numpy(l) for l in levels],
+                    {k: torch.from_numpy(v) for k, v in t.items()})
+    assert "mask" not in plain
 
 
 def test_losses_function_batches_images():

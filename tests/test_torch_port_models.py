@@ -158,8 +158,11 @@ def test_unported_options_raise():
     from yololite_tpu_torch.models.backbones import build_backbone
     with pytest.raises(KeyError, match="Unknown backbone"):
         build_backbone("no_such_backbone")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build_model_from_config(edge_cfg(64, with_masks=True))
+    # segmentation is ported: with_masks (or task: segment) builds the
+    # ProtoNet and the mask-coefficient heads
+    for overrides in ({"with_masks": True}, {"task": "segment"}):
+        seg = build_model_from_config(edge_cfg(64, **overrides))
+        assert seg.with_masks and hasattr(seg, "protonet") and hasattr(seg.head3, "mcoef")
     # training and its augmentation are ported; multiple devices and the
     # orbax backend still raise
     from yololite_tpu_torch.train.loop import train_from_config

@@ -9,17 +9,20 @@ class, box within 1e-3 px, score within 1e-5 (fp32 forward rounding; see
 test_torch_port_models.py), equal count.
 """
 
+import cv2
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from yololite_tpu.api import YoloLite as JaxYoloLite
 from yololite_tpu.deploy.predictor import Predictor as JaxPredictor
 from yololite_tpu.train.checkpoint import build_meta, save_checkpoint
 
 from tests.test_torch_port_models import edge_cfg, jax_edge
 from yololite_tpu_torch.api import YoloLite
+from yololite_tpu_torch.data.png import UnsupportedImage
 from yololite_tpu_torch.deploy.predictor import Predictor
 from yololite_tpu_torch.ops import cuda_nms
 
@@ -88,7 +91,7 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
     np.save(tmp_path / "f.npy", frames[0])
     one = model.predict(str(tmp_path / "f.npy"), conf=0.01)[0]
     np.testing.assert_allclose(one["boxes"], res[0]["boxes"], atol=1e-3)
-    with pytest.raises(ValueError, match="no image codec"):
+    with pytest.raises(UnsupportedImage, match="item 2"):
         model.predict("image.jpg")
     with pytest.raises(NotImplementedError, match="item 12"):
         model.export()
@@ -105,3 +108,50 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
         Predictor(ckpt, device="cpu", quantize="int8")
     with pytest.raises(NotImplementedError, match="item 5"):
         Predictor(ckpt, device="cpu", s2d_stem=True)
+
+
+def _fp32(model, ckpt):
+    """The API object with an fp32 Predictor (its default is bf16, as JAX's)."""
+    model._predictor = (Predictor(ckpt, device="cpu", dtype=torch.float32)
+                        if isinstance(model, YoloLite) else JaxPredictor(ckpt, dtype=jnp.float32))
+    return model
+
+
+def test_predict_reads_a_png_path_like_jax(ckpt, tmp_path):
+    """A PNG path is decoded (as BGR, as cv2.imread hands it on) and gives
+    JAX's detections for the same file."""
+    frame = _frames(1, seed=3)[0]
+    path = str(tmp_path / "frame.png")
+    cv2.imwrite(path, frame)
+    got = _fp32(YoloLite(ckpt, device="cpu"), ckpt).predict(path, conf=0.001)[0]
+    want = _fp32(JaxYoloLite(ckpt), ckpt).predict(path, conf=0.001)[0]
+    assert got["source"] == want["source"] == path
+    _assert_matched((got["boxes"], got["scores"], got["classes"]),
+                    (want["boxes"], want["scores"], want["classes"]))
+
+
+def test_predict_on_a_folder_like_jax(ckpt, tmp_path):
+    """A folder gives one result per image, in JAX's order; a folder of
+    JPEGs raises naming the codec item instead of returning nothing."""
+    frames = _frames(3, seed=4)
+    png_dir, jpg_dir = tmp_path / "png", tmp_path / "jpg"
+    png_dir.mkdir()
+    jpg_dir.mkdir()
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(png_dir / f"{i}.png"), f)
+        cv2.imwrite(str(jpg_dir / f"{i}.jpg"), f)
+    got = _fp32(YoloLite(ckpt, device="cpu"), ckpt).predict(str(png_dir), conf=0.001)
+    want = _fp32(JaxYoloLite(ckpt), ckpt).predict(str(png_dir), conf=0.001)
+    assert [r["source"] for r in got] == [r["source"] for r in want] == \
+        [str(png_dir / f"{i}.png") for i in range(3)]
+    for g, w in zip(got, want):
+        _assert_matched((g["boxes"], g["scores"], g["classes"]),
+                        (w["boxes"], w["scores"], w["classes"]))
+    with pytest.raises(UnsupportedImage, match="item 2"):
+        YoloLite(ckpt, device="cpu").predict(str(jpg_dir))
+
+
+@pytest.mark.parametrize("kw", [{"draw": True}, {"save_dir": "out"}], ids=["draw", "save_dir"])
+def test_predict_drawing_raises_naming_its_item(ckpt, kw):
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        YoloLite(ckpt, device="cpu").predict(_frames(1)[0], **kw)

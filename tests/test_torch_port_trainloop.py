@@ -118,11 +118,18 @@ def test_exact_resume_equals_uninterrupted(data, tmp_path):
     ({"spatial_parallel": 2}, {}, "item 12"),
     ({"qat": True}, {}, "item 10"),
     ({"checkpoint_backend": "orbax_async"}, {}, "item 8c"),
-    ({}, {"with_masks": True}, "item 9"),
+    ({"dataset": "jpeg"}, {}, "item 2"),
 ])
 def test_unported_options_raise_naming_their_item(data, tmp_path, training, model, item):
+    training = dict(training)
+    jpeg = training.pop("dataset", None) == "jpeg"
     cfg = _config(data, tmp_path / "x", **training)
     cfg["model"].update(model)
+    if jpeg:        # a train split with a JPEG image: the codec is item 2
+        img_dir = tmp_path / "jpg"
+        img_dir.mkdir()
+        (img_dir / "0000.jpg").write_bytes(b"\xff\xd8\xff\xd9")
+        cfg["dataset"]["train_images"] = str(img_dir)
     with pytest.raises(NotImplementedError, match=item):
         train_from_config(cfg, device="cpu")
 

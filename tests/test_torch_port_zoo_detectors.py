@@ -1,9 +1,9 @@
 """PyTorch port parity: every detection config under configs/, the port's
 YAML reader and model-name resolution, against the JAX package.
 
-- Structure, all 15 detection configs: the flax variables' tree (from
-  jax.eval_shape, no forward) loads with no missing or leftover key, and the
-  parameter counts equal JAX's.
+- Structure, all 15 detection configs and the 2 segmentation configs: the
+  flax variables' tree (from jax.eval_shape, no forward) loads with no
+  missing or leftover key, and the parameter counts equal JAX's.
 - Forward, one config per backbone family at 64 px: rtol = atol = 1e-4 on
   every level output, fp32 on the CPU (see tests/test_torch_port_zoo.py for
   why 1e-4, and for the random variables, which keep outputs O(0.1..1)).
@@ -62,6 +62,8 @@ CONFIGS = {
     "configs/custom/custom.yaml": 5_338_840,
 }
 SEG_CONFIGS = ["configs/models/edge_n_seg.yaml", "configs/models/yololite_n_seg.yaml"]
+SEG_PARAMS = {"configs/models/edge_n_seg.yaml": 728_328,        # JAX, 3 classes
+              "configs/models/yololite_n_seg.yaml": 7_011_104}
 # one config per backbone family (v2 l: ConvNeXtV2's 17/9/5/3 maps at 64 px)
 FORWARD = {"yololite_n": "configs/models/yololite_n.yaml",
            "v2_n": "configs/v2_models/yololite_n.yaml",
@@ -113,8 +115,16 @@ def test_config_loads_jax_variables_exactly(rel):
 
 @pytest.mark.parametrize("rel", SEG_CONFIGS)
 def test_segmentation_configs_raise(rel):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build_model_from_config(config(rel))
+    """The segmentation configs build (ProtoNet and mask coefficients, no
+    raise) and load JAX's full-size variable tree exactly, with JAX's
+    parameter count at 3 classes."""
+    m = jax_model(rel)
+    shapes = jax.eval_shape(lambda k, x: m.init(k, x, train=False),
+                            jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    port = port_model(rel, zeros["params"], zeros["batch_stats"])
+    assert port.with_masks and port.num_prototypes == 32
+    assert count_params(port) == jax_count_params(zeros["params"]) == SEG_PARAMS[rel]
 
 
 @pytest.mark.parametrize("name", sorted(FORWARD))

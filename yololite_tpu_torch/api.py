@@ -4,11 +4,15 @@
     model.train(data="data.yaml", epochs=20)   # on CUDA, the recipe's augmentation
     results = model.predict(frame_bgr)[0]      # the best checkpoint
     results["boxes"]   # xyxy np.ndarray (original pixels)
+    results["masks"]   # uint8 [D, H, W] for a segmentation model, else None
     results["speed"]   # {"preprocess_ms", "inference_ms", ..., "total_ms"}
     stats = model.val(data="data.yaml")        # {"map", "map_50", ...}
 
-Sources are decoded BGR uint8 arrays (or `.npy` files of them); datasets are
-PNG or `.npy` images (`data/dataset.py`): the package carries no JPEG codec.
+Sources are decoded BGR uint8 arrays, PNG files or `.npy` files of BGR
+arrays, or a folder of them; datasets are PNG or `.npy` images
+(`data/dataset.py`). The package carries no JPEG or BMP codec: such files
+raise `UnsupportedImage` (ROADMAP Queue 1 item 2). Drawing (`draw=`,
+`save_dir=`) is ROADMAP Queue 1 item 8d and raises.
 A model name or yaml resolves as in the JAX API (configs/models, then
 v2_models, then custom); predicting needs a checkpoint, as there. Everything
 runs on `device` (the card by default; tests pass "cpu"). Export is ROADMAP
@@ -29,9 +33,9 @@ from yololite_tpu_torch.config import resolve_model_arg
 class YoloLite:
     def __init__(self, model="edge_n", device: str = "cuda", task: str = "detect"):
         """`model` is a model name, a model yaml, a checkpoint path, or a
-        `(model, state_dict, meta)` triple (see `Predictor`)."""
-        if task != "detect":
-            raise NotImplementedError("segmentation: ROADMAP Queue 1 item 9")
+        `(model, state_dict, meta)` triple (see `Predictor`). `task` is only
+        stored, as in the JAX API: segmentation comes from the model config
+        (`with_masks: true` or `task: segment`)."""
         self.task = task
         self.device = device
         self._src = ({"weights": model} if isinstance(model, (tuple, list))
@@ -52,15 +56,21 @@ class YoloLite:
     def predict(self, source: Union[str, np.ndarray, Sequence], conf: float = 0.25,
                 iou: float = 0.45, max_det: int = 300,
                 img_size: Optional[int] = None, batch: bool = True,
+                draw: bool = False, save_dir: Optional[str] = None,
                 **_ignored) -> List[Dict[str, Any]]:
+        """Detections (and, for a segmentation model, uint8 masks of each
+        frame's shape under "masks") for BGR arrays, PNG or `.npy` files, or
+        a folder of them."""
+        if draw or save_dir:
+            raise NotImplementedError("drawing detections (draw=, save_dir=) needs "
+                                      "utils/viz.py: ROADMAP Queue 1 item 8d")
+        from yololite_tpu_torch.data.dataset import read_image_rgb
         pred = self.predictor
         frames, names = [], []
         for item in self._expand_source(source):
             if isinstance(item, str):
-                if not item.endswith(".npy"):
-                    raise ValueError(f"{item}: pass decoded BGR arrays or .npy "
-                                     "files; this package has no image codec")
-                frames.append(np.load(item))
+                # BGR, as the JAX package's cv2.imread hands frames on
+                frames.append(np.ascontiguousarray(read_image_rgb(item)[..., ::-1]))
                 names.append(item)
             else:
                 frames.append(np.asarray(item))
@@ -81,7 +91,12 @@ class YoloLite:
         if isinstance(source, np.ndarray):
             return [source]
         if isinstance(source, str) and os.path.isdir(source):
-            return sorted(glob.glob(os.path.join(source, "*.npy")))
+            # JAX's patterns, plus the port's .npy frames; a JPEG or BMP
+            # raises when it is read (ROADMAP Queue 1 item 2)
+            files = []
+            for e in ("*.jpg", "*.jpeg", "*.png", "*.bmp", "*.npy"):
+                files += glob.glob(os.path.join(source, e))
+            return sorted(files)
         return [source]
 
     def train(self, data: str, epochs: int = 100, batch_size: Optional[int] = None,

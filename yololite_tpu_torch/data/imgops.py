@@ -21,7 +21,11 @@ which the JAX package's cv2 runs:
     (width mod 32 pixels) rounds);
   - `convex_hull`, `fill_convex_poly` (OpenCV's fixed-point scanline fill
     and its 8-connected outline) and `fill_circle` (OpenCV's midpoint
-    circle, filled).
+    circle, filled);
+  - `fill_poly`: `cv2.fillPoly` of one polygon with integer vertices (any
+    shape: non-convex, self-intersecting, partly outside), OpenCV's edge
+    collection and even-odd scanline fill in 16.16 fixed point, plus each
+    edge's 8-connected line clipped as `cv2.clipLine` clips it.
 """
 
 from __future__ import annotations
@@ -388,6 +392,116 @@ def line8(img: np.ndarray, p0, p1, value) -> np.ndarray:
     H, W = img.shape[:2]
     keep = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
     img[ys[keep], xs[keep]] = value
+    return img
+
+
+def clip_line(w: int, h: int, p1, p2):
+    """cv2.clipLine to the rectangle [0, w) x [0, h): (inside, p1', p2'),
+    the cut computed in double and truncated toward zero, as OpenCV does."""
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    right, bottom = w - 1, h - 1
+    code = lambda x, y: (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line8_clipped(img: np.ndarray, p0, p1, value) -> None:
+    """cv2.line (LINE_8): endpoints outside the image are clipped first."""
+    H, W = img.shape[:2]
+    if not all(0 <= p[0] < W and 0 <= p[1] < H for p in (p0, p1)):
+        inside, p0, p1 = clip_line(W, H, p0, p1)
+        if not inside:
+            return
+    line8(img, p0, p1, value)
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def fill_poly(img: np.ndarray, pts: np.ndarray, value) -> np.ndarray:
+    """cv2.fillPoly(img, [pts], value) for one polygon of integer vertices,
+    LINE_8, shift 0 (in place).
+
+    As OpenCV 5.0 does (probed against cv2 on random polygons): every edge
+    is drawn as an 8-connected line; every non-horizontal edge becomes
+    (y0, y1, x at y0, dx) in 16.16 fixed point with dx by C division; an
+    edge that leaves the image takes the x of its clipped line (and its y
+    too unless the clipped line is horizontal); each row y pairs the x's of
+    the edges with y0 <= y < y1 in ascending order and fills
+    [ceil(x_a), floor(x_b)] of each pair."""
+    v = np.asarray(pts, np.int64).reshape(-1, 2)
+    n = len(v)
+    H, W = img.shape[:2]
+    edges = []
+    for i in range(n):
+        (x0, y0), (x1, y1) = (int(c) for c in v[i - 1]), (int(c) for c in v[i])
+        _line8_clipped(img, (x0, y0), (x1, y1), value)
+        # fixed-point end points (pt0c/pt1c in OpenCV)
+        ax, ay, bx, by = x0 << _XY_SHIFT, y0, x1 << _XY_SHIFT, y1
+        if not (0 <= x0 < W and 0 <= x1 < W and 0 <= y0 < H and 0 <= y1 < H):
+            _, (cx0, cy0), (cx1, cy1) = clip_line(W, H, (x0, y0), (x1, y1))
+            ax, bx = cx0 << _XY_SHIFT, cx1 << _XY_SHIFT
+            if cy0 != cy1:
+                ay, by = cy0, cy1
+        if y0 == y1:
+            continue
+        dx = _trunc_div(bx - ax, by - ay)
+        if y0 < y1:
+            edges.append((y0, y1, ax + (y0 - ay) * dx, dx))
+        else:
+            edges.append((y1, y0, bx + (y1 - by) * dx, dx))
+    if len(edges) < 2:
+        return img
+    e = np.asarray(edges, np.int64)
+    ey0, ey1, ex, edx = e.T
+    xend = ex + (ey1 - ey0) * edx
+    if (ey1.max() < 0 or ey0.min() >= H or max(ex.max(), xend.max()) < 0
+            or min(ex.min(), xend.min()) >= (W << _XY_SHIFT)):
+        return img
+    rows = np.arange(max(int(ey0.min()), 0), min(int(ey1.max()), H))
+    if not len(rows):
+        return img
+    active = (ey0[:, None] <= rows) & (rows < ey1[:, None])          # [E, R]
+    big = np.iinfo(np.int64).max
+    xs = np.where(active, ex[:, None] + (rows - ey0[:, None]) * edx[:, None], big)
+    xs = np.sort(xs, axis=0)
+    if len(xs) % 2:
+        xs = np.concatenate([xs, np.full((1, len(rows)), big)])
+    left, right = xs[0::2], xs[1::2]
+    ok = right != big
+    # the pixels whose left corner lies within the pair: ceil .. floor
+    x1, x2 = (left + _XY_ONE - 1) >> _XY_SHIFT, right >> _XY_SHIFT
+    ok &= (x1 < W) & (x2 >= 0)
+    r = np.broadcast_to(np.arange(len(rows)), x1.shape)[ok]
+    x1, x2 = np.maximum(x1[ok], 0), np.minimum(x2[ok], W - 1)
+    diff = np.zeros((len(rows), W + 1), np.int32)
+    np.add.at(diff, (r, x1), 1)
+    np.add.at(diff, (r, x2 + 1), -1)
+    fill = np.cumsum(diff[:, :W], axis=1) > 0
+    img[rows[0]:rows[-1] + 1][fill] = value
     return img
 
 

@@ -6,6 +6,8 @@
     labels i32    [B, M]
     mask   bool   [B, M]
     image_id i64  [B]
+    (segmentation) masks_packed uint8 [B, M, Hp, ceil(Wp/8)], and gt_rles, a
+    host-only ragged list of per-image RLE lists
 
 A background thread prefetches batches; with `num_workers > 1` a thread pool
 fetches the samples of a batch, each with its own RNG seeded from the
@@ -28,7 +30,11 @@ from yololite_tpu_torch.data.dataset import YoloDataset
 
 
 def collate(samples) -> Dict[str, np.ndarray]:
-    out = {k: np.stack([s[k] for s in samples]) for k in ("image", "boxes", "labels", "mask")}
+    keys = ["image", "boxes", "labels", "mask"]
+    keys += [k for k in ("masks", "masks_packed") if k in samples[0]]
+    out = {k: np.stack([s[k] for s in samples]) for k in keys}
+    if "gt_rles" in samples[0]:
+        out["gt_rles"] = [s["gt_rles"] for s in samples]
     out["image_id"] = np.asarray([s["image_id"] for s in samples], np.int64)
     return out
 

@@ -6,7 +6,13 @@ Port of `deploy/predictor.py`:
 with letterbox (or square-resize) preprocessing on the host and, on the
 device: uint8 -> folded normalize -> detector (channels_last, `dtype`) ->
 fused heads -> decode (fp32) -> scores -> NMS (fp32, pre-NMS top-k 512, the
-suppression in the CUDA kernel of `ops/cuda_nms.py`).
+suppression in the CUDA kernel of `ops/cuda_nms.py`), and for a segmentation
+model the masks of all `max_det` slots: the coefficients gathered by the NMS
+indices times the prototypes, sigmoid, box crop (`ops/masks.py`, fp32).
+The one-frame paths copy only the valid rows to the host, crop the letterbox
+pad at prototype resolution, resize each mask to the frame (`cv2.resize`
+INTER_LINEAR on floats, `data/imgops.resize_f32`) and binarize at 0.5;
+`infer_batched_stream` computes the masks and drops them, as JAX does.
 
 Suppression is exact greedy (JAX `fixpoint_unroll=0`) at every confidence;
 the JAX Predictor's default `unroll=8` approximates it on chains deeper
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from yololite_tpu_torch.convert import load_flax
+from yololite_tpu_torch.data.imgops import resize_f32
 from yololite_tpu_torch.deploy.fold_norm import (
     fold_normalization, folded_stem, normalize_images, raw_cast,
 )
@@ -36,6 +43,7 @@ from yololite_tpu_torch.ops.decode import decode_anchorfree
 from yololite_tpu_torch.ops.letterbox import (
     letterbox_image, resize_image, unletterbox_boxes,
 )
+from yololite_tpu_torch.ops.masks import assemble_masks_batch
 from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
 from yololite_tpu_torch.train.checkpoint import load_checkpoint, model_from_meta
 
@@ -47,6 +55,20 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def frame_masks(probs: np.ndarray, img_size: int, pad_x: int, pad_y: int,
+                w: int, h: int) -> np.ndarray:
+    """Prototype-resolution mask probabilities [D, Hp, Wp] in letterbox space
+    -> uint8 [D, h, w] in the frame: crop the pad (Python's `round`, as
+    JAX), resize each to the frame, threshold at 0.5."""
+    if not len(probs):
+        return np.zeros((0, h, w), np.uint8)
+    r = probs.shape[1] / float(img_size)
+    ya, xa = int(round(pad_y * r)), int(round(pad_x * r))
+    yb, xb = int(round((img_size - pad_y) * r)), int(round((img_size - pad_x) * r))
+    crop = probs[:, ya:max(ya + 1, yb), xa:max(xa + 1, xb)]
+    return np.stack([(resize_f32(cm, w, h) > 0.5).astype(np.uint8) for cm in crop])
 
 
 class Predictor:
@@ -85,23 +107,35 @@ class Predictor:
         self.img_size = int(meta.get("img_size", 640))
         self.names = meta.get("names")
         self.use_letterbox = use_letterbox
+        self.with_masks = bool(self.model.with_masks)
 
     # ------------------------------------------------------------------ #
     def forward(self, images_u8: torch.Tensor):
-        """[B,S,S,3] uint8 on the device -> per-level [B,A,S,S,5+C] maps.
-        The NHWC batch viewed as NCHW is channels_last already."""
+        """[B,S,S,3] uint8 on the device -> per-level [B,A,S,S,5+C(+K)] maps
+        (and prototypes [B,Hp,Wp,K] for a segmentation model). The NHWC
+        batch viewed as NCHW is channels_last already."""
         x = images_u8.permute(0, 3, 1, 2)
         x = raw_cast(x, self.dtype) if self.folded else normalize_images(x, self.dtype)
         return self.model(x)
 
-    def postprocess(self, outs, img_size: int, conf: float, iou: float,
+    def postprocess(self, out, img_size: int, conf: float, iou: float,
                     max_det: int):
-        """Per-level maps -> (boxes, scores, classes, valid) [B, max_det, ...]."""
-        d = decode_anchorfree([o.float() for o in outs], img_size)
+        """The model's output -> (boxes, scores, classes, valid) [B, max_det,
+        ...], plus masks [B, max_det, Hp, Wp] (probabilities, cropped to the
+        boxes) for a segmentation model."""
+        outs, protos = out if self.with_masks else (out, None)
+        d = decode_anchorfree([o.float() for o in outs], img_size,
+                              num_classes=self.model.num_classes
+                              if self.with_masks else None)
         scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
-        out = batched_nms(d["box"], scores, classes, iou_th=iou, conf_th=conf,
-                          max_det=max_det, pre_nms_topk=PRE_NMS_TOPK)
-        return out[:4]
+        boxes, s, c, v, idx = batched_nms(d["box"], scores, classes, iou_th=iou,
+                                          conf_th=conf, max_det=max_det,
+                                          pre_nms_topk=PRE_NMS_TOPK)
+        if protos is None:
+            return boxes, s, c, v
+        coef = torch.gather(d["coef"], 1, idx[..., None].long().expand(
+            -1, -1, d["coef"].shape[-1]))
+        return boxes, s, c, v, assemble_masks_batch(protos, coef, boxes, float(img_size))
 
     def _upload(self, batch) -> torch.Tensor:
         if isinstance(batch, torch.Tensor):
@@ -117,23 +151,38 @@ class Predictor:
         return self.postprocess(self.forward(self._upload(batch)), img_size,
                                 conf, iou, max_det)
 
-    def _launch(self, img_size, conf, iou, max_det, batch):
-        """Launch a call and its copy back to the host. Returns (host tensors,
-        event); the tensors are ready once the event has completed."""
+    def _launch(self, img_size, conf, iou, max_det, batch, keep_masks: bool = False):
+        """Launch a call and the copy of (boxes, scores, classes, valid) back
+        to the host. Returns (host tensors, event, device masks or None); the
+        tensors are ready once the event has completed. The masks stay on the
+        device (dropped unless `keep_masks`)."""
         out = self._run(img_size, conf, iou, max_det, batch)
+        masks = out[4] if keep_masks and len(out) == 5 else None
+        out = out[:4]
         if self.device.type != "cuda":
-            return out, None
+            return out, None, masks
         host = tuple(t.to("cpu", non_blocking=True) for t in out)
         ev = torch.cuda.Event()
         ev.record()
-        return host, ev
+        return host, ev, masks
 
     @staticmethod
     def _wait(handle):
-        host, ev = handle
+        host, ev, _ = handle
         if ev is not None:
             ev.synchronize()
         return tuple(t.numpy() for t in host)
+
+    @staticmethod
+    def _valid_masks(handle, valid: np.ndarray):
+        """The device masks of the valid slots only, on the host, as a list
+        of [D_i, Hp, Wp] arrays, one per image of `valid` [B, max_det]."""
+        masks = handle[2]
+        if masks is None:
+            return None
+        sel = torch.from_numpy(np.ascontiguousarray(valid)).to(masks.device)
+        rows = masks[sel].cpu().numpy()
+        return np.split(rows, np.cumsum(valid.sum(1))[:-1])
 
     # ------------------------------------------------------------------ #
     def preprocess(self, img_rgb: np.ndarray, img_size: int):
@@ -173,31 +222,39 @@ class Predictor:
         canvas, (scale, px, py) = self.preprocess(
             np.ascontiguousarray(img_bgr[..., ::-1]), img_size)
         t1 = time.perf_counter()
-        boxes, scores, classes, valid = self._wait(
-            self._launch(img_size, conf, iou, max_det, canvas[None]))
+        handle = self._launch(img_size, conf, iou, max_det, canvas[None],
+                              keep_masks=True)
+        boxes, scores, classes, valid = self._wait(handle)
+        probs = self._valid_masks(handle, valid)
         t2 = time.perf_counter()
         m = valid[0]
         b = unletterbox_boxes(boxes[0][m], scale, px, py, w, h)
+        masks = (None if probs is None
+                 else frame_masks(probs[0], img_size, px, py, w, h))
         t3 = time.perf_counter()
         return {"boxes": b, "scores": scores[0][m], "classes": classes[0][m],
-                "masks": None, "names": self.names,
+                "masks": masks, "names": self.names,
                 "speed": {"preprocess_ms": (t1 - t0) * 1e3,
                           "inference_ms": (t2 - t1) * 1e3,
                           "postprocess_ms": (t3 - t2) * 1e3,
                           "total_ms": (t3 - t0) * 1e3}}
 
-    def _results(self, arrays, geoms, sizes, n: int, per: Dict[str, float]):
+    def _results(self, arrays, geoms, sizes, n: int, per: Dict[str, float],
+                 img_size: int = 0, probs=None):
         boxes, scores, classes, valid = arrays
         results = []
         for i in range(n):
             m = valid[i]
+            masks = None
             if geoms is None:
                 b = boxes[i][m]
             else:
                 (scale, px, py), (h, w) = geoms[i], sizes[i]
                 b = unletterbox_boxes(boxes[i][m], scale, px, py, w, h)
+                if probs is not None:
+                    masks = frame_masks(probs[i], img_size, px, py, w, h)
             results.append({"boxes": b, "scores": scores[i][m],
-                            "classes": classes[i][m], "masks": None,
+                            "classes": classes[i][m], "masks": masks,
                             "names": self.names, "speed": dict(per)})
         return results
 
@@ -212,13 +269,15 @@ class Predictor:
         t0 = time.perf_counter()
         batch, geoms, sizes = self._prepare(frames_bgr, img_size)
         t1 = time.perf_counter()
-        arrays = self._wait(self._launch(img_size, conf, iou, max_det, batch))
+        handle = self._launch(img_size, conf, iou, max_det, batch, keep_masks=True)
+        arrays = self._wait(handle)
+        probs = self._valid_masks(handle, arrays[3])
         t2 = time.perf_counter()
         per_pre, per_inf = (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n
         return self._results(arrays, geoms, sizes, n,
                              {"preprocess_ms": per_pre, "inference_ms": per_inf,
                               "postprocess_ms": 0.0,
-                              "total_ms": per_pre + per_inf})
+                              "total_ms": per_pre + per_inf}, img_size, probs)
 
     def infer_batched_stream(self, batches, img_size: Optional[int] = None,
                              conf: float = 0.25, iou: float = 0.45,

@@ -1,5 +1,5 @@
-"""COCO-protocol bbox evaluator in numpy (port of `eval/coco.py`, no
-pycocotools).
+"""COCO-protocol bbox and segm evaluator in numpy (port of `eval/coco.py`,
+no pycocotools).
 
 Returns {AP, AP50, AP75, APS, APM, APL, AR, ARS, ARM, ARL} with the official
 semantics: IoU thresholds 0.50:0.05:0.95, recall thresholds 0:0.01:1, area
@@ -7,8 +7,10 @@ ranges all/small/medium/large, maxDets 100, greedy per-(image, category)
 matching with ignored-GT handling, 101-point interpolated precision averaged
 over the categories present in GT. The matcher is the JAX package's Python
 one (its native C++ twin is ROADMAP Queue 1 item 13). Inputs are the
-reference's COCO list-of-dicts; an empty detection list gives zeros. Segm
-evaluation is ROADMAP Queue 1 item 9.
+reference's COCO list-of-dicts; an empty detection list gives zeros.
+`iou_type="segm"` matches by mask IoU (float64) on full-resolution RLE
+"segmentation" entries (or dense "mask" arrays) and bins GT areas by mask
+area, as the JAX evaluator does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from yololite_tpu_torch.ops.masks import rle_decode_np
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -48,8 +52,36 @@ def iou_xywh_matrix(dt: np.ndarray, gt: np.ndarray) -> np.ndarray:
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
-def _evaluate_img(dt_boxes, dt_scores, gt_boxes, gt_areas, area_rng, max_dets):
+def _dense_masks(items) -> np.ndarray:
+    """COCO ann/det dicts -> stacked binary masks [N, H, W], from an RLE
+    under "segmentation" or a dense array under "mask"; one (image, class)
+    group shares one resolution."""
+    if not items:
+        return np.zeros((0, 1, 1), bool)
+    out = []
+    for it in items:
+        if "segmentation" in it:
+            out.append(rle_decode_np(it["segmentation"]).astype(bool))
+        else:
+            out.append(np.asarray(it["mask"], bool))
+    return np.stack(out)
+
+
+def mask_iou_matrix(dt_masks: np.ndarray, gt_masks: np.ndarray) -> np.ndarray:
+    """IoU between binary masks: [D,h,w] x [G,h,w] -> [D,G] (float64)."""
+    if len(dt_masks) == 0 or len(gt_masks) == 0:
+        return np.zeros((len(dt_masks), len(gt_masks)), np.float64)
+    d = dt_masks.reshape(len(dt_masks), -1).astype(np.float64)
+    g = gt_masks.reshape(len(gt_masks), -1).astype(np.float64)
+    inter = d @ g.T
+    union = d.sum(1)[:, None] + g.sum(1)[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+
+
+def _evaluate_img(dt_boxes, dt_scores, gt_boxes, gt_areas, area_rng, max_dets,
+                  iou_matrix=None):
     """Match dets to GTs for one (image, category) over all IoU thresholds.
+    `iou_matrix` [D,G] (unsorted det x gt order) replaces the box IoU (segm).
     Returns (dt_matches [T,D] (1=TP), dt_ignore [T,D], scores [D], npig)."""
     arng_lo, arng_hi = area_rng
     gt_ignore = (gt_areas < arng_lo) | (gt_areas > arng_hi)
@@ -65,7 +97,10 @@ def _evaluate_img(dt_boxes, dt_scores, gt_boxes, gt_areas, area_rng, max_dets):
     T = len(IOU_THRS)
     D = len(dt_boxes)
     G = len(gt_boxes)
-    ious = iou_xywh_matrix(dt_boxes, gt_boxes)
+    if iou_matrix is not None:
+        ious = np.asarray(iou_matrix, np.float64)[dorder][:, gorder]
+    else:
+        ious = iou_xywh_matrix(dt_boxes, gt_boxes)
 
     dtm = np.zeros((T, D), np.int32)      # matched gt index + 1, 0 = unmatched
     dt_ig = np.zeros((T, D), bool)
@@ -100,10 +135,22 @@ def _evaluate_img(dt_boxes, dt_scores, gt_boxes, gt_areas, area_rng, max_dets):
 class COCOEvaluator:
     """Accumulates GT/DT lists and computes COCO stats."""
 
+    @staticmethod
+    def _area_scale(coco_images, img: int, mask_shape) -> float:
+        """Mask pixels -> image pixels for segm area ranges (1 for
+        full-resolution masks)."""
+        for im in coco_images:
+            if int(im["id"]) == img:
+                w, h = im.get("width"), im.get("height")
+                if w and mask_shape[1] > 0:
+                    return (float(w) / mask_shape[2]) * (float(h) / mask_shape[1])
+                break
+        return 1.0
+
     def __init__(self, num_classes: Optional[int] = None,
                  iou_type: str = "bbox"):
-        if iou_type != "bbox":
-            raise NotImplementedError("segm evaluation: ROADMAP Queue 1 item 9")
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"iou_type {iou_type!r}")
         self.num_classes = num_classes
         self.iou_type = iou_type
 
@@ -147,9 +194,16 @@ class COCOEvaluator:
                                            for g in gts], np.float64)
                     dt_boxes = np.asarray([d["bbox"] for d in dts], np.float64).reshape(-1, 4)
                     dt_scores = np.asarray([d["score"] for d in dts], np.float64)
+                    iou_m = None
+                    if self.iou_type == "segm":
+                        gm, dm = _dense_masks(gts), _dense_masks(dts)
+                        iou_m = mask_iou_matrix(dm, gm)
+                        if len(gts):
+                            gt_areas = gm.reshape(len(gm), -1).sum(1) * \
+                                self._area_scale(coco_images, img, gm.shape)
                     tp, ig, scores, npig = _evaluate_img(dt_boxes, dt_scores,
                                                          gt_boxes, gt_areas,
-                                                         arng, MAX_DETS)
+                                                         arng, MAX_DETS, iou_m)
                     all_scores.append(scores)
                     all_tp.append(tp)
                     all_ig.append(ig)

@@ -1,11 +1,14 @@
-"""Full-dataset evaluation (port of `eval/evaluate.py`, detection).
+"""Full-dataset evaluation (port of `eval/evaluate.py`).
 
 Loop the val loader -> `Trainer.eval_step` on the device (decode + NMS, the
 suppression in the `nms_suppress` kernel on the card) -> COCO stats -> P/R/F1
 confidence sweep -> confusion matrix at best_conf -> forward latency on the
 device (CUDA events) and on a CPU copy of the model -> summary PNG (skipped
-without matplotlib) -> eval_results.json. Segmentation masks are ROADMAP
-Queue 1 item 9.
+without matplotlib) -> eval_results.json. For a segmentation model each
+detection carries its mask upsampled to `img_size` (`cv2.resize` INTER_LINEAR
+on floats, `data/imgops.resize_f32`), binarized at 0.5 and stored as RLE;
+GT masks are the dataset's full-resolution RLEs (or the bit-packed
+prototype-resolution masks), and `coco_segm` holds the mask-IoU stats.
 """
 
 from __future__ import annotations
@@ -19,43 +22,71 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from yololite_tpu_torch.eval.coco import coco_eval_from_lists
+from yololite_tpu_torch.data.imgops import resize_f32
+from yololite_tpu_torch.eval.coco import COCOEvaluator, coco_eval_from_lists
 from yololite_tpu_torch.eval.confusion import create_confusion_matrix
 from yololite_tpu_torch.eval.prf1 import build_curves_from_coco
+from yololite_tpu_torch.ops.masks import rle_area, rle_encode_np
 
 
 def dets_to_coco(det_batch: Dict[str, np.ndarray], first_img_id: int,
-                 nvalid: int, add_one: bool = True) -> List[dict]:
-    """Fixed-shape NMS outputs -> COCO det dicts (xywh, 1-based category)."""
-    if "masks" in det_batch:
-        raise NotImplementedError("segmentation detections: ROADMAP Queue 1 item 9")
+                 nvalid: int, add_one: bool = True,
+                 mask_size: Optional[int] = None) -> List[dict]:
+    """Fixed-shape NMS outputs -> COCO det dicts (xywh, 1-based category).
+
+    With "masks" (prototype-resolution probabilities) each det carries its
+    mask: upsampled to `mask_size` and stored as RLE under "segmentation",
+    or, with no `mask_size`, the binary proto-res mask under "mask"."""
     out = []
     boxes = np.asarray(det_batch["boxes"])
     scores = np.asarray(det_batch["scores"])
     classes = np.asarray(det_batch["classes"])
     valid = np.asarray(det_batch["valid"])
+    masks = np.asarray(det_batch["masks"]) if "masks" in det_batch else None
     for b in range(min(len(boxes), nvalid)):
         for i in np.nonzero(valid[b])[0]:
             x1, y1, x2, y2 = [float(v) for v in boxes[b][i]]
-            out.append({
+            d = {
                 "image_id": int(first_img_id + b),
                 "category_id": int(classes[b][i]) + (1 if add_one else 0),
                 "bbox": [x1, y1, max(0.0, x2 - x1), max(0.0, y2 - y1)],
                 "score": float(scores[b][i]),
-            })
+            }
+            if masks is not None:
+                if mask_size is not None:
+                    up = resize_f32(masks[b][i], int(mask_size), int(mask_size))
+                    d["segmentation"] = rle_encode_np(up > 0.5)
+                else:
+                    d["mask"] = masks[b][i] > 0.5
+            out.append(d)
     return out
+
+
+def unpack_masks(packed: np.ndarray) -> np.ndarray:
+    """Masks bit-packed along W [..., Hp, ceil(Wp/8)] -> {0,1} uint8
+    [..., Hp, Wp]; the width is Hp (square prototypes)."""
+    return np.unpackbits(packed, axis=-1, count=packed.shape[-2])
 
 
 def gts_to_coco(batch: Dict[str, np.ndarray], first_img_id: int, nvalid: int,
                 img_size: int, ann_id_start: int):
-    """Padded GT batch -> (coco images, coco anns, next_ann_id)."""
-    if "masks" in batch or "masks_packed" in batch:
-        raise NotImplementedError("segmentation ground truth: ROADMAP Queue 1 item 9")
+    """Padded GT batch -> (coco images, coco anns, next_ann_id).
+
+    Segmentation batches attach each GT's mask: the dataset's
+    full-resolution RLE ("gt_rles", area from the RLE) when present, else
+    the proto-res binary mask (from "masks" or "masks_packed")."""
     images, anns = [], []
     ann_id = ann_id_start
     boxes = np.asarray(batch["boxes"])
     labels = np.asarray(batch["labels"])
     mask = np.asarray(batch["mask"])
+    if "masks" in batch:
+        gt_masks = np.asarray(batch["masks"])
+    elif "masks_packed" in batch:
+        gt_masks = unpack_masks(np.asarray(batch["masks_packed"]))
+    else:
+        gt_masks = None
+    gt_rles = batch.get("gt_rles")
     for b in range(min(len(boxes), nvalid)):
         img_id = int(first_img_id + b)
         images.append({"id": img_id, "file_name": f"val_{img_id}.jpg",
@@ -63,9 +94,15 @@ def gts_to_coco(batch: Dict[str, np.ndarray], first_img_id: int, nvalid: int,
         for i in np.nonzero(mask[b])[0]:
             x1, y1, x2, y2 = [float(v) for v in boxes[b][i]]
             w, h = max(0.0, x2 - x1), max(0.0, y2 - y1)
-            anns.append({"id": ann_id, "image_id": img_id,
-                         "category_id": int(labels[b][i]) + 1,
-                         "bbox": [x1, y1, w, h], "area": float(w * h), "iscrowd": 0})
+            a = {"id": ann_id, "image_id": img_id,
+                 "category_id": int(labels[b][i]) + 1,
+                 "bbox": [x1, y1, w, h], "area": float(w * h), "iscrowd": 0}
+            if gt_rles is not None and i < len(gt_rles[b]):
+                a["segmentation"] = gt_rles[b][i]
+                a["area"] = float(rle_area(gt_rles[b][i]))
+            elif gt_masks is not None:
+                a["mask"] = gt_masks[b][i] > 0
+            anns.append(a)
             ann_id += 1
     return images, anns, ann_id
 
@@ -157,10 +194,17 @@ def evaluate_model(trainer, variables, val_loader, log_dir: str, num_classes: in
         coco_images += imgs
         coco_anns += anns
         coco_dets += dets_to_coco({k: v.cpu().numpy() for k, v in dets.items()},
-                                  img_id, nvalid)
+                                  img_id, nvalid, mask_size=img_size)
         img_id += nvalid
 
     stats = coco_eval_from_lists(coco_images, coco_anns, coco_dets, num_classes=num_classes)
+    # instance-segmentation mAP (mask IoU at image resolution) when both sides
+    # carry masks
+    has = lambda items: any("segmentation" in x or "mask" in x for x in items)
+    segm_stats = None
+    if has(coco_dets) and has(coco_anns):
+        segm_stats = COCOEvaluator(num_classes, iou_type="segm").evaluate(
+            coco_images, coco_anns, coco_dets)
     curves = build_curves_from_coco(coco_images, coco_anns, coco_dets, out_dir=log_dir)
     create_confusion_matrix(coco_anns, coco_dets, num_classes,
                             conf=float(curves.get("best_conf", 0.25) or 0.25),
@@ -182,6 +226,8 @@ def evaluate_model(trainer, variables, val_loader, log_dir: str, num_classes: in
         "ms_per_img": jsonable(ms_per_img),
         "ms_per_img_cpu": jsonable(ms_per_img_cpu),
     }
+    if segm_stats is not None:
+        results["coco_segm"] = segm_stats
     with open(os.path.join(log_dir, "eval_results.json"), "w") as f:
         json.dump(results, f, indent=2)
     return results

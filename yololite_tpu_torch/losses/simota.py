@@ -23,8 +23,13 @@ lower index first among equal values, so top-k here is a stable descending
 sort and a slice (`torch.topk` promises no order among ties); `argmin` and
 `argmax` take the first index, as torch's do. The assignment is detached.
 The loss block's `approx_topk` (JAX's TPU-only `lax.approx_max_k`, exact on
-the CPU) and the mask-loss keys are not read: the port always takes the
-exact top-k, and the mask loss is ROADMAP Queue 1 item 9.
+the CPU) is not read: the port always takes the exact top-k.
+
+With prototypes and GT masks (segmentation) a YOLACT mask loss is added,
+`lambda_mask` x the per-image mean over at most `max_pos_masks` positives
+(the first ones by anchor index, as `lax.top_k` picks among ties) of the
+BCE of the assembled mask logits against the GT mask, cropped to the GT box
+and normalized by the crop's area; images without positives add 0.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 from yololite_tpu_torch.ops.anchors import make_anchors
 from yololite_tpu_torch.ops.boxes import bbox_ciou, box_iou_matrix
 from yololite_tpu_torch.ops.decode import decode_flat, flatten_levels
+from yololite_tpu_torch.ops.masks import box_crop
 
 BIG = 1e9
 
@@ -62,6 +68,9 @@ class LossConfig:
     ar_prior_w: float = 0.10
     iou_cost_w: float = 3.0
     center_cost_w: float = 0.5
+    # instance segmentation: the YOLACT mask loss
+    lambda_mask: float = 6.125
+    max_pos_masks: int = 64   # positives with a mask loss per image, at most
 
     @classmethod
     def from_config(cls, cfg: dict) -> "LossConfig":
@@ -90,6 +99,8 @@ class LossConfig:
             ar_prior_w=float(lo.get("ar_prior_w", 0.10)),
             iou_cost_w=float(lo.get("iou_cost_w", 3.0)),
             center_cost_w=float(lo.get("center_cost_w", 0.5)),
+            lambda_mask=float(lo.get("lambda_mask", 6.125)),
+            max_pos_masks=int(lo.get("max_pos_masks", 64)),
         )
 
 
@@ -258,13 +269,39 @@ def losses(cfg: LossConfig, decoded: Dict[str, torch.Tensor], gt_xyxy, gt_labels
             pos_mask, matched_gt)
 
 
+def mask_losses(cfg: LossConfig, coef, protos, gt_xyxy, gt_masks, pos_mask,
+                matched_gt) -> torch.Tensor:
+    """Per-image mask losses [B] (`_mask_loss_single` of the JAX package on
+    each image): coef [B,N,K] tanh coefficients, protos [B,Hp,Wp,K], gt_masks
+    [B,M,Hp,Wp] in {0,1}, pos_mask / matched_gt [B,N]."""
+    B, N, K = coef.shape
+    _, hp, wp, _ = protos.shape
+    vals, pick = _topk_desc(pos_mask.to(torch.float32), min(cfg.max_pos_masks, N))
+    sel_valid = vals > 0.0                                          # [B,P]
+    P = pick.shape[1]
+    gt_idx = torch.gather(matched_gt, 1, pick)                      # [B,P]
+    boxes = torch.gather(gt_xyxy, 1, gt_idx[..., None].expand(B, P, 4))
+    target = torch.gather(gt_masks.to(torch.float32), 1,
+                          gt_idx[..., None, None].expand(B, P, hp, wp))
+    c = torch.gather(coef.to(torch.float32), 1, pick[..., None].expand(B, P, K))
+    logits = torch.bmm(c, protos.to(torch.float32).reshape(B, hp * wp, K)
+                       .transpose(1, 2)).reshape(B, P, hp, wp)
+    bce = _bce_logits(logits, target)
+    crop = box_crop(boxes, hp, wp, float(cfg.img_size)).to(torch.float32)
+    per_pos = (bce * crop).sum((2, 3)) / torch.clamp(crop.sum((2, 3)), min=1.0)
+    n_sel = sel_valid.sum(-1)
+    return (torch.where(sel_valid, per_pos, torch.zeros_like(per_pos)).sum(-1)
+            / torch.clamp(n_sel, min=1))
+
+
 class SimOTALoss:
     """Callable loss over raw per-level predictions + padded targets.
 
     targets: dict with
       boxes  [B, M, 4] xyxy pixels (padded rows arbitrary),
       labels [B, M] int,
-      mask   [B, M] bool (True for real GTs).
+      mask   [B, M] bool (True for real GTs),
+      masks  [B, M, Hp, Wp] GT masks in {0,1} (segmentation, with `protos`).
     """
 
     def __init__(self, cfg: LossConfig):
@@ -280,8 +317,6 @@ class SimOTALoss:
         `return_assignment` the metrics also hold `pos_mask` and
         `matched_gt` [B, N]."""
         cfg = self.cfg
-        if protos is not None or "masks" in targets:
-            raise NotImplementedError("segmentation mask loss: ROADMAP Queue 1 item 9")
         if img_size is not None and int(img_size) != cfg.img_size:
             cfg = dataclasses.replace(cfg, img_size=int(img_size))
         flat, shapes = flatten_levels(preds_levels)
@@ -310,6 +345,13 @@ class SimOTALoss:
         metrics = {"box": loss_box, "obj": loss_obj, "cls": loss_cls,
                    "pos": has_pos.sum() / max(B, 1),   # reference quirk: images w/ pos
                    "npos": npos.sum()}
+        if protos is not None and "masks" in targets:
+            lm = mask_losses(cfg, decoded["coef"], protos, gt_boxes, targets["masks"],
+                             pos_mask, matched_gt)
+            # per-image means summed over the batch, 0 for images without positives
+            loss_mask = cfg.lambda_mask * (lm * has_pos).sum()
+            total = total + loss_mask
+            metrics["mask"] = loss_mask
         if return_assignment:
             metrics["pos_mask"], metrics["matched_gt"] = pos_mask, matched_gt
         return total, metrics

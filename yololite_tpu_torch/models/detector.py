@@ -32,43 +32,70 @@ def pick_out_indices(feature_info: List[Dict[str, int]], take: int = 3):
 
 class DetectHead(nn.Module):
     """Decoupled head: DW trunk + 1x1 box/obj/cls, or one `fused_out` 1x1 conv
-    whose output channels are box|obj|cls (deploy/fuse_head.py)."""
+    whose output channels are box|obj|cls (deploy/fuse_head.py).
+
+    With num_prototypes K > 0 the head also emits tanh mask coefficients
+    (`mcoef`, after cls in the fused order), and the per-level layout
+    becomes [B, A, S, S, 5 + C + K]."""
 
     def __init__(self, num_anchors: int, num_classes: int, fpn_channels: int,
-                 head_depth: int = 1, p_obj: float = 0.01, fused: bool = False):
+                 head_depth: int = 1, p_obj: float = 0.01, fused: bool = False,
+                 num_prototypes: int = 0):
         super().__init__()
-        self.A, self.C = num_anchors, num_classes
+        self.A, self.C, self.K = num_anchors, num_classes, num_prototypes
         self.head_depth, self.fused = head_depth, fused
         for i in range(head_depth):
             self.add_module(f"DWConvBlock_{i}",
                             DWConvBlock(fpn_channels, fpn_channels, n=1))
-        A, C = num_anchors, num_classes
-        # bias init values of the split heads (reference make_head)
+        A, C, K = num_anchors, num_classes, num_prototypes
+        # bias init values of the split heads (reference make_head; mcoef 0)
         self.bias_init = {"box": 0.0,
                           "obj": -math.log((1.0 - p_obj) / p_obj),
                           "cls": (-math.log(C)) if C > 1 else 0.0}
         if fused:
-            self.fused_out = conv2d(fpn_channels, A * (5 + C), 1)
+            self.fused_out = conv2d(fpn_channels, A * (5 + C + K), 1)
         else:
             self.box = conv2d(fpn_channels, A * 4, 1)
             self.obj = conv2d(fpn_channels, A * 1, 1)
             self.cls = conv2d(fpn_channels, A * C, 1)
+            if K > 0:
+                self.mcoef = conv2d(fpn_channels, A * K, 1)
 
     def forward(self, p):
         for i in range(self.head_depth):
             p = getattr(self, f"DWConvBlock_{i}")(p)
-        A, C = self.A, self.C
+        A, C, K = self.A, self.C, self.K
         if self.fused:
             out = self.fused_out(p).permute(0, 2, 3, 1)              # [B,S,S,tot]
-            box, obj, cls = out[..., :A * 4], out[..., A * 4:A * 5], out[..., A * 5:]
+            box, obj = out[..., :A * 4], out[..., A * 4:A * 5]
+            cls, coef = out[..., A * 5:A * (5 + C)], out[..., A * (5 + C):]
         else:
             box, obj, cls = (m(p).permute(0, 2, 3, 1)
                              for m in (self.box, self.obj, self.cls))
+            coef = self.mcoef(p).permute(0, 2, 3, 1) if K > 0 else None
         B, S1, S2, _ = box.shape
-        out = torch.cat([box.reshape(B, S1, S2, A, 4),
-                         obj.reshape(B, S1, S2, A, 1),
-                         cls.reshape(B, S1, S2, A, C)], dim=-1)     # [B,S,S,A,5+C]
-        return out.permute(0, 3, 1, 2, 4)                           # [B,A,S,S,5+C]
+        parts = [box.reshape(B, S1, S2, A, 4), obj.reshape(B, S1, S2, A, 1),
+                 cls.reshape(B, S1, S2, A, C)]
+        if K > 0:
+            parts.append(torch.tanh(coef.reshape(B, S1, S2, A, K)))
+        out = torch.cat(parts, dim=-1)                              # [B,S,S,A,E]
+        return out.permute(0, 3, 1, 2, 4)                           # [B,A,S,S,E]
+
+
+class ProtoNet(nn.Module):
+    """Mask prototypes from P3: ConvBNAct -> nearest x2 -> ConvBNAct -> 1x1,
+    [B, C, S3, S3] -> [B, K, 2 S3, 2 S3] (stride 4)."""
+
+    def __init__(self, fpn_channels: int, num_prototypes: int = 32):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(fpn_channels, fpn_channels, 3, 1, act="silu")
+        self.ConvBNAct_1 = ConvBNAct(fpn_channels, fpn_channels, 3, 1, act="silu")
+        self.proto_out = conv2d(fpn_channels, num_prototypes, 1)
+
+    def forward(self, p3):
+        h = self.ConvBNAct_0(p3)
+        h = upsample_nearest_to(h, (p3.shape[2] * 2, p3.shape[3] * 2))
+        return self.proto_out(self.ConvBNAct_1(h))
 
 
 class YOLOLiteMS(nn.Module):
@@ -82,14 +109,14 @@ class YOLOLiteMS(nn.Module):
                  cpu_variant: bool = False, with_masks: bool = False,
                  num_prototypes: int = 32, fused_head: bool = False):
         super().__init__()
-        if with_masks:
-            raise NotImplementedError("segmentation: ROADMAP Queue 1 item 9")
         self.backbone_name = backbone
         self.num_classes = num_classes
         self.num_anchors_per_level = tuple(num_anchors_per_level)
         self.use_p6, self.use_p2 = use_p6, use_p2
         self.cpu_variant = cpu_variant
         self.fused_head = fused_head
+        self.with_masks = with_masks
+        self.num_prototypes = num_prototypes
         self.scaled_fpn_channels = int(fpn_channels * width_multiple)
         self.smooth_depth = max(1, round(2 * depth_multiple))
         self.config = dict(backbone=backbone, num_classes=num_classes,
@@ -98,7 +125,8 @@ class YOLOLiteMS(nn.Module):
                            depth_multiple=depth_multiple,
                            width_multiple=width_multiple, head_depth=head_depth,
                            use_p6=use_p6, use_p2=use_p2, cpu_variant=cpu_variant,
-                           num_prototypes=num_prototypes, fused_head=fused_head)
+                           with_masks=with_masks, num_prototypes=num_prototypes,
+                           fused_head=fused_head)
 
         self.backbone, info = build_backbone(backbone)
         self.out_idx, _, in_chs = pick_out_indices(info, 4 if use_p2 else 3)
@@ -108,13 +136,17 @@ class YOLOLiteMS(nn.Module):
             self.add_module(f"lateral{lv}", conv2d(c_in, ch, 1))
             self.add_module(f"smooth{lv}", self._smooth())
         anchors = self.get_num_anchors_per_level()
+        K = num_prototypes if with_masks else 0
         for li, lv in enumerate(levels + (["6"] if use_p6 else [])):
             self.add_module(f"head{lv}", DetectHead(anchors[li], num_classes, ch,
-                                                    head_depth, fused=fused_head))
+                                                    head_depth, fused=fused_head,
+                                                    num_prototypes=K))
         # Registered even without P6 so checkpoints round-trip (the reference
         # builds them unconditionally); computed only when use_p6 is set.
         self.p6_down = ConvBNAct(ch, ch, 3, 2, act="relu" if cpu_variant else "silu")
         self.smooth6 = self._smooth()
+        if with_masks:
+            self.protonet = ProtoNet(ch, num_prototypes)
 
     # ---- static self-description ----------------------------------------- #
     @property
@@ -152,7 +184,9 @@ class YOLOLiteMS(nn.Module):
 
     # ---------------------------------------------------------------------- #
     def forward(self, x):
-        """x: NCHW image tensor -> list of per-level [B,A,S,S,5+C] maps."""
+        """x: NCHW image tensor -> list of per-level [B,A,S,S,5+C(+K)] maps;
+        with masks, (that list, prototypes [B, 2 S3, 2 S3, K] NHWC as in
+        JAX)."""
         feats = self.backbone(x)
         feats = [feats[i] for i in self.out_idx]
         if self.use_p2:
@@ -177,6 +211,8 @@ class YOLOLiteMS(nn.Module):
             # JAX computes p6_down/smooth6 and discards them without use_p6,
             # so in training their BatchNorm statistics still move
             self.smooth6(self.p6_down(p5))
+        if self.with_masks:
+            return outs, self.protonet(p3).permute(0, 2, 3, 1)
         return outs
 
 

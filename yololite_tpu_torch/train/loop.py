@@ -18,10 +18,13 @@
     `save_every`;
   - the final `evaluate_model` (conf 0.001) on the best checkpoint.
 
+Segmentation (`model.with_masks`, or `task: segment`) trains the mask loss
+on polygon datasets; per-epoch COCO stays bbox-only (the masks are dropped,
+as the JAX loop drops them), and the final `evaluate_model` adds segm mAP.
+
 Runs on one device (`device`, the card by default). Not ported, each raising
-`NotImplementedError` with its ROADMAP item: segmentation (9), the device
-mesh / multi-host / data_parallel > 1 (12), the orbax checkpoint backend
-(8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
+`NotImplementedError` with its ROADMAP item: the device mesh / multi-host /
+data_parallel > 1 (12), the orbax checkpoint backend (8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
 skipped with a message, as the JAX loop does when drawing fails.
 """
 
@@ -96,10 +99,6 @@ def _save_loss_curve(train_losses, val_losses, path):
 
 def _check_supported(config: Dict[str, Any]) -> None:
     tr = config["training"]
-    m = config.get("model", {}) or {}
-    if m.get("with_masks") or str(m.get("task", tr.get("task", "detect"))).lower() \
-            in ("segment", "seg"):
-        raise NotImplementedError("segmentation training: ROADMAP Queue 1 item 9")
     n_dp = int(tr.get("data_parallel") or 1)
     n_sp = int(tr.get("spatial_parallel") or 1)
     if n_dp * n_sp > 1:
@@ -146,16 +145,19 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
     cache_images = bool(tr.get("cache_images", False))
     cache_budget_mb = tr.get("cache_budget_mb")
     device_augment = bool(tr.get("device_augment", False))
+    task = str(config["model"].get("task", tr.get("task", "detect"))).lower()
+    if config["model"].get("with_masks"):
+        task = "segment"
     train_ds = YoloDataset(config["dataset"]["train_images"],
                            config["dataset"]["train_labels"], img_size=img_size,
                            is_train=True, augment=use_augment, max_boxes=max_boxes,
-                           use_resize=use_resize, cache_images=cache_images,
+                           use_resize=use_resize, task=task, cache_images=cache_images,
                            photometric=not device_augment,
                            aug_preset=str(tr.get("aug_preset", "base")),
-                           cache_budget_mb=cache_budget_mb)
+                           cache_budget_mb=cache_budget_mb, want_rles=False)
     val_ds = YoloDataset(config["dataset"]["val_images"], config["dataset"]["val_labels"],
                          img_size=img_size, is_train=False, augment=False,
-                         max_boxes=max_boxes, use_resize=use_resize,
+                         max_boxes=max_boxes, use_resize=use_resize, task=task,
                          cache_images=cache_images, cache_budget_mb=cache_budget_mb)
     num_workers = int(tr.get("num_workers", 4) or 0)
     train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True,
@@ -277,8 +279,10 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
                 imgs, anns, ann_id = gts_to_coco(batch, img_id, nvalid, img_size, ann_id)
                 coco_images += imgs
                 coco_anns += anns
-                coco_dets += dets_to_coco({k: v.cpu().numpy() for k, v in dets.items()},
-                                          img_id, nvalid)
+                # per-epoch COCO is bbox-only (segm mAP runs in the final
+                # evaluate_model): the masks stay on the device
+                coco_dets += dets_to_coco({k: v.cpu().numpy() for k, v in dets.items()
+                                           if k != "masks"}, img_id, nvalid)
                 img_id += nvalid
             avg_val = v_running / max(1, vb_count)
             scheduler.observe(avg_val)

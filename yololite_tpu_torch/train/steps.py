@@ -13,6 +13,11 @@ The eval step runs the EMA model: val loss, then decode -> scores ->
 class-aware `batched_nms` (pre-NMS top-k 1024, JAX's default), whose greedy
 suppression is the `nms_suppress` CUDA kernel on the card.
 
+A segmentation model also returns prototypes: the loss adds its mask term
+against the GT masks, which ship bit-packed along W and are unpacked on the
+device (`gt_masks_from_batch`), and `detect` assembles the masks of the
+`max_det` slots (`ops/masks.py`).
+
 The state lives in torch modules and tensors on `device`; counters are host
 integers, so nothing waits for the device but reading the metrics.
 """
@@ -34,6 +39,7 @@ from yololite_tpu_torch.data.device_augment import photometric_augment
 from yololite_tpu_torch.losses import LossConfig, SimOTALoss
 from yololite_tpu_torch.models.detector import init_weights
 from yololite_tpu_torch.ops.decode import decode_anchorfree
+from yololite_tpu_torch.ops.masks import assemble_masks_batch
 from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
 from yololite_tpu_torch.train.ema import ema_update, ema_warmup_limit
 from yololite_tpu_torch.train.optim import GroupedOptimizer
@@ -41,6 +47,7 @@ from yololite_tpu_torch.train.optim import GroupedOptimizer
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 BATCH_KEYS = ("image", "boxes", "labels", "mask")
+MASK_KEYS = ("masks", "masks_packed")
 
 
 @functools.lru_cache(maxsize=8)
@@ -57,6 +64,24 @@ def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tens
     x = images_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
     mean, std = _mean_std(x.device)
     return ((x - mean) / std).to(dtype)
+
+
+def gt_masks_from_batch(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    """GT masks [B,M,Hp,Wp] on the batch's device, or None. Seg batches ship
+    them bit-packed along W ([B,M,Hp,ceil(Wp/8)], most significant bit
+    first, as np.packbits); the width is Hp (square prototypes). A batch with
+    raw "masks" passes them through."""
+    if "masks_packed" in batch:
+        mp = batch["masks_packed"]
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=mp.device)
+        bits = (mp[..., None] >> shifts) & 1                       # [..., Wb, 8]
+        return bits.reshape(*mp.shape[:-1], -1)[..., :mp.shape[-2]]
+    return batch.get("masks")
+
+
+def split_outputs(out, with_masks: bool):
+    """The model's output -> (per-level maps, prototypes or None)."""
+    return out if with_masks else (out, None)
 
 
 @dataclasses.dataclass
@@ -87,6 +112,7 @@ class Trainer:
             self.model.to(memory_format=torch.channels_last)
         self.config = config
         self.img_size = int(tr.get("img_size", 640))
+        self.with_masks = bool(getattr(model, "with_masks", False))
         self.loss = SimOTALoss(LossConfig.from_config(config))
         self.use_ema = bool(tr.get("ema", True))
         self.ema_decay = float(tr.get("ema_decay", 0.995) or 0.995)
@@ -183,7 +209,7 @@ class Trainer:
     def put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch -> device tensors (pinned, non-blocking on the card);
         `img_valid` marks real images (padding images have id -1)."""
-        keep = {k: batch[k] for k in BATCH_KEYS}
+        keep = {k: batch[k] for k in BATCH_KEYS + MASK_KEYS if k in batch}
         if "image_id" in batch:
             keep["img_valid"] = np.asarray(batch["image_id"]) >= 0
         out = {}
@@ -203,12 +229,21 @@ class Trainer:
         if self.device_augment:
             images = photometric_augment(images, self.aug_generator(state.micro))
         x = normalize_images(images)
-        targets = {k: batch[k] for k in ("boxes", "labels", "mask")}
+        targets = self._targets(batch)
         with self._autocast():
-            outs = state.model(x)
+            outs, protos = split_outputs(state.model(x), self.with_masks)
         return self.loss([o.float() for o in outs], targets,
+                         None if protos is None else protos.float(),
                          img_size=int(batch["image"].shape[1]),
                          return_assignment=return_assignment)
+
+    @staticmethod
+    def _targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        targets = {k: batch[k] for k in ("boxes", "labels", "mask")}
+        gtm = gt_masks_from_batch(batch)
+        if gtm is not None:
+            targets["masks"] = gtm
+        return targets
 
     def aug_generator(self, micro: int) -> torch.Generator:
         """The device augmentation's generator for this micro-step, seeded
@@ -255,31 +290,39 @@ class Trainer:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def eval_forward(self, variables: nn.Module, images_u8: torch.Tensor):
+        """-> (per-level maps, prototypes or None), fp32."""
         variables.eval()
         with self._autocast():
-            outs = variables(normalize_images(images_u8))
-        return [o.float() for o in outs]
+            outs, protos = split_outputs(variables(normalize_images(images_u8)),
+                                         self.with_masks)
+        return [o.float() for o in outs], None if protos is None else protos.float()
 
     def detect(self, outs, conf_th: float, iou_th: float, max_det: int,
-               img_size: Optional[int] = None):
-        """decode -> score -> NMS, on the device."""
+               img_size: Optional[int] = None, protos: Optional[torch.Tensor] = None):
+        """decode -> score -> NMS (-> mask assembly), on the device."""
         img_size = int(img_size or self.img_size)
-        d = decode_anchorfree(outs, img_size)
+        d = decode_anchorfree(outs, img_size, num_classes=self.model.num_classes
+                              if protos is not None else None)
         scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
         boxes, s, c, v, idx = batched_nms(d["box"], scores, classes, iou_th=iou_th,
                                           conf_th=conf_th, max_det=max_det)
-        return {"boxes": boxes, "scores": s, "classes": c, "valid": v, "idx": idx}
+        dets = {"boxes": boxes, "scores": s, "classes": c, "valid": v, "idx": idx}
+        if protos is not None:
+            coef = torch.gather(d["coef"], 1, idx[..., None].long().expand(
+                -1, -1, d["coef"].shape[-1]))
+            dets["masks"] = assemble_masks_batch(protos, coef, boxes, float(img_size))
+        return dets
 
     @torch.no_grad()
     def eval_step(self, variables: nn.Module, batch: Dict[str, torch.Tensor],
                   conf_th: float = 0.001, iou_th: float = 0.65, max_det: int = 300):
-        """EMA-model forward -> val loss + decoded, NMS'd detections."""
-        outs = self.eval_forward(variables, batch["image"])
-        targets = {k: batch[k] for k in ("boxes", "labels", "mask")}
+        """EMA-model forward -> val loss + decoded, NMS'd detections (and
+        masks for a segmentation model)."""
+        outs, protos = self.eval_forward(variables, batch["image"])
         img_size = int(batch["image"].shape[1])
-        total, metrics = self.loss(outs, targets, img_size=img_size,
+        total, metrics = self.loss(outs, self._targets(batch), protos, img_size=img_size,
                                    img_valid=batch.get("img_valid"))
-        dets = self.detect(outs, conf_th, iou_th, max_det, img_size)
+        dets = self.detect(outs, conf_th, iou_th, max_det, img_size, protos)
         metrics = dict(metrics)
         metrics["total"] = total
         return metrics, dets
