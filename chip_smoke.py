@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   a CUDA card must be present; prints `nvidia-smi` name, power limit
-  2. build    compiles every CUDA source of the serving path (build/kernels/)
+  2. build    compiles every CUDA source of the serving path and the host
+              image codec (build/kernels/)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the serving and training paths' shapes and beyond
               (nms_suppress: B=128 at k = 256, 512, 1024, 2048; B=1 at
@@ -59,6 +60,16 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               mosaic and cutmix counted, finite mask loss, falling val loss,
               coco_segm, launches equal to the val batches), an fp32
               forward+loss card vs CPU, the step timed and split
+ 11. codecs   the host image codecs (csrc/imgcodec.cpp, built in phase 2 by
+              this machine's C++ compiler): every fixture under
+              tests/data/codecs/ decodes to the SHA-256 of cv2.imread's
+              output recorded in its manifest; host decode ms per 640x480
+              image (baseline and progressive JPEG, PNG) on 1 and 8
+              threads; the loader's ms per b8 batch on a JPEG copy of the
+              set against the PNG set; edge_n trained 1 epoch at 640 b8 by
+              the recipe's defaults on the JPEG copy (nms_suppress launches
+              counted on validation); YoloLite.predict on a JPEG path and a
+              JPEG folder, boxes equal to the same frames as arrays
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -67,12 +78,14 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import os
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -88,6 +101,7 @@ from yololite_tpu_torch.config.config import MODEL_DIRS, load_configs  # noqa: E
 from yololite_tpu_torch.convert import load_flax, to_flax  # noqa: E402
 from yololite_tpu_torch.csrc import build as kbuild  # noqa: E402
 from yololite_tpu_torch.data import augment as host_aug  # noqa: E402
+from yololite_tpu_torch.data import codecs as host_codecs  # noqa: E402
 from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
 from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
@@ -219,6 +233,8 @@ SEG_MIXES = ("mosaic_segment", "cutmix_segment")
 SEG_TRAIN_OVERRIDES = dict(TRAIN_OVERRIDES, save_optimizer=False)
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
+HOST_LIBS = ["imgcodec"]      # host C++ (csrc/imgcodec.cpp): the image codecs, no kernel
+CODEC_FIXTURES = os.path.join(ROOT, "tests", "data", "codecs")
 
 
 def log(msg=""):
@@ -263,10 +279,13 @@ def phase_device() -> str:
 
 
 def phase_build():
+    """Every CUDA kernel (nvcc) and the host image codec (the host C++
+    compiler), one compiler process per source, started together."""
     t0 = time.perf_counter()
-    secs = kbuild.build([k["name"] for k in KERNELS])
+    secs = kbuild.build([k["name"] for k in KERNELS] + HOST_LIBS)
     for name, s in secs.items():
-        log(f"build {name}: {s:.2f} s")
+        log(f"build {name}: {s:.2f} s" if s else f"build {name}: cached "
+            f"({kbuild.library_path(name).name} was already built)")
         for line in kbuild.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {line.strip()}")
@@ -758,10 +777,166 @@ def write_png(path: str, rgb: np.ndarray) -> None:
                 + _png_chunk(b"IEND", b""))
 
 
+# Baseline JPEG encoder (test scaffolding: the codec phase and the tests need
+# JPEG files on a machine without cv2). The IJG quality-scaled standard
+# quantization tables and the standard Huffman tables of JPEG Annex K,
+# 4:2:0 sampling, an orthonormal float DCT.
+_JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
+    51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_JPEG_QBASE = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24,
+              40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103,
+              77, 24, 35, 55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72,
+              92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99,
+              99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32))
+_JPEG_HUFF = {   # (class, id): (counts of lengths 1-16, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d], [
+        1, 2, 3, 0, 4, 17, 5, 18, 33, 49, 65, 6, 19, 81, 97, 7, 34, 113, 20, 50, 129, 145,
+        161, 8, 35, 66, 177, 193, 21, 82, 209, 240, 36, 51, 98, 114, 130, 9, 10, 22, 23, 24,
+        25, 26, 37, 38, 39, 40, 41, 42, 52, 53, 54, 55, 56, 57, 58, 67, 68, 69, 70, 71, 72,
+        73, 74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102, 103, 104, 105, 106, 115,
+        116, 117, 118, 119, 120, 121, 122, 131, 132, 133, 134, 135, 136, 137, 138, 146, 147,
+        148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169, 170, 178,
+        179, 180, 181, 182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200, 201, 202,
+        210, 211, 212, 213, 214, 215, 216, 217, 218, 225, 226, 227, 228, 229, 230, 231, 232,
+        233, 234, 241, 242, 243, 244, 245, 246, 247, 248, 249, 250]),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
+        0, 1, 2, 3, 17, 4, 5, 33, 49, 6, 18, 65, 81, 7, 97, 113, 19, 34, 50, 129, 8, 20, 66,
+        145, 161, 177, 193, 9, 35, 51, 82, 240, 21, 98, 114, 209, 10, 22, 36, 52, 225, 37,
+        241, 23, 24, 25, 26, 38, 39, 40, 41, 42, 53, 54, 55, 56, 57, 58, 67, 68, 69, 70, 71,
+        72, 73, 74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102, 103, 104, 105, 106,
+        115, 116, 117, 118, 119, 120, 121, 122, 130, 131, 132, 133, 134, 135, 136, 137, 138,
+        146, 147, 148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169,
+        170, 178, 179, 180, 181, 182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200,
+        201, 202, 210, 211, 212, 213, 214, 215, 216, 217, 218, 226, 227, 228, 229, 230, 231,
+        232, 233, 234, 242, 243, 244, 245, 246, 247, 248, 249, 250]),
+}
+
+
+def _jpeg_codes(counts, symbols):
+    """Canonical Huffman codes: symbol -> (code, length)."""
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            codes[symbols[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+def _jpeg_blocks(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """[H, W] samples (multiples of 8) -> quantized coefficients [N, 64] in
+    zigzag order, blocks in raster order."""
+    n = np.arange(8)
+    c = np.sqrt(np.where(n == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
+        (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    h, w = plane.shape
+    blk = (plane.astype(np.float64) - 128).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+    coef = np.einsum("ux,abxy,vy->abuv", c, blk, c).reshape(-1, 64)
+    return np.round(coef / q.reshape(1, 64)).astype(np.int32)[:, _JPEG_ZIGZAG]
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 90) -> None:
+    """A baseline 4:2:0 JPEG of an RGB uint8 [H, W, 3] image."""
+    h, w, _ = rgb.shape
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qt = [np.clip((b * scale + 50) // 100, 1, 255) for b in _JPEG_QBASE]
+    x = rgb.astype(np.float64)
+    ycc = np.stack([0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+                    -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 128,
+                    0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 128], -1)
+    H, W = -(-h // 16) * 16, -(-w // 16) * 16
+    ycc = np.pad(ycc, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
+    luma = _jpeg_blocks(np.clip(np.round(ycc[..., 0]), 0, 255), qt[0])
+    chroma = [_jpeg_blocks(np.clip(np.round(ycc[..., k].reshape(H // 2, 2, W // 2, 2)
+                                            .mean((1, 3))), 0, 255), qt[1]) for k in (1, 2)]
+    # MCU order: four luma blocks (2x2), then Cb, then Cr
+    my, mx = H // 16, W // 16
+    luma = luma.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
+    blocks = np.concatenate([luma, chroma[0][:, None], chroma[1][:, None]], 1)   # [MCUs, 6, 64]
+    comp = np.array([0, 0, 0, 0, 1, 2])
+    dc = blocks[..., 0]
+    prev = np.zeros_like(dc)
+    for k in range(3):                  # DC differences within each component
+        seq = dc[:, comp == k].reshape(-1)
+        prev[:, comp == k] = np.concatenate([[0], seq[:-1]]).reshape(-1, int((comp == k).sum()))
+    diff = (dc - prev).reshape(-1)
+    # every symbol as (code with its value bits, length, sort key): the DC
+    # first, then each nonzero AC after its ZRLs, then EOB, block by block
+    tab = {}
+    for key, v in _JPEG_HUFF.items():
+        codes_of = _jpeg_codes(*v)
+        tab[key] = (np.array([codes_of.get(i, (0, 0))[0] for i in range(256)], np.int64),
+                    np.array([codes_of.get(i, (0, 0))[1] for i in range(256)], np.int64))
+    flat = blocks.reshape(-1, 64).astype(np.int64)
+    tid = (comp[np.arange(len(flat)) % 6] != 0).astype(np.int64)
+
+    def size_of(v):
+        return (np.abs(v)[:, None] >= (1 << np.arange(16))[None, :]).sum(1)
+
+    def symbols(cls, t, sym, value, size):
+        code = np.where(t == 0, tab[(cls, 0)][0][sym], tab[(cls, 1)][0][sym])
+        length = np.where(t == 0, tab[(cls, 0)][1][sym], tab[(cls, 1)][1][sym])
+        bits = np.where(value >= 0, value, value + (1 << size) - 1)
+        return (code << size) | bits, length + size
+
+    parts = []
+    d = diff.astype(np.int64)
+    sz = size_of(d)
+    parts.append((*symbols(0, tid, sz, d, sz), np.arange(len(flat)) * 300))
+    b, k = np.nonzero(flat[:, 1:])
+    k = k + 1
+    prevk = np.where(np.r_[False, b[1:] == b[:-1]], np.r_[0, k[:-1]], 0)
+    run = k - prevk - 1
+    v = flat[b, k]
+    sz = size_of(v)
+    parts.append((*symbols(1, tid[b], ((run % 16) << 4) | sz, v, sz), b * 300 + 4 * k))
+    z = run // 16
+    owner = np.repeat(np.arange(len(z)), z)
+    j = np.arange(len(owner)) - np.repeat(np.cumsum(z) - z, z) + 1
+    zero = np.zeros(len(owner), np.int64)
+    parts.append((*symbols(1, tid[b[owner]], zero + 0xF0, zero, zero),
+                  b[owner] * 300 + 4 * k[owner] - j))
+    lastk = np.zeros(len(flat), np.int64)
+    lastk[b] = k
+    eob = np.nonzero(lastk < 63)[0]
+    zero = np.zeros(len(eob), np.int64)
+    parts.append((*symbols(1, tid[eob], zero, zero, zero), eob * 300 + 256))
+    order = np.argsort(np.concatenate([p[2] for p in parts]), kind="stable")
+    codes = np.concatenate([p[0] for p in parts])[order]
+    lens = np.concatenate([p[1] for p in parts])[order]
+    ends = np.cumsum(lens)
+    owner = np.repeat(np.arange(len(lens)), lens)
+    shift = ends[owner] - 1 - np.arange(int(ends[-1]))
+    bits = ((codes[owner] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).astype(np.uint8).tobytes()
+
+    def seg(marker, body):
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for i, t in enumerate(qt):
+        out.append(seg(0xDB, bytes([i]) + t.astype(np.uint8)[_JPEG_ZIGZAG].tobytes()))
+    out.append(seg(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1,
+                                                                    3, 0x11, 1])))
+    for (cls, tid), (counts, symbols) in _JPEG_HUFF.items():
+        out.append(seg(0xC4, bytes([cls << 4 | tid] + counts + symbols)))
+    out.append(seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    with open(path, "wb") as f:
+        f.write(b"".join(out) + data + b"\xff\xd9")
+
+
 def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
-                   h: int = 480, n_cls: int = 3, seed: int = 0) -> str:
+                   h: int = 480, n_cls: int = 3, seed: int = 0, fmt: str = "png") -> str:
     """A learnable detection set from a seed: 1-4 coloured rectangles (one
-    colour per class) on dark noise, PNG images, YOLO txt labels and a
+    colour per class) on dark noise, PNG images (or, with fmt="jpg", the same
+    pixels as baseline JPEGs of `write_jpeg`), YOLO txt labels and a
     data.yaml. Returns the data.yaml path."""
     rng = np.random.RandomState(seed)
     colors = [(220, 30, 30), (30, 220, 30), (30, 30, 220)]
@@ -779,7 +954,8 @@ def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
                 canvas[y1:y1 + bh, x1:x1 + bw] = colors[cls]
                 lines.append(f"{cls} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
                              f"{bw / w:.6f} {bh / h:.6f}")
-            write_png(os.path.join(root, split, "images", f"{i:04d}.png"), canvas)
+            writer = write_jpeg if fmt == "jpg" else write_png
+            writer(os.path.join(root, split, "images", f"{i:04d}.{fmt}"), canvas)
             with open(os.path.join(root, split, "labels", f"{i:04d}.txt"), "w") as f:
                 f.write("\n".join(lines) + "\n")
     data_yaml = os.path.join(root, "data.yaml")
@@ -1750,6 +1926,150 @@ def phase_seg(card: str, tmp: str):
     return out
 
 
+# --------------------------------------------------------------------------- #
+def _cpu_name() -> str:
+    """The host CPU's model name (the codecs run there), from `lscpu` or
+    /proc/cpuinfo, with the cores this process may use."""
+    cores = len(os.sched_getaffinity(0))
+    sources = []
+    try:
+        sources.append(subprocess.run(["lscpu"], capture_output=True, text=True).stdout)
+    except OSError:
+        pass
+    try:
+        with open("/proc/cpuinfo") as f:
+            sources.append(f.read())
+    except OSError:
+        pass
+    for text in sources:
+        for line in text.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip().lower() in ("model name", "cpu model", "hardware") and value.strip():
+                return f"{value.strip()}, {cores} cores"
+    import platform
+    return f"{platform.machine()} CPU (model name not exposed), {cores} cores"
+
+
+def _decode_ms(path: str, threads: int, n: int = 48) -> float:
+    """Host ms per image of imread_bgr(path), n reads over `threads` threads."""
+    host_codecs.imread_bgr(path)
+
+    def work(k):
+        for _ in range(k, n, threads):
+            host_codecs.imread_bgr(path)
+    pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_codecs(card: str, png_data: str, tmp: str):
+    """The host image codecs on the card's machine: (a) the library built
+    there by its own compiler (phase_build); (b) every committed fixture
+    decoded to the SHA-256 that cv2.imread gave when it was written; (c) host
+    decode ms per 640x480 image on 1 and 8 threads and the loader's ms per
+    b8 batch on a JPEG copy of the synthetic set against the PNG set; (d)
+    edge_n trained one epoch at 640 b8 by the recipe's defaults on the JPEG
+    copy, validation through nms_suppress; (e) YoloLite.predict on a JPEG
+    path and a JPEG folder, boxes equal to the same frames passed as arrays."""
+    cpu = _cpu_name()
+    out = {"cpu": cpu, "library": str(kbuild.library_path("imgcodec"))}
+    cxx = kbuild.cxx_path()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+    log(f"codecs: {out['library']} built by {cxx} ({version.splitlines()[0]}) on {cpu}")
+    # (b) fixtures against cv2's manifest
+    with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in sorted(manifest.items()):
+        img = host_codecs.imread_bgr(os.path.join(CODEC_FIXTURES, name))
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise AssertionError(f"codecs: {name} decodes to {img.shape} {digest[:16]}, "
+                                 f"cv2.imread gave {entry['shape']} {entry['sha256'][:16]}")
+    out["fixtures"] = len(manifest)
+    log(f"codecs: {len(manifest)} fixtures decode to cv2.imread's SHA-256 "
+        f"({', '.join(sorted(manifest))})")
+    # (c) host decode and the loader
+    frame = np.asarray(host_codecs.imread_bgr(
+        os.path.join(CODEC_FIXTURES, "progressive_640x480.jpg"))[..., ::-1])
+    files = {"baseline JPEG 4:2:0 q90": os.path.join(tmp, "frame.jpg"),
+             "progressive JPEG q75": os.path.join(CODEC_FIXTURES, "progressive_640x480.jpg"),
+             "PNG": os.path.join(tmp, "frame.png")}
+    write_jpeg(files["baseline JPEG 4:2:0 q90"], frame, quality=90)
+    write_png(files["PNG"], frame)
+    out["decode_ms"] = {}
+    for kind, path in files.items():
+        ms = {t: _decode_ms(path, t) for t in (1, 8)}
+        out["decode_ms"][kind] = ms
+        log(f"codecs: host decode 640x480 {kind} ({os.path.getsize(path)} bytes): "
+            f"{ms[1]:.3f} ms/image on 1 thread, {ms[8]:.3f} on 8 [{cpu}; {card}]")
+    t0 = time.perf_counter()
+    jpg_data = make_synth_set(os.path.join(tmp, "synth_jpg"), TRAIN_N, VAL_N, fmt="jpg")
+    log(f"codecs: wrote the synthetic set's {TRAIN_N} + {VAL_N} images as baseline JPEGs "
+        f"in {time.perf_counter() - t0:.2f} s")
+    out["loader_ms"] = {"png": [], "jpeg": []}
+    for kind in ("png", "jpeg", "jpeg", "png"):
+        root = os.path.dirname(png_data if kind == "png" else jpg_data)
+        ds = YoloDataset(os.path.join(root, "train", "images"),
+                         os.path.join(root, "train", "labels"), img_size=IMG, is_train=True,
+                         augment=False)
+        out["loader_ms"][kind].append(_loader_epoch_ms(ds))
+    log(f"codecs: loader ms per b8 batch (8 threads, augmentation off, {IMG} letterbox): PNG "
+        f"{', '.join(f'{v:.1f}' for v in out['loader_ms']['png'])}; JPEG "
+        f"{', '.join(f'{v:.1f}' for v in out['loader_ms']['jpeg'])} [{cpu}; {card}]")
+    # (d) one epoch on the JPEG set
+    overrides = dict(TRAIN_OVERRIDES, epochs=1)
+    api = YoloLite("edge_n", device="cuda")
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = api.train(data=jpg_data, workers=8, run_dir=os.path.join(tmp, "runs_jpg"),
+                    **overrides)
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    hist = res["history"]
+    val_batches = -(-VAL_N // overrides["batch_size"])
+    expected = 2 * val_batches
+    out["train"] = {"launches": launches, "train_s": time.perf_counter() - t0,
+                    "step_loss": hist["step_loss"], "val_loss": hist["val_loss"],
+                    "AP50": res["coco"]["AP50"]}
+    log(f"codecs: edge_n 1 epoch @640 b8 on the JPEG set in {out['train']['train_s']:.1f} s, "
+        f"step losses {', '.join(f'{v:.3f}' for v in hist['step_loss'])}, val loss "
+        f"{hist['val_loss'][0]:.4f}, AP50 {res['coco']['AP50']:.4f}, nms_suppress launched "
+        f"{launches} times (expected {expected}: {val_batches} val batch + {val_batches} in "
+        f"evaluate_model) [{card}]")
+    if launches != expected:
+        raise AssertionError("codecs: JPEG validation did not go through the kernel")
+    if not np.isfinite(hist["step_loss"] + hist["val_loss"]).all():
+        raise AssertionError(f"codecs: non-finite loss {hist}")
+    # (e) predict on JPEG sources against the same frames as arrays
+    folder = os.path.join(os.path.dirname(jpg_data), "valid", "images")
+    paths = sorted(glob.glob(os.path.join(folder, "*.jpg")))
+    arrays = [host_codecs.imread_bgr(p) for p in paths]
+    cuda_nms.LAUNCHES = 0
+    one = api.predict(paths[0], conf=0.001)[0]
+    many = api.predict(folder, conf=0.001)
+    out["predict_launches"] = cuda_nms.LAUNCHES
+    if out["predict_launches"] < 2:
+        raise AssertionError("codecs: predict on JPEG sources did not launch nms_suppress")
+    want_one = api.predict(arrays[0], conf=0.001)[0]
+    want_many = api.predict(arrays, conf=0.001)
+    if [r["source"] for r in many] != paths:
+        raise AssertionError("codecs: predict(folder) did not read the folder's JPEGs in order")
+    for got, want in zip([one] + many, [want_one] + want_many):
+        if not (np.array_equal(got["boxes"], want["boxes"])
+                and np.array_equal(got["classes"], want["classes"])):
+            raise AssertionError("codecs: predict on a JPEG path differs from its array")
+    out["predict_boxes"] = [len(r["boxes"]) for r in many]
+    log(f"codecs: YoloLite.predict on a JPEG path ({len(one['boxes'])} boxes) and a folder of "
+        f"{len(paths)} ({out['predict_boxes']} boxes) equal to the frames as arrays; "
+        f"nms_suppress launched {out['predict_launches']} times [{card}]")
+    return out
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -1774,7 +2094,8 @@ def main():
         for name, fn in (("augment", lambda: phase_augment(card, data)),
                          ("train", lambda: phase_train(card, data, tmp)),
                          ("device_augment", lambda: phase_device_augment(card, data, tmp)),
-                         ("seg", lambda: phase_seg(card, tmp))):
+                         ("seg", lambda: phase_seg(card, tmp)),
+                         ("codecs", lambda: phase_codecs(card, data, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -1790,7 +2111,8 @@ def main():
                     launches_device_augment_train=phases["device_augment"]["nms_launches"],
                     launches_seg_serve={rel: r["launches"]
                                         for rel, r in phases["seg"]["serve"].items()},
-                    launches_seg_train=phases["seg"]["train"]["launches"])]
+                    launches_seg_train=phases["seg"]["train"]["launches"],
+                    launches_jpeg_train=phases["codecs"]["train"]["launches"])]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,

@@ -109,11 +109,48 @@ def test_png_writer_of_the_smoke_run_is_read_back(tmp_path):
     np.testing.assert_array_equal(cv2.imread(str(tmp_path / "w.png"))[..., ::-1], img)
 
 
-def test_png_variants_it_does_not_read_raise():
+def _png_variant(kind, rng):
+    """A PNG of each form the numpy reader used to refuse: 16-bit (cv2's
+    writer), palette with tRNS, gray+alpha and Adam7 (written here)."""
+    if kind == "depth16":
+        ok, buf = cv2.imencode(".png", rng.randint(0, 65536, (5, 7, 3)).astype(np.uint16))
+        return buf.tobytes()
+    h, w = 5, 7
+    if kind == "palette":
+        idx = rng.randint(0, 6, (h, w)).astype(np.uint8)
+        extra = (_chunk(b"PLTE", rng.randint(0, 256, 18).astype(np.uint8).tobytes())
+                 + _chunk(b"tRNS", b"\x00\x80"))
+        rows, ctype, interlace = [idx[y].tobytes() for y in range(h)], 3, 0
+    elif kind == "gray_alpha":
+        ga = rng.randint(0, 256, (h, w, 2)).astype(np.uint8)
+        extra, rows, ctype, interlace = b"", [ga[y].tobytes() for y in range(h)], 4, 0
+    else:                                                    # Adam7 RGB
+        rgb = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        extra, rows, ctype, interlace = b"", [], 2, 1
+        for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+                               (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)):
+            sub = rgb[y0::dy, x0::dx]
+            if sub.size:
+                rows += [np.ascontiguousarray(r).tobytes() for r in sub]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, interlace)
+    raw = b"".join(b"\x00" + r for r in rows)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr) + extra
+            + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b""))
+
+
+def test_png_variants_it_does_not_read_raise(tmp_path):
+    """The PNG forms that raised before the host codec (16-bit, palette,
+    gray+alpha, Adam7) now read as cv2.imread reads them; a file that is no
+    PNG and a damaged stream still raise ValueError."""
+    from yololite_tpu_torch.data.codecs import imread_bgr
+    rng = np.random.RandomState(0)
+    for kind in ("depth16", "palette", "gray_alpha", "adam7"):
+        path = str(tmp_path / f"{kind}.png")
+        with open(path, "wb") as f:
+            f.write(_png_variant(kind, rng))
+        np.testing.assert_array_equal(imread_bgr(path), cv2.imread(path), err_msg=kind)
+        assert decode_png(open(path, "rb").read()).dtype == np.uint8
     img = np.zeros((4, 4, 3), np.uint8)
-    for header in ({"depth": 16}, {"ctype": 3}, {"interlace": 1}, {"ctype": 4}):
-        with pytest.raises(UnsupportedImage):
-            decode_png(encode_png(img, [0], **header))
     with pytest.raises(ValueError):
         decode_png(b"GIF89a....")
     blob = bytearray(encode_png(img, [0]))
@@ -182,19 +219,32 @@ def test_dataset_resize_and_npy_sources_match_jax(synth, tmp_path):
 
 
 def test_unsupported_images_raise_and_damaged_ones_go_black(synth, tmp_path):
+    """A TIFF split raises at construction naming the file; a JPEG split
+    builds and reads as JAX's; a damaged PNG or JPEG is a black sample with
+    no targets in both packages."""
     root, _ = synth
     imgs, labels = _split(root, "wide", "valid")
-    bad = tmp_path / "jpg"
+    bad = tmp_path / "tif"
     bad.mkdir()
-    cv2.imwrite(str(bad / "a.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(UnsupportedImage, match="a.jpg"):
+    cv2.imwrite(str(bad / "a.tif"), np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(UnsupportedImage, match="a.tif"):
         YoloDataset(str(bad), labels, img_size=64, is_train=False, augment=False)
+    jpg = tmp_path / "jpg"
+    jpg.mkdir()
+    cv2.imwrite(str(jpg / "a.jpg"), (np.random.RandomState(0).rand(8, 8, 3) * 255).astype(np.uint8))
+    kw = dict(img_size=64, is_train=False, augment=False)
+    np.testing.assert_array_equal(YoloDataset(str(jpg), labels, **kw).load_image(0),
+                                  JaxYoloDataset(str(jpg), labels, **kw).load_image(0))
     dmg = tmp_path / "damaged"
     dmg.mkdir()
     (dmg / "0000.png").write_bytes(b"\x89PNG\r\n\x1a\n" + b"\x00" * 40)
-    out = YoloDataset(str(dmg), labels, img_size=64, is_train=False, augment=False).get(0)
-    assert out["image"].shape == (64, 64, 3) and not out["image"].any()
-    assert not out["mask"].any()
+    (dmg / "0001.jpg").write_bytes(b"\xff\xd8\xff\xd9")
+    for i in range(2):
+        out = YoloDataset(str(dmg), labels, **kw).get(i)
+        want = JaxYoloDataset(str(dmg), labels, **kw).get(i)
+        assert out["image"].shape == (64, 64, 3) and not out["image"].any()
+        np.testing.assert_array_equal(out["image"], want["image"])
+        assert not out["mask"].any()
     # a training set with augmentation builds and draws a sample (this
     # raised before host augmentation was ported)
     aug = YoloDataset(imgs, labels, img_size=64, is_train=True, augment=True).get(

@@ -56,7 +56,7 @@ def test_entry_points_default_to_cuda():
 def test_training_modules_are_covered():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     for rel in ("losses/simota.py", "train/steps.py", "train/optim.py", "train/loop.py",
-                "data/png.py", "data/dataset.py", "data/loader.py", "eval/coco.py",
+                "data/png.py", "data/codecs.py", "data/dataset.py", "data/loader.py", "eval/coco.py",
                 "eval/evaluate.py", "data/imgops.py", "data/augment.py", "data/weather.py",
                 "data/device_augment.py", "data/coco_ingest.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files

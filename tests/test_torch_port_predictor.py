@@ -91,8 +91,9 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
     np.save(tmp_path / "f.npy", frames[0])
     one = model.predict(str(tmp_path / "f.npy"), conf=0.01)[0]
     np.testing.assert_allclose(one["boxes"], res[0]["boxes"], atol=1e-3)
-    with pytest.raises(UnsupportedImage, match="item 2"):
-        model.predict("image.jpg")
+    cv2.imwrite(str(tmp_path / "f.tif"), frames[0])
+    with pytest.raises(UnsupportedImage, match="TIFF"):
+        model.predict(str(tmp_path / "f.tif"))
     with pytest.raises(NotImplementedError, match="item 12"):
         model.export()
     # training and validation are ported; what they still refuse raises
@@ -131,8 +132,8 @@ def test_predict_reads_a_png_path_like_jax(ckpt, tmp_path):
 
 
 def test_predict_on_a_folder_like_jax(ckpt, tmp_path):
-    """A folder gives one result per image, in JAX's order; a folder of
-    JPEGs raises naming the codec item instead of returning nothing."""
+    """A folder gives one result per image, in JAX's order, for PNG and for
+    JPEG folders alike."""
     frames = _frames(3, seed=4)
     png_dir, jpg_dir = tmp_path / "png", tmp_path / "jpg"
     png_dir.mkdir()
@@ -147,8 +148,38 @@ def test_predict_on_a_folder_like_jax(ckpt, tmp_path):
     for g, w in zip(got, want):
         _assert_matched((g["boxes"], g["scores"], g["classes"]),
                         (w["boxes"], w["scores"], w["classes"]))
-    with pytest.raises(UnsupportedImage, match="item 2"):
-        YoloLite(ckpt, device="cpu").predict(str(jpg_dir))
+    got = _fp32(YoloLite(ckpt, device="cpu"), ckpt).predict(str(jpg_dir), conf=0.001)
+    want = _fp32(JaxYoloLite(ckpt), ckpt).predict(str(jpg_dir), conf=0.001)
+    assert [r["source"] for r in got] == [r["source"] for r in want] == \
+        [str(jpg_dir / f"{i}.jpg") for i in range(3)]
+    for g, w in zip(got, want):
+        _assert_matched((g["boxes"], g["scores"], g["classes"]),
+                        (w["boxes"], w["scores"], w["classes"]))
+
+
+def test_predict_reads_a_jpeg_path_like_jax(ckpt, tmp_path):
+    """A JPEG path is decoded by the port's codec (cv2.imread's pixels) and
+    gives JAX's detections for the same file."""
+    frame = _frames(1, seed=5)[0]
+    path = str(tmp_path / "frame.jpg")
+    cv2.imwrite(path, frame, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    got = _fp32(YoloLite(ckpt, device="cpu"), ckpt).predict(path, conf=0.001)[0]
+    want = _fp32(JaxYoloLite(ckpt), ckpt).predict(path, conf=0.001)[0]
+    assert got["source"] == want["source"] == path
+    _assert_matched((got["boxes"], got["scores"], got["classes"]),
+                    (want["boxes"], want["scores"], want["classes"]))
+
+
+@pytest.mark.parametrize("ext", [".png", ".jpg"])
+def test_predict_on_a_damaged_file_raises_file_not_found_like_jax(ckpt, tmp_path, ext):
+    """Where cv2.imread gives None, JAX's predict raises FileNotFoundError
+    naming the path; the port does the same for every format."""
+    path = str(tmp_path / f"bad{ext}")
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + b"\x00" * 40 if ext == ".png" else b"\xff\xd8\xff\xd9")
+    for model in (YoloLite(ckpt, device="cpu"), JaxYoloLite(ckpt)):
+        with pytest.raises(FileNotFoundError, match="bad"):
+            model.predict(path)
 
 
 @pytest.mark.parametrize("kw", [{"draw": True}, {"save_dir": "out"}], ids=["draw", "save_dir"])

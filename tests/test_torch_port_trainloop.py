@@ -1,5 +1,5 @@
 """The port's training loop end to end on the CPU (edge_n at 64 px on a tiny
-PNG set written from a seed): artifacts, exact resume, host augmentation
+PNG set written from a seed, and its JPEG copy): artifacts, exact resume, host augmentation
 with its taper (also across a chunked resume), device augmentation on a
 COCO-json dataset, and the options that still raise. Port only, apart from
 JAX's CSV header, which the port's must equal."""
@@ -47,7 +47,18 @@ def _rows(log_dir):
         return list(csv.DictReader(f))
 
 
-def test_two_epochs_make_every_artifact(data, tmp_path):
+@pytest.fixture(scope="module")
+def jpeg_data(tmp_path_factory):
+    """The same set as `data`, its images written as baseline JPEGs."""
+    root = str(tmp_path_factory.mktemp("jpgset"))
+    return make_synth_set(root, n_train=8, n_val=6, w=80, h=60, fmt="jpg")
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_two_epochs_make_every_artifact(request, tmp_path, fmt):
+    """Two epochs through YoloLite.train on the PNG set and on its JPEG copy
+    (read by the port's codec)."""
+    data = request.getfixturevalue("data" if fmt == "png" else "jpeg_data")
     model = YoloLite("edge_n", device="cpu")
     res = model.train(data=data, run_dir=str(tmp_path / "runs"), workers=2,
                       **{k: v for k, v in OVERRIDES.items() if k != "num_workers"})
@@ -118,17 +129,17 @@ def test_exact_resume_equals_uninterrupted(data, tmp_path):
     ({"spatial_parallel": 2}, {}, "item 12"),
     ({"qat": True}, {}, "item 10"),
     ({"checkpoint_backend": "orbax_async"}, {}, "item 8c"),
-    ({"dataset": "jpeg"}, {}, "item 2"),
+    ({"dataset": "tiff"}, {}, "TIFF"),
 ])
 def test_unported_options_raise_naming_their_item(data, tmp_path, training, model, item):
     training = dict(training)
-    jpeg = training.pop("dataset", None) == "jpeg"
+    tiff = training.pop("dataset", None) == "tiff"
     cfg = _config(data, tmp_path / "x", **training)
     cfg["model"].update(model)
-    if jpeg:        # a train split with a JPEG image: the codec is item 2
-        img_dir = tmp_path / "jpg"
+    if tiff:        # a train split with a TIFF image: no TIFF codec is ported
+        img_dir = tmp_path / "tif"
         img_dir.mkdir()
-        (img_dir / "0000.jpg").write_bytes(b"\xff\xd8\xff\xd9")
+        (img_dir / "0000.tif").write_bytes(b"II*\x00" + b"\x00" * 16)
         cfg["dataset"]["train_images"] = str(img_dir)
     with pytest.raises(NotImplementedError, match=item):
         train_from_config(cfg, device="cpu")

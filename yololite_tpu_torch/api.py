@@ -8,11 +8,13 @@
     results["speed"]   # {"preprocess_ms", "inference_ms", ..., "total_ms"}
     stats = model.val(data="data.yaml")        # {"map", "map_50", ...}
 
-Sources are decoded BGR uint8 arrays, PNG files or `.npy` files of BGR
-arrays, or a folder of them; datasets are PNG or `.npy` images
-(`data/dataset.py`). The package carries no JPEG or BMP codec: such files
-raise `UnsupportedImage` (ROADMAP Queue 1 item 2). Drawing (`draw=`,
-`save_dir=`) is ROADMAP Queue 1 item 8d and raises.
+Sources are decoded BGR uint8 arrays, JPEG, PNG or BMP files (read by the
+port's host codecs as `cv2.imread` reads them, `data/codecs.py`), `.npy`
+files of BGR arrays, or a folder of them; datasets take the same files
+(`data/dataset.py`). A file that cannot be decoded raises
+`FileNotFoundError` naming it, as in the JAX API; a TIFF raises
+`UnsupportedImage`. Drawing (`draw=`, `save_dir=`) is ROADMAP Queue 1 item
+8d and raises.
 A model name or yaml resolves as in the JAX API (configs/models, then
 v2_models, then custom); predicting needs a checkpoint, as there. Everything
 runs on `device` (the card by default; tests pass "cpu"). Export is ROADMAP
@@ -59,8 +61,9 @@ class YoloLite:
                 draw: bool = False, save_dir: Optional[str] = None,
                 **_ignored) -> List[Dict[str, Any]]:
         """Detections (and, for a segmentation model, uint8 masks of each
-        frame's shape under "masks") for BGR arrays, PNG or `.npy` files, or
-        a folder of them."""
+        frame's shape under "masks") for BGR arrays, JPEG, PNG, BMP or `.npy`
+        files, or a folder of them. A file that does not decode raises
+        `FileNotFoundError(path)`, as JAX's does where cv2.imread gives None."""
         if draw or save_dir:
             raise NotImplementedError("drawing detections (draw=, save_dir=) needs "
                                       "utils/viz.py: ROADMAP Queue 1 item 8d")
@@ -69,8 +72,12 @@ class YoloLite:
         frames, names = [], []
         for item in self._expand_source(source):
             if isinstance(item, str):
+                try:
+                    rgb = read_image_rgb(item)
+                except ValueError as e:         # cv2.imread would give None
+                    raise FileNotFoundError(item) from e
                 # BGR, as the JAX package's cv2.imread hands frames on
-                frames.append(np.ascontiguousarray(read_image_rgb(item)[..., ::-1]))
+                frames.append(np.ascontiguousarray(rgb[..., ::-1]))
                 names.append(item)
             else:
                 frames.append(np.asarray(item))
@@ -91,8 +98,7 @@ class YoloLite:
         if isinstance(source, np.ndarray):
             return [source]
         if isinstance(source, str) and os.path.isdir(source):
-            # JAX's patterns, plus the port's .npy frames; a JPEG or BMP
-            # raises when it is read (ROADMAP Queue 1 item 2)
+            # JAX's patterns, plus the port's .npy frames
             files = []
             for e in ("*.jpg", "*.jpeg", "*.png", "*.bmp", "*.npy"):
                 files += glob.glob(os.path.join(source, e))

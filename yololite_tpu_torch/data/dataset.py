@@ -24,14 +24,16 @@ detection, and instance segmentation with `task="segment"`.
     the cache is unbounded and hands out the same arrays on every call, as
     in the JAX package.
 
-Images are decoded without cv2 or PIL: PNG by the port's own decoder
-(`data/png.py`; 8-bit gray, RGB, RGBA) and `.npy` files of BGR uint8 arrays
-(the port's convention for decoded frames, see `api.py`); both give RGB, as
-the JAX package's `cv2.imread` + BGR->RGB does (gray replicated, alpha
-dropped, as `cv2.IMREAD_COLOR`). Any other extension makes the constructor
-raise `UnsupportedImage` naming the file. A damaged file of a readable
-format falls back to a black image with no targets, as in the JAX package;
-nothing else is swallowed, so an unreadable format never trains on zeros.
+Images are decoded without cv2 or PIL: JPEG, PNG and BMP by the port's own
+host codecs (`data/codecs.py`, equal to `cv2.imread` bit for bit) and `.npy`
+files of BGR uint8 arrays (the port's convention for decoded frames, see
+`api.py`); all give RGB, as the JAX package's `cv2.imread` + BGR->RGB does.
+A TIFF makes the constructor raise `UnsupportedImage` naming the file. A
+damaged file (where cv2.imread gives None) falls back to a black image with
+no targets, as in the JAX package; nothing else is swallowed, so an
+unreadable format never trains on zeros. The codec library is built or
+loaded by the constructor of any split that holds images, so a missing host
+compiler raises `csrc.build.BuildError` there and never in a sample.
 """
 
 from __future__ import annotations
@@ -49,13 +51,13 @@ from yololite_tpu_torch.data.augment import (
     COLOR_OPS, PAD, StrongTrainTransform, TrainTransform, ValTransform, affine_matrix,
     gauss_noise, motion_blur,
 )
-from yololite_tpu_torch.data.png import UnsupportedImage, read_png
+from yololite_tpu_torch.data.codecs import UnsupportedImage, imread_bgr, library
 from yololite_tpu_torch.ops.letterbox import letterbox_image, resize_image
 from yololite_tpu_torch.ops.masks import rle_encode_np
 
 VALID_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".npy"}
-READABLE_EXTS = (".png", ".npy")
-CODEC_ITEM = "JPEG/BMP/TIFF decoding is ROADMAP Queue 1 item 2"
+READABLE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".npy")
+CODEC_ITEM = "TIFF decoding is not ported (ROADMAP Queue 1, when a user needs it)"
 PROTO_STRIDE = 4          # GT masks at the ProtoNet's resolution
 
 
@@ -143,7 +145,8 @@ def max_instances_per_image(lab_dir: str) -> int:
 
 
 def read_image_rgb(path: str) -> np.ndarray:
-    """A PNG or a `.npy` BGR array -> uint8 RGB [H, W, 3]."""
+    """A JPEG, PNG or BMP (as `cv2.imread` + BGR->RGB) or a `.npy` BGR
+    array -> uint8 RGB [H, W, 3]. A damaged file raises `ValueError`."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
         img = np.load(path)
@@ -151,13 +154,10 @@ def read_image_rgb(path: str) -> np.ndarray:
             raise ValueError(f"{path}: expected a uint8 [H,W,3] BGR array, got "
                              f"{img.dtype} {img.shape}")
         return np.ascontiguousarray(img[..., ::-1])
-    if ext != ".png":
+    if ext not in READABLE_EXTS:
         raise UnsupportedImage(f"{path}: this package reads {READABLE_EXTS} images "
                                f"({CODEC_ITEM})")
-    img = read_png(path)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    return np.ascontiguousarray(imread_bgr(path)[..., ::-1])
 
 
 class _LRUImageCache:
@@ -216,8 +216,9 @@ class YoloDataset:
         bad = [f for f in self.img_files if not f.lower().endswith(READABLE_EXTS)]
         if bad:
             raise UnsupportedImage(f"{bad[0]} (and {len(bad) - 1} more): this package "
-                                   f"reads {READABLE_EXTS} images only (no cv2/PIL; "
-                                   f"{CODEC_ITEM})")
+                                   f"reads {READABLE_EXTS} images only ({CODEC_ITEM})")
+        if not all(f.lower().endswith(".npy") for f in self.img_files):
+            library()     # the codec builds or loads here: no compiler raises BuildError
         self.img_size = int(img_size)
         self.is_train = bool(is_train)
         self.max_boxes = int(max_boxes)

@@ -50,8 +50,7 @@ class DataLoader:
     """Iterates shuffled (or sequential) fixed-shape batches with prefetch.
 
     `num_workers` threads fetch samples concurrently inside the prefetch
-    worker (zlib and large numpy ops release the GIL; the PNG unfilter's
-    small per-diagonal steps mostly hold it)."""
+    worker (the host codecs, zlib and large numpy ops release the GIL)."""
 
     def __init__(self, dataset: YoloDataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 3,
