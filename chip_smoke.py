@@ -70,6 +70,23 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               the recipe's defaults on the JPEG copy (nms_suppress launches
               counted on validation); YoloLite.predict on a JPEG path and a
               JPEG folder, boxes equal to the same frames as arrays
+ 12. stream   edge_n @640 bf16 over a 240-frame synthetic 480x640 clip:
+              Predictor.infer_stream at depth 0-3 yields exactly
+              infer_image's boxes, scores and classes on every frame, one
+              nms_suppress launch a frame; KalmanSortTracker over the
+              stream gives infer_image's tracks; frames/s a depth, serial
+              infer_image ms, tracker ms, `_upload`'s share of host time,
+              the registered op's host cost a call
+ 13. export   edge_n and edge_n_seg as "raw", "decoded" and "nms" `.pt2`
+              (torch.export) at b128 @640, fp32 and bf16, from a saved
+              checkpoint, loaded back and held against the Predictor's
+              eager graph (fp32 within 1e-4 of the outputs' scale, "nms"
+              valid and classes equal; bf16 "nms" >= 99% matched at IoU
+              0.99; seg masks <= 1e-3 of pixels), one nms_suppress launch an
+              "nms" call; the bf16 "nms" artifact's ms against the graph's,
+              peak GB; edge_n ONNX ("raw", "decoded", a dynamic-batch file)
+              run on the host by the port's runner against the card's fp32
+              "decoded" (1e-3); YoloLite.export() once
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -106,6 +123,7 @@ from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
 from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
 from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
+from yololite_tpu_torch.deploy import export as deploy_export  # noqa: E402
 from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
 from yololite_tpu_torch.deploy.predictor import PRE_NMS_TOPK, Predictor  # noqa: E402
 from yololite_tpu_torch.eval.evaluate import evaluate_model  # noqa: E402
@@ -126,6 +144,7 @@ from yololite_tpu_torch.train.checkpoint import (  # noqa: E402
 from yololite_tpu_torch.train import loop as train_loop  # noqa: E402
 from yololite_tpu_torch.train.loop import CSV_HEADER  # noqa: E402
 from yololite_tpu_torch.train.steps import Trainer, gt_masks_from_batch  # noqa: E402
+from yololite_tpu_torch.track import KalmanSortTracker  # noqa: E402
 
 IMG = 640
 BATCH = 128
@@ -231,6 +250,23 @@ SEG_PROB_TOL = 1e-3
 SEG_PIXEL_SHARE = 1e-3
 SEG_MIXES = ("mosaic_segment", "cutmix_segment")
 SEG_TRAIN_OVERRIDES = dict(TRAIN_OVERRIDES, save_optimizer=False)
+# stream phase: a synthetic 480x640 clip from seed 0, infer_stream at each
+# depth; the tracker takes each frame's TRACK_TOP best detections (this
+# seeded net has no confident ones to threshold on)
+STREAM_FRAMES = 240
+STREAM_DEPTHS = (0, 1, 2, 3)
+TRACK_TOP = 32
+# export phase: fp32 artifacts against the eager graph (TF32 off) within
+# EXPORT_FP32_RTOL of the outputs' scale (the same ATen ops on the same card;
+# equal in practice); bf16 "nms" detections matched at IoU >= 0.99 for at
+# least EXPORT_BF16_MATCH of them; seg masks binarized at 0.5 differing on at
+# most SEG_PIXEL_SHARE of the pixels; ONNX on the host against the card's
+# fp32 "decoded" within ONNX_TOL (rtol and atol: JAX's own bound for its ONNX
+# file, here across two devices' fp32 convolutions)
+EXPORT_FP32_RTOL = 1e-4
+EXPORT_BF16_MATCH = 0.99
+ONNX_TOL = 1e-3
+EXPORT_CONFIGS = ("configs/models/edge_n.yaml", "configs/models/edge_n_seg.yaml")
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
 HOST_LIBS = ["imgcodec"]      # host C++ (csrc/imgcodec.cpp): the image codecs, no kernel
@@ -2070,6 +2106,343 @@ def phase_codecs(card: str, png_data: str, tmp: str):
     return out
 
 
+def make_clip(n: int = STREAM_FRAMES, h: int = 480, w: int = 640, seed: int = 0):
+    """BGR frames of a synthetic clip: five coloured rectangles moving at
+    constant velocity (bouncing off the borders) over dark noise."""
+    rng = np.random.RandomState(seed)
+    size = rng.randint(40, 160, (5, 2))
+    pos = rng.rand(5, 2) * ([w, h] - size)
+    vel = rng.randn(5, 2) * 6
+    colour = rng.randint(80, 256, (5, 3)).astype(np.uint8)
+    frames = []
+    for t in range(n):
+        f = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+        for (bw, bh), p, v, c in zip(size, pos, vel, colour):
+            span = np.array([w - bw, h - bh], float)
+            x, y = np.abs((p + v * t + span) % (2 * span) - span).astype(int)
+            f[y:y + bh, x:x + bw] = c
+        frames.append(f)
+    return frames
+
+
+def _track(dets):
+    """KalmanSortTracker over per-frame (boxes, scores, classes), each
+    frame's TRACK_TOP best; returns the reported tracks and host ms a frame."""
+    tracker, tracks, secs = KalmanSortTracker(), [], 0.0
+    for b, s, c in dets:
+        t0 = time.perf_counter()
+        out = tracker.update(b[:TRACK_TOP], s[:TRACK_TOP], c[:TRACK_TOP])
+        secs += time.perf_counter() - t0
+        tracks.append([(o["track_id"], o["bbox"].tolist(), o["cls"]) for o in out])
+    return tracks, secs * 1e3 / max(len(dets), 1)
+
+
+def _op_host_us(iters: int = 200):
+    """Host microseconds a call: greedy_keep through the registered op
+    against the same launch called directly (B=1, k=512), to show what the
+    dispatcher adds per call."""
+    boxes, valid = _dense_boxes(np.random.RandomState(9), 1, PRE_NMS_TOPK)
+    out = {}
+    for name, fn in (("op", lambda: cuda_nms.greedy_keep(boxes, valid, 0.45)),
+                     ("direct", lambda: cuda_nms._nms_suppress_cuda(boxes, valid, 0.45))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / iters
+        torch.cuda.synchronize()
+    return out
+
+
+def phase_stream(card: str):
+    """Streaming video on the card: edge_n @640 bf16 (seeded heads, bundled
+    backbone) over a 240-frame synthetic 480x640 clip. infer_stream at each
+    depth yields exactly infer_image's boxes, scores and classes per frame,
+    with one nms_suppress launch a frame; the tracker fed from the stream
+    gives infer_image's tracks. Prints frames/s a depth, serial infer_image
+    ms, tracker ms, the share of host time in `_upload` (a pinned buffer a
+    frame) and the op's host cost a call."""
+    model = _edge_n_model()
+    meta = {"img_size": IMG, "names": ["c0", "c1", "c2"]}
+    pred = Predictor((model, model.state_dict(), meta), device="cuda", dtype=torch.bfloat16)
+    frames = make_clip()
+    kw = dict(conf=0.001, iou=0.45, max_det=300)
+    upload_s = []
+    upload = pred._upload
+
+    def timed_upload(batch):
+        t0 = time.perf_counter()
+        out = upload(batch)
+        upload_s.append(time.perf_counter() - t0)
+        return out
+    pred._upload = timed_upload
+    pred.warmup(**kw)
+    list(pred.infer_stream(frames[:8], depth=2, **kw))
+    torch.cuda.synchronize()
+    out = {"frames": len(frames)}
+    # serial infer_image: the reference detections and the frame latency
+    cuda_nms.LAUNCHES = 0
+    upload_s.clear()
+    ref, single_ms = [], []
+    t0 = time.perf_counter()
+    for f in frames:
+        t1 = time.perf_counter()
+        ref.append(pred.infer_image(f, **kw))
+        single_ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    if cuda_nms.LAUNCHES != len(frames):
+        raise AssertionError(f"stream: infer_image launched nms_suppress "
+                             f"{cuda_nms.LAUNCHES} times for {len(frames)} frames")
+    out["infer_image"] = {"fps": len(frames) / wall, "median_ms": float(np.median(single_ms)),
+                          "p90_ms": float(np.percentile(single_ms, 90)),
+                          "upload_share": sum(upload_s) / wall,
+                          "upload_ms": sum(upload_s) * 1e3 / len(frames)}
+    if sum(len(b) for b, _, _ in ref) == 0:
+        raise AssertionError("stream: infer_image found no detections")
+    log(f"stream: serial infer_image over {len(frames)} 480x640 frames: "
+        f"{out['infer_image']['fps']:.1f} frames/s, median {out['infer_image']['median_ms']:.2f}"
+        f" ms, p90 {out['infer_image']['p90_ms']:.2f} ms; _upload "
+        f"{out['infer_image']['upload_ms']:.3f} ms a frame, "
+        f"{100 * out['infer_image']['upload_share']:.1f}% of the host time [{card}]")
+    out["depths"], launches = {}, 0
+    for depth in STREAM_DEPTHS:
+        cuda_nms.LAUNCHES = 0
+        upload_s.clear()
+        t0 = time.perf_counter()
+        res = list(pred.infer_stream(iter(frames), depth=depth, **kw))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if cuda_nms.LAUNCHES != len(frames) or len(res) != len(frames):
+            raise AssertionError(f"stream depth {depth}: {cuda_nms.LAUNCHES} launches, "
+                                 f"{len(res)} results for {len(frames)} frames")
+        launches += cuda_nms.LAUNCHES
+        for i, (r, (b, s, c)) in enumerate(zip(res, ref)):
+            if not (np.array_equal(r["boxes"], b) and np.array_equal(r["scores"], s)
+                    and np.array_equal(r["classes"], c)):
+                raise AssertionError(f"stream depth {depth}: frame {i} differs from "
+                                     f"infer_image")
+        row = {"fps": len(frames) / wall, "upload_share": sum(upload_s) / wall,
+               "preprocess_ms": float(np.mean([r["speed"]["preprocess_ms"] for r in res])),
+               "sync_ms": float(np.mean([r["speed"]["sync_ms"] for r in res]))}
+        out["depths"][depth] = row
+        log(f"stream: infer_stream depth {depth}: {row['fps']:.1f} frames/s, every frame equal "
+            f"to infer_image, {len(frames)} nms_suppress launches; preprocess "
+            f"{row['preprocess_ms']:.2f} ms, sync {row['sync_ms']:.2f} ms a frame; _upload "
+            f"{100 * row['upload_share']:.1f}% of the host time [{card}]")
+        if depth == 2:
+            streamed = [(r["boxes"], r["scores"], r["classes"]) for r in res]
+    out["launches"] = launches
+    got, track_ms = _track(streamed)
+    want, _ = _track(ref)
+    if got != want:
+        raise AssertionError("stream: tracks over infer_stream differ from infer_image's")
+    ids = {t[0] for frame in got for t in frame}
+    out["tracker"] = {"ms_per_frame": track_ms, "tracks": len(ids),
+                      "reported": sum(len(f) for f in got)}
+    log(f"stream: KalmanSortTracker over the stream (each frame's {TRACK_TOP} best): the same "
+        f"{len(ids)} track ids, boxes and classes as over infer_image; host "
+        f"{track_ms:.3f} ms a frame")
+    out["op_host_us"] = _op_host_us()
+    log(f"stream: host us a greedy_keep call at B=1, k={PRE_NMS_TOPK}: registered op "
+        f"{out['op_host_us']['op']:.1f}, direct launch {out['op_host_us']['direct']:.1f} "
+        f"[{card}]")
+    return out
+
+
+def _scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference over the larger of 1 and the outputs' max abs."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _iou_matched(got, want, iou_min: float):
+    """Share of valid detections of `want` (boxes, scores, classes, valid) that
+    `got` has with the same class at IoU >= iou_min, per image."""
+    from yololite_tpu_torch.ops.boxes import box_iou_matrix
+    hits = total = 0
+    for i in range(want[0].shape[0]):
+        vw, vg = want[3][i], got[3][i]
+        bw, cw, bg, cg = want[0][i][vw], want[2][i][vw], got[0][i][vg], got[2][i][vg]
+        total += len(bw)
+        if len(bw) and len(bg):
+            iou = box_iou_matrix(bw.float(), bg.float()) * (cw[:, None] == cg[None, :])
+            hits += int((iou.amax(1) >= iou_min).sum())
+    return hits / max(total, 1), total
+
+
+def _export_model(rel: str, calib: torch.Tensor):
+    cfg = _seg_config(rel)
+    if "seg" in rel:
+        return cfg, _seg_model(rel, cfg, calib)
+    return cfg, _edge_n_model()
+
+
+def _export_one(card, rel, fmt, dtype, ckpt, out_dir, x, want, times):
+    """Export `fmt` at b128 in `dtype`, load it, call it on `x` once with
+    the launches counted, and compare with the eager graph's `want`."""
+    name = str(dtype).replace("torch.", "")
+    t0 = time.perf_counter()
+    path = deploy_export.export_model(ckpt, out_dir=os.path.join(out_dir, name), fmt=fmt,
+                                      batch=BATCH, img_size=IMG, dtype=dtype, device="cuda")
+    call, meta = deploy_export.load_exported(path)
+    times[f"{fmt}_{name}"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    got = call(x)
+    torch.cuda.synchronize()
+    row = {"launches": cuda_nms.LAUNCHES, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "export_s": times[f"{fmt}_{name}"], "mb": os.path.getsize(path) / 1e6}
+    if row["launches"] != (fmt == "nms"):
+        raise AssertionError(f"export {rel} {fmt} {name}: {row['launches']} launches")
+    got = list(got.values()) if isinstance(got, dict) else list(got)
+    want = list(want.values()) if isinstance(want, dict) else list(want)
+    if len(got) != len(want) or meta["outputs"] != deploy_export.output_names(
+            "seg" in rel, fmt, 3):
+        raise AssertionError(f"export {rel} {fmt}: outputs {meta['outputs']}")
+    if fmt != "nms" and dtype == torch.float32:
+        row["err"] = max(_scale_err(g, w) for g, w in zip(got, want))
+        ok = row["err"] <= EXPORT_FP32_RTOL
+    elif fmt == "nms" and dtype == torch.float32:
+        same = torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+        row["err"] = max(_scale_err(got[0], want[0]), _scale_err(got[1], want[1]))
+        ok = same and row["err"] <= EXPORT_FP32_RTOL
+    elif fmt == "nms":
+        row["matched"], row["dets"] = _iou_matched(got, want, 0.99)
+        ok = row["matched"] >= EXPORT_BF16_MATCH and row["dets"] > 0
+    else:
+        row["err"] = max(_scale_err(g, w) for g, w in zip(got, want))
+        ok = True                       # bf16 raw/decoded: read, not held
+    if fmt == "nms" and len(got) == 5:
+        row["mask_share"] = float(((got[4] > 0.5) != (want[4] > 0.5)).float().mean())
+        ok = ok and row["mask_share"] <= SEG_PIXEL_SHARE
+    log(f"export {os.path.basename(rel)} {fmt} {name}: {row} [{card}]")
+    if not ok:
+        raise AssertionError(f"export {rel} {fmt} {name} disagrees with the eager graph")
+    return call, row
+
+
+def _eager(pred, fmt, x):
+    """The Predictor's eager graph in the outputs of export format `fmt`."""
+    with torch.inference_mode():
+        return deploy_export.graph_outputs(pred, pred.forward(x), fmt, IMG, 0.001, 0.65, 300)
+
+
+def phase_export(card: str, tmp: str):
+    """Export on the card: edge_n and edge_n_seg as "raw", "decoded" and "nms"
+    `.pt2` at b128 @640, fp32 then bf16, from a checkpoint saved from the
+    seeded model, each loaded back and held against the Predictor's eager
+    graph on one fixed uint8 batch, one nms_suppress launch an "nms" call;
+    the bf16 "nms" artifact timed against the Predictor's graph; seg "nms"
+    peak GB; edge_n "raw"/"decoded" ONNX (batch 1 and a dynamic-batch file)
+    run on the host against the card's fp32 "decoded"; YoloLite.export once."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.rand(BATCH, IMG, IMG, 3) * 255).astype(np.uint8)).cuda()
+    out = {"models": {}, "launches": 0}
+    out_dir = os.path.join(tmp, "export")
+    for rel in EXPORT_CONFIGS:
+        cfg, model = _export_model(rel, x[:2].clone())
+        names = ["c0", "c1", "c2"]
+        ckpt = os.path.join(tmp, os.path.basename(rel).replace(".yaml", ".ckpt"))
+        save_checkpoint(ckpt, *to_flax(model),
+                        build_meta(cfg, {}, "AP", names, model.get_num_anchors_per_level()))
+        rows, times, calls = {}, {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+            torch.backends.cuda.matmul.allow_tf32 = dtype != torch.float32
+            try:
+                pred = Predictor(ckpt, device="cuda", dtype=dtype)
+                for fmt in deploy_export.FORMATS:
+                    want = _eager(pred, fmt, x)
+                    call, row = _export_one(card, rel, fmt, dtype, ckpt, out_dir, x, want,
+                                            times)
+                    out["launches"] += row["launches"]
+                    rows[f"{fmt}_{str(dtype)[6:]}"] = row
+                    calls[f"{fmt}_{str(dtype)[6:]}"] = call
+                    del want
+                    torch.cuda.empty_cache()
+            finally:
+                torch.backends.cudnn.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = False
+        # the bf16 "nms" artifact against the Predictor's whole graph
+        call = calls["nms_bfloat16"]
+        with torch.inference_mode():
+            graph_ms = cuda_ms(lambda: pred.postprocess(pred.forward(x), IMG, 0.001, 0.65, 300), 5)
+            torch.cuda.reset_peak_memory_stats()
+            pred.postprocess(pred.forward(x), IMG, 0.001, 0.65, 300)
+            torch.cuda.synchronize()
+            graph_peak = torch.cuda.max_memory_allocated() / 1e9
+        art_ms = cuda_ms(lambda: call(x), 5)
+        rows["nms_bf16_ms"], rows["graph_bf16_ms"] = art_ms, graph_ms
+        rows["graph_bf16_peak_gb"] = graph_peak
+        log(f"export {os.path.basename(rel)}: bf16 nms artifact {art_ms:.3f} ms per b{BATCH} "
+            f"call, the Predictor's graph {graph_ms:.3f} ms; peak {rows['nms_bfloat16']['peak_gb']:.2f}"
+            f" GB (fp32 {rows['nms_float32']['peak_gb']:.2f}) against the graph's "
+            f"{graph_peak:.2f}; export + save + load {sum(times.values()):.1f} s for 6 "
+            f"artifacts [{card}]")
+        out["models"][rel] = rows
+        del model, pred, calls, call
+        torch.cuda.empty_cache()
+    out["onnx"] = export_onnx_host(card, os.path.join(tmp, "edge_n.ckpt"), out_dir, x)
+    t0 = time.perf_counter()
+    api_path = YoloLite(os.path.join(tmp, "edge_n.ckpt")).export()
+    api_call, api_meta = deploy_export.load_exported(api_path)
+    api_out = api_call(x[:1])
+    if not (api_path.endswith("_decoded.pt2") and api_meta["dtype"] == "bfloat16"
+            and torch.isfinite(api_out["boxes_xyxy"]).all()):
+        raise AssertionError(f"YoloLite.export: {api_path} {api_meta}")
+    out["api_export_s"] = time.perf_counter() - t0
+    log(f"export: YoloLite.export() -> {os.path.basename(api_path)} (decoded, b1, bf16, "
+        f"{out['api_export_s']:.1f} s), finite outputs on the card")
+    return out
+
+
+def export_onnx_host(card: str, ckpt: str, out_dir: str, x: torch.Tensor):
+    """edge_n "raw" and "decoded" ONNX (fp32, batch 1) and a dynamic-batch
+    "decoded" file, run by the port's numpy runner on the host at batch 1
+    and 3 against the card's fp32 artifacts on the same images."""
+    from yololite_tpu_torch.deploy.onnx_run import load_onnx
+    cpu = _cpu_name()
+    out = {}
+    ref = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for fmt in ("raw", "decoded"):
+            call, _ = deploy_export.load_exported(
+                os.path.join(out_dir, "float32", f"edge_n_{fmt}.pt2"))
+            got = call(x)
+            ref[fmt] = [t[:3].float().cpu().numpy()
+                        for t in (got.values() if isinstance(got, dict) else got)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    del call, got
+    host = x[:3].cpu().numpy()
+    for fmt, dyn in (("raw", False), ("decoded", False), ("decoded", True)):
+        t0 = time.perf_counter()
+        path = deploy_export.export_onnx(ckpt, out_dir=os.path.join(out_dir, f"onnx_{dyn}"),
+                                         fmt=fmt, img_size=IMG, dynamic_batch=dyn)
+        export_s = time.perf_counter() - t0
+        graph = load_onnx(path)
+        for b in ((1, 3) if dyn else (1,)):
+            graph(host[:b])                                   # warm-up
+            t0 = time.perf_counter()
+            outs = graph(host[:b])
+            ms = (time.perf_counter() - t0) * 1e3
+            err = max(float((np.abs(o - r[:b]) / (ONNX_TOL + ONNX_TOL * np.abs(r[:b]))).max())
+                      for o, r in zip(outs, ref[fmt]))
+            key = f"{fmt}{'_dynamic' if dyn else ''}_b{b}"
+            out[key] = {"host_ms": ms, "mb": os.path.getsize(path) / 1e6,
+                        "export_s": export_s, "err_over_tol": err,
+                        "nodes": graph.summary()["nodes"]}
+            log(f"export onnx {key}: {out[key]['mb']:.2f} MB, {out[key]['nodes']} nodes, "
+                f"host {ms:.1f} ms a call of batch {b}, |diff| / (1e-3 + 1e-3 |card|) <= "
+                f"{err:.3f} against the card's fp32 {fmt} [{cpu}; {card}]")
+            if err > 1.0:
+                raise AssertionError(f"ONNX {key} disagrees with the card's fp32 {fmt}")
+    return out
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -2095,7 +2468,9 @@ def main():
                          ("train", lambda: phase_train(card, data, tmp)),
                          ("device_augment", lambda: phase_device_augment(card, data, tmp)),
                          ("seg", lambda: phase_seg(card, tmp)),
-                         ("codecs", lambda: phase_codecs(card, data, tmp))):
+                         ("codecs", lambda: phase_codecs(card, data, tmp)),
+                         ("stream", lambda: phase_stream(card)),
+                         ("export", lambda: phase_export(card, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -2112,7 +2487,9 @@ def main():
                     launches_seg_serve={rel: r["launches"]
                                         for rel, r in phases["seg"]["serve"].items()},
                     launches_seg_train=phases["seg"]["train"]["launches"],
-                    launches_jpeg_train=phases["codecs"]["train"]["launches"])]
+                    launches_jpeg_train=phases["codecs"]["train"]["launches"],
+                    launches_stream=phases["stream"]["launches"],
+                    launches_export=phases["export"]["launches"])]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,

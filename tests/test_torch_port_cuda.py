@@ -199,3 +199,51 @@ def test_device_augment_card_matches_cpu(card):
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = dev_aug.photometric_augment(images.cuda(), gen)
     assert out.dtype == torch.uint8 and out.shape == images.shape and out.is_cuda
+
+
+@pytest.mark.cuda
+def test_registered_op_launches_the_kernel(card):
+    """`torch.ops.yololite.nms_suppress` on CUDA tensors is the kernel (one
+    launch counted), equal to the plain version; a failed check raises."""
+    rng = np.random.RandomState(12)
+    boxes = torch.from_numpy(_boxes(rng, 2, 300)).cuda()
+    valid = torch.from_numpy(rng.rand(2, 300) > 0.1).cuda()
+    before = cuda_nms.LAUNCHES
+    keep = torch.ops.yololite.nms_suppress(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_nms.LAUNCHES == before + 1 and keep.is_cuda
+    assert torch.equal(keep, cuda_nms.greedy_keep_reference(boxes, valid, 0.5))
+    with pytest.raises(ValueError, match="float32"):
+        torch.ops.yololite.nms_suppress(boxes.half(), valid, 0.5)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_artifact_equals_the_predictor(card, tmp_path):
+    """An fp32 "nms" `.pt2` exported on the card from a seeded edge_n at 128
+    px (TF32 off) gives the Predictor's detections bit for bit, with one
+    kernel launch a call."""
+    from yololite_tpu_torch.deploy.export import export_model, load_exported
+    from yololite_tpu_torch.deploy.predictor import Predictor
+    from yololite_tpu_torch.models.detector import build_model_from_config, init_weights
+    cfg = {"model": {"arch": "YOLOLiteMS_CPU", "backbone": "mobilenetv4_conv_small_050",
+                     "depth_multiple": 0.65, "width_multiple": 0.60, "fpn_channels": 160,
+                     "head_depth": 1, "num_classes": 3, "num_anchors_per_level": 1}}
+    model = init_weights(build_model_from_config(cfg), 0).eval()
+    weights = (model, model.state_dict(), {"img_size": 128, "names": ["a", "b", "c"]})
+    x = torch.from_numpy((np.random.RandomState(3).rand(4, 128, 128, 3) * 255)
+                         .astype(np.uint8)).cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pred = Predictor(weights, device="cuda", dtype=torch.float32)
+        want = pred._run(128, 0.001, 0.65, 300, x)
+        path = export_model(weights, out_dir=str(tmp_path), fmt="nms", batch=4, img_size=128,
+                            dtype=torch.float32, device="cuda")
+        call, meta = load_exported(path)
+        before = cuda_nms.LAUNCHES
+        got = call(x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert cuda_nms.LAUNCHES == before + 1 and meta["device"].startswith("cuda")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -60,3 +60,11 @@ def test_training_modules_are_covered():
                 "eval/evaluate.py", "data/imgops.py", "data/augment.py", "data/weather.py",
                 "data/device_augment.py", "data/coco_ingest.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files
+
+
+def test_deploy_and_track_modules_are_covered():
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("deploy/export.py", "deploy/onnx_emit.py", "deploy/onnx_proto.py",
+                "deploy/onnx_run.py", "deploy/infer_exported.py", "deploy/predictor.py",
+                "track/__init__.py", "track/kalman.py"):
+        assert os.path.join("yololite_tpu_torch", rel) in files

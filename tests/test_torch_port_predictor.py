@@ -94,8 +94,9 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
     cv2.imwrite(str(tmp_path / "f.tif"), frames[0])
     with pytest.raises(UnsupportedImage, match="TIFF"):
         model.predict(str(tmp_path / "f.tif"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model.export()
+    from yololite_tpu_torch.deploy.export import export_tflite
+    with pytest.raises(NotImplementedError, match="TFLite"):
+        export_tflite(ckpt)
     # training and validation are ported; what they still refuse raises
     # naming its ROADMAP item: multiple devices (with or without the
     # recipe's augmentation, which is ported)

@@ -27,6 +27,18 @@ OVERRIDES = dict(epochs=2, batch_size=4, img_size=64, augment=False, amp=False,
                  pretrained_backbone=os.path.join(ROOT, "weights", "mnv4_050_cls20.ckpt"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for these small CPU runs: the test files run in
+    parallel processes, and torch's default of one thread a core in each of
+    them oversubscribes the machine (this file took 763 s so, ~65 s alone)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("set"))

@@ -17,8 +17,8 @@ files of BGR arrays, or a folder of them; datasets take the same files
 8d and raises.
 A model name or yaml resolves as in the JAX API (configs/models, then
 v2_models, then custom); predicting needs a checkpoint, as there. Everything
-runs on `device` (the card by default; tests pass "cpu"). Export is ROADMAP
-Queue 1 item 12.
+runs on `device` (the card by default; tests pass "cpu"). `export` writes a
+`torch.export` program (`.pt2`) of the "raw", "decoded" or "nms" graph.
 """
 
 from __future__ import annotations
@@ -202,5 +202,22 @@ class YoloLite:
                 **stats, "best_f1": results["best_f1"], "best_conf": results["best_conf"],
                 "ms_per_img": results["ms_per_img"]}
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError("export: ROADMAP Queue 1 item 12")
+    def export(self, format: str = "decoded", batch: int = 1,
+               img_size: Optional[int] = None, simplify: bool = True,
+               verbose: bool = False, **kw) -> str:
+        """Export this object's checkpoint as a `.pt2` program
+        (`deploy/export.export_model`; `kw` goes there) on this object's
+        device. As in the JAX API, format="onnx" gives the "decoded"
+        artifact (JAX's StableHLO one; here the `.pt2`), not an ONNX file:
+        `deploy/export.export_onnx` writes ONNX."""
+        from yololite_tpu_torch.deploy.export import export_model
+        weights = self._src.get("weights", self._src.get("ckpt"))
+        if weights is None:
+            raise RuntimeError("export() needs a trained checkpoint; train first or "
+                               "pass a .ckpt path.")
+        fmt = {"onnx": "decoded"}.get(format, format)
+        kw.setdefault("device", self.device)
+        path = export_model(weights, fmt=fmt, batch=batch, img_size=img_size, **kw)
+        if verbose:
+            print(f"exported -> {path}")
+        return path

@@ -19,8 +19,9 @@ the JAX Predictor's default `unroll=8` approximates it on chains deeper
 than 8.
 
 Calls launch asynchronously on the current CUDA stream; results come back
-through pinned host buffers and an event, so `infer_batched_stream` keeps
-`depth` batches in flight while the host prepares the next one.
+through pinned host buffers and an event, so `infer_stream` (frames, batch
+1) and `infer_batched_stream` keep `depth` calls in flight while the host
+prepares the next one.
 """
 
 from __future__ import annotations
@@ -278,6 +279,42 @@ class Predictor:
                              {"preprocess_ms": per_pre, "inference_ms": per_inf,
                               "postprocess_ms": 0.0,
                               "total_ms": per_pre + per_inf}, img_size, probs)
+
+    def infer_stream(self, frames_bgr, img_size: Optional[int] = None,
+                     conf: float = 0.25, iou: float = 0.45, max_det: int = 300,
+                     depth: int = 2):
+        """Streaming video inference: a generator over an iterable of BGR
+        frames (batch 1, letterboxed) that keeps `depth` graph calls in flight
+        (depth <= 0: synchronous; JAX keeps one in flight at depth 0, with the
+        same results), so frame i+1's letterbox and upload overlap frame i's
+        device work. Yields, in order, dicts of `boxes` (frame pixels),
+        `scores`, `classes`, `names` and `speed` {preprocess_ms, sync_ms}; a
+        segmentation model's masks are dropped, as JAX drops them."""
+        img_size = int(img_size or self.img_size)
+        inflight = deque()
+
+        def finalize(item):
+            handle, (scale, px, py), (h, w), t_pre = item
+            t0 = time.perf_counter()
+            boxes, scores, classes, valid = self._wait(handle)
+            m = valid[0]
+            b = unletterbox_boxes(boxes[0][m], scale, px, py, w, h)
+            return {"boxes": b, "scores": scores[0][m], "classes": classes[0][m],
+                    "names": self.names,
+                    "speed": {"preprocess_ms": t_pre * 1e3,
+                              "sync_ms": (time.perf_counter() - t0) * 1e3}}
+
+        for frame in frames_bgr:
+            t0 = time.perf_counter()
+            canvas, geom = self.preprocess(np.ascontiguousarray(frame[..., ::-1]),
+                                           img_size)
+            t_pre = time.perf_counter() - t0
+            inflight.append((self._launch(img_size, conf, iou, max_det, canvas[None]),
+                             geom, frame.shape[:2], t_pre))
+            if len(inflight) > max(depth, 0):
+                yield finalize(inflight.popleft())
+        while inflight:
+            yield finalize(inflight.popleft())
 
     def infer_batched_stream(self, batches, img_size: Optional[int] = None,
                              conf: float = 0.25, iou: float = 0.45,

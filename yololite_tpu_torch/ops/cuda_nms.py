@@ -21,9 +21,15 @@ zeroed), then a scan, one block per image, that resolves 32 rows at a time
 in one warp's registers and ORs the kept rows into a `removed` bitset in
 shared memory.
 
-`greedy_keep` takes CPU tensors to `greedy_keep_reference` (the plain PyTorch
-fixpoint on `box_iou_matrix`); for CUDA tensors it launches the kernel or
-raises. `LAUNCHES` counts kernel calls (mask pass and scan together count
+The kernel is the registered op `yololite::nms_suppress(Tensor boxes, Tensor
+valid, float iou_th) -> Tensor keep` (`torch.library.custom_op`), so that
+`torch.export` can trace a graph that calls it: the CUDA implementation
+launches the kernel (ctypes on `data_ptr()`s, which only real tensors have)
+or raises; the CPU implementation is `greedy_keep_reference` (the plain
+PyTorch fixpoint on `box_iou_matrix`); the fake implementation gives the
+bool [B, k] shape to a tracer. `greedy_keep` calls the op, so serving,
+validation, streaming and every exported graph share one route to the
+kernel. `LAUNCHES` counts kernel calls (mask pass and scan together count
 one).
 """
 
@@ -74,13 +80,24 @@ def mask_words(k: int) -> int:
 def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
                 iou_th: float) -> torch.Tensor:
     """boxes [B,k,4] float32 (class-shifted, score-descending), valid [B,k]
-    bool -> keep [B,k] bool. CUDA tensors go through the kernel, CPU tensors
-    through `greedy_keep_reference`."""
-    global LAUNCHES
-    if boxes.device.type == "cpu":
-        return greedy_keep_reference(boxes, valid, iou_th)
-    if boxes.device.type != "cuda":
+    bool -> keep [B,k] bool, through `torch.ops.yololite.nms_suppress`: CUDA
+    tensors launch the kernel, CPU tensors take `greedy_keep_reference`."""
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_keep: unsupported device {boxes.device}")
+    return torch.ops.yololite.nms_suppress(boxes, valid, float(iou_th))
+
+
+@torch.library.custom_op("yololite::nms_suppress", mutates_args=(), device_types="cpu")
+def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float) -> torch.Tensor:
+    """The plain version (a fresh tensor: an op's output may not alias `valid`)."""
+    return greedy_keep_reference(boxes, valid, iou_th).clone()
+
+
+@nms_suppress.register_kernel("cuda")
+def _nms_suppress_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_th: float) -> torch.Tensor:
+    """Launch the kernel on the current stream, or raise."""
+    global LAUNCHES
     if boxes.dtype != torch.float32 or boxes.ndim != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"greedy_keep: boxes must be float32 [B,k,4], got "
                          f"{boxes.dtype} {tuple(boxes.shape)}")
@@ -105,3 +122,9 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return keep
+
+
+@nms_suppress.register_fake
+def _nms_suppress_fake(boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_th: float) -> torch.Tensor:
+    return torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
