@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   a CUDA card must be present; prints `nvidia-smi` name, power limit
-  2. build    compiles every CUDA source of the serving path and the host
-              image codec (build/kernels/)
+  2. build    compiles every CUDA source (nms_suppress.cu, int8_conv.cu)
+              and host C++ library (imgcodec.cpp, native.cpp) into
+              build/kernels/, all at once
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the serving and training paths' shapes and beyond
               (nms_suppress: B=128 at k = 256, 512, 1024, 2048; B=1 at
@@ -87,6 +88,24 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               peak GB; edge_n ONNX ("raw", "decoded", a dynamic-batch file)
               run on the host by the port's runner against the card's fp32
               "decoded" (1e-3); YoloLite.export() once
+ 14. quant    the Predictor's deploy variants, QAT and the host C++ library,
+              edge_n @640 b128 bf16 with the serve phase's weights: the
+              three int8 kernels (csrc/int8_conv.cu) against their plain
+              versions (x_q, s_x, int32 accumulators, output: equal) at
+              every distinct quantized conv call of edge_n and edge_n_seg at
+              b128 and of every other detection config at b2, timed at
+              edge_n's beside their bounds and torch._int_mm (1x1);
+              Predictor(quantize="int8") img/s from device and host batches
+              beside bf16 in turns with every kernel's launches counted, the
+              stage split, peak GB, the share of int8 detections bf16
+              finds, the card's fp32 int8 against the CPU's (>= 99%
+              matched); one edge_n_seg int8 b128 call; 10 QAT steps of
+              edge_n b8 beside plain ones, an int8 Predictor serving the
+              QAT checkpoint; Predictor(s2d_stem=True) against the folded
+              one (fp32 within 1e-4, bf16 >= 99% matched at IoU 0.99), img/s
+              in turns, the host pack's ms (C++ and numpy); evaluate_model
+              with the C++ and the Python matcher (equal stats, both times)
+              and nms_numpy on one "decoded" output
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -94,6 +113,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import copy
 import glob
 import hashlib
 import json
@@ -123,7 +143,10 @@ from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
 from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
 from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
+from yololite_tpu_torch import native  # noqa: E402
 from yololite_tpu_torch.deploy import export as deploy_export  # noqa: E402
+from yololite_tpu_torch.deploy import infer_exported as deploy_infer_exported  # noqa: E402
+from yololite_tpu_torch.deploy import s2d as deploy_s2d  # noqa: E402
 from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
 from yololite_tpu_torch.deploy.predictor import PRE_NMS_TOPK, Predictor  # noqa: E402
 from yololite_tpu_torch.eval.evaluate import evaluate_model  # noqa: E402
@@ -131,12 +154,12 @@ from yololite_tpu_torch.models.detector import (  # noqa: E402
     build_model_from_config, count_params, init_weights,
 )
 from yololite_tpu_torch.models.layers import BatchNorm  # noqa: E402
-from yololite_tpu_torch.ops import cuda_nms  # noqa: E402
+from yololite_tpu_torch.ops import cuda_int8, cuda_nms, quant  # noqa: E402
 from yololite_tpu_torch.losses.simota import mask_losses  # noqa: E402
 from yololite_tpu_torch.ops.decode import decode_anchorfree, flatten_levels  # noqa: E402
 from yololite_tpu_torch.ops.masks import assemble_masks_batch  # noqa: E402
 from yololite_tpu_torch.ops.nms import (  # noqa: E402
-    batched_nms, finalize_detections, select_candidates, yolo_scores,
+    batched_nms, finalize_detections, nms_numpy, select_candidates, yolo_scores,
 )
 from yololite_tpu_torch.train.checkpoint import (  # noqa: E402
     build_meta, load_checkpoint, save_checkpoint,
@@ -268,8 +291,14 @@ EXPORT_BF16_MATCH = 0.99
 ONNX_TOL = 1e-3
 EXPORT_CONFIGS = ("configs/models/edge_n.yaml", "configs/models/edge_n_seg.yaml")
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
-            "replaces": "yololite_tpu/ops/pallas_nms.py:74"}]
-HOST_LIBS = ["imgcodec"]      # host C++ (csrc/imgcodec.cpp): the image codecs, no kernel
+            "replaces": "yololite_tpu/ops/pallas_nms.py:74"}] + [
+    {"name": name, "route": "cuda", "source": cuda_int8.SOURCE, "replaces": replaces}
+    for name, replaces in (("int8_quantize", "yololite_tpu/ops/quant.py:42 (XLA, no Pallas)"),
+                           ("int8_conv_dense", "yololite_tpu/ops/quant.py:48 (XLA, no Pallas)"),
+                           ("int8_conv_depthwise",
+                            "yololite_tpu/ops/quant.py:48 (XLA, no Pallas)"))]
+KERNEL_SOURCES = ["nms_suppress", "int8_conv"]      # csrc/<name>.cu
+HOST_LIBS = ["imgcodec", "native"]   # host C++ (csrc/*.cpp): image codecs; NMS, matcher, pack
 CODEC_FIXTURES = os.path.join(ROOT, "tests", "data", "codecs")
 
 
@@ -315,10 +344,11 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Every CUDA kernel (nvcc) and the host image codec (the host C++
-    compiler), one compiler process per source, started together."""
+    """Every CUDA source (nvcc: the NMS and int8 kernels) and every host C++
+    library (the image codec; NMS, matcher and s2d pack), one compiler
+    process per source, started together."""
     t0 = time.perf_counter()
-    secs = kbuild.build([k["name"] for k in KERNELS] + HOST_LIBS)
+    secs = kbuild.build(KERNEL_SOURCES + HOST_LIBS)
     for name, s in secs.items():
         log(f"build {name}: {s:.2f} s" if s else f"build {name}: cached "
             f"({kbuild.library_path(name).name} was already built)")
@@ -2443,6 +2473,579 @@ def export_onnx_host(card: str, ckpt: str, out_dir: str, x: torch.Tensor):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# quant: the Predictor's deploy variants (int8, s2d), QAT and the host C++
+PEAK_INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core rate
+QUANT_BATCHES = 4                # b128 batches a serving run
+QUANT_CPU_FRAMES = 4
+QUANT_SCORE_TOL = 1e-4           # int8 fp32 card vs CPU: scores of matched boxes
+QAT_STEPS = 10
+S2D_FP32_RTOL = 1e-4
+S2D_BF16_MATCH = 0.99
+
+
+def _conv_key(mod, x):
+    return (tuple(x.shape), mod.out_channels, mod.kernel_size, mod.stride, mod.groups,
+            mod.bias is not None)
+
+
+def _int8_args(mod):
+    if mod.depthwise:
+        return (mod.w_packed, mod.s_w, mod.bias_f32, mod.stride, mod.padding)
+    return (mod.w_packed, mod.s_w, mod.bias_f32, mod.kernel_size, mod.stride, mod.padding)
+
+
+def _int8_bounds(mod, x, out_numel: int):
+    """(quantize, conv) least ms on this card's published peaks: each input
+    read once, each output written once; the conv's int8 ops from its shapes."""
+    n = x.numel()
+    q_bytes = n * (x.element_size() + 1) + 4
+    taps = mod.kernel_size[0] * mod.kernel_size[1]
+    k = taps * (1 if mod.depthwise else mod.in_channels)
+    ops = 2.0 * out_numel * k
+    c_bytes = n + mod.w_packed.numel() + 8 * mod.out_channels + out_numel * x.element_size()
+    conv = max(c_bytes / PEAK_BYTES_S, ops / PEAK_INT8_OPS) * 1e3
+    by = "bytes" if c_bytes / PEAK_BYTES_S >= ops / PEAK_INT8_OPS else "operations"
+    return q_bytes / PEAK_BYTES_S * 1e3, conv, by
+
+
+def _check_int8_call(mod, x, timing: bool):
+    """Every kernel of one quantized conv call against its plain version:
+    x_q, s_x, the int32 accumulators and the output equal. With `timing`,
+    the kernels', plain versions' and (1x1 dense) torch._int_mm's ms."""
+    q, s = cuda_int8.quantize(x)
+    q0, s0 = cuda_int8.quantize_reference(x)
+    kernel = cuda_int8.conv_depthwise if mod.depthwise else cuda_int8.conv_dense
+    plain = (cuda_int8.conv_depthwise_reference if mod.depthwise
+             else cuda_int8.conv_dense_reference)
+    args = _int8_args(mod)
+    acc, acc0 = kernel(q, s, *args, torch.int32), plain(q, s, *args, torch.int32)
+    out, out0 = kernel(q, s, *args, x.dtype), plain(q, s, *args, x.dtype)
+    torch.cuda.synchronize()
+    same = {"x_q": torch.equal(q, q0), "s_x": torch.equal(s, s0),
+            "acc": torch.equal(acc, acc0), "out": torch.equal(out, out0)}
+    if not all(same.values()):
+        raise AssertionError(f"int8 kernels differ from their plain versions at "
+                             f"{_conv_key(mod, x)}: {same}")
+    row = {"shape": list(x.shape), "cout": mod.out_channels, "kernel": list(mod.kernel_size),
+           "stride": list(mod.stride), "depthwise": bool(mod.depthwise),
+           "quantize_err": float((q.int() - q0.int()).abs().max()),
+           "conv_err": max(float((acc - acc0).abs().max()),
+                           float((out.float() - out0.float()).abs().max()))}
+    if timing:
+        bq, bc, by = _int8_bounds(mod, x, out.numel())
+        row.update(quantize_ms=cuda_ms(lambda: cuda_int8.quantize(x), 5),
+                   quantize_plain_ms=cuda_ms(lambda: cuda_int8.quantize_reference(x), 2, 1),
+                   conv_ms=cuda_ms(lambda: kernel(q, s, *args, x.dtype), 5),
+                   conv_plain_ms=cuda_ms(lambda: plain(q, s, *args, x.dtype), 1, 1),
+                   quantize_bound_ms=bq, conv_bound_ms=bc, conv_bound_by=by, library_ms=None)
+        if not mod.depthwise and mod.kernel_size == (1, 1) and mod.stride == (1, 1):
+            m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
+            if m > 16 and c % 8 == 0 and mod.out_channels % 8 == 0:
+                a2 = q.permute(0, 2, 3, 1).reshape(m, c)
+                b2 = mod.w_packed[:, :c].contiguous().t()
+                if not torch.equal(torch._int_mm(a2, b2), acc.permute(0, 2, 3, 1).reshape(m, -1)):
+                    raise AssertionError("torch._int_mm disagrees with the int32 accumulators")
+                row["library_ms"] = cuda_ms(lambda: torch._int_mm(a2, b2), 5)
+    del q, q0, acc, acc0, out, out0
+    return row
+
+
+def check_int8_model(pred, batch: torch.Tensor, timing: bool):
+    """Run the int8 Predictor's forward once on `batch` (on the card) and
+    hold every distinct quantized conv call against the plain versions.
+    Returns (rows by distinct call, calls per forward by key)."""
+    rows, calls = {}, {}
+
+    def hook(mod, args):
+        x = args[0]
+        if not quant.should_quantize(x):
+            return
+        key = _conv_key(mod, x)
+        calls[key] = calls.get(key, 0) + 1
+        if key not in rows:
+            rows[key] = _check_int8_call(mod, x, timing)
+
+    hooks = [m.register_forward_pre_hook(hook) for m in pred.model.modules()
+             if isinstance(m, quant.Int8Conv2d)]
+    try:
+        with torch.inference_mode():
+            pred.forward(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.empty_cache()
+    return rows, calls
+
+
+def _kernel_totals(rows, calls):
+    """Per kernel, the sums over one b128 forward's quantized conv calls."""
+    tot = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, ms_1x1=None,
+                      ops_bound=0, calls=0, max_abs_err=0.0) for name in cuda_int8.KERNEL_NAMES}
+    for key, r in rows.items():
+        n = calls[key]
+        conv = "int8_conv_depthwise" if r["depthwise"] else "int8_conv_dense"
+        for name, ms, plain, bound, err in (
+                ("int8_quantize", r["quantize_ms"], r["quantize_plain_ms"], r["quantize_bound_ms"],
+                 r["quantize_err"]),
+                (conv, r["conv_ms"], r["conv_plain_ms"], r["conv_bound_ms"], r["conv_err"])):
+            t = tot[name]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["ms"] += n * ms
+            t["plain_ms"] += n * plain
+            t["bound_ms"] += n * bound
+            t["calls"] += n
+        tot[conv]["ops_bound"] += n * (r["conv_bound_by"] == "operations")
+        if r["library_ms"] is not None:
+            t = tot["int8_conv_dense"]
+            t["library_ms"] = (t["library_ms"] or 0.0) + n * r["library_ms"]
+            t["ms_1x1"] = (t["ms_1x1"] or 0.0) + n * r["conv_ms"]
+    for name, t in tot.items():
+        t["bound_by"] = ("bytes" if name == "int8_quantize" or t["ops_bound"] * 2 < t["calls"]
+                         else "operations")
+    return tot
+
+
+def _kernel_ms(pred, x, kw, iters: int = 3):
+    """torch.profiler over `iters` b128 graph calls: device ms a call by
+    kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        pred.postprocess(pred.forward(x), IMG, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                pred.postprocess(pred.forward(x), IMG, **kw)
+            torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
+    return out
+
+
+def _stage_split(pred, x, kw, card: str):
+    """Device ms a b128 call in the int8 quantize passes, the int8 convs,
+    cuDNN's convs, BatchNorm and activations, and the rest (adds,
+    upsampling, decode, NMS), by kernel name."""
+    split = {"int8 quantize": 0.0, "int8 conv dense": 0.0, "int8 conv depthwise": 0.0,
+             "cuDNN conv": 0.0, "BN/activation": 0.0, "rest": 0.0}
+    for k, ms in _kernel_ms(pred, x, kw).items():
+        if "absmax_kernel" in k or "quantize_kernel" in k:
+            split["int8 quantize"] += ms
+        elif "conv_dense_kernel" in k:
+            split["int8 conv dense"] += ms
+        elif "conv_depthwise_kernel" in k:
+            split["int8 conv depthwise"] += ms
+        elif any(s in k.lower() for s in ("conv", "implicit", "cudnn", "xmma", "sm90")):
+            split["cuDNN conv"] += ms
+        elif any(a in k.lower() for a in ("batch_norm", "bn_", "clamp", "threshold",
+                                          "relu", "silu", "hardswish", "gelu")):
+            split["BN/activation"] += ms
+        else:
+            split["rest"] += ms
+    log(f"quant stages (profiler, device ms per b{BATCH} call): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{card}]")
+    return split
+
+
+def _serve_turns(preds, batches, kw, order):
+    """img/s of infer_batched_stream (prepared, depth 2) over QUANT_BATCHES
+    batches, from each Predictor's device batches and host batches
+    (`batches[name]["device"|"host"]`), in the given turns. The launch
+    counts are set to 0 before each turn and summed per Predictor after it,
+    so each Predictor's count holds its own launches only."""
+    out = {name: {"device": [], "host": []} for name in preds}
+    launches = {name: dict.fromkeys((*cuda_int8.KERNEL_NAMES, "nms_suppress"), 0)
+                for name in preds}
+    for name in order:
+        pred = preds[name]
+        for src in ("device", "host"):
+            src_batches = batches[name][src]
+            torch.cuda.synchronize()
+            cuda_int8.reset_launches()
+            cuda_nms.LAUNCHES = 0
+            t0 = time.perf_counter()
+            for _ in pred.infer_batched_stream(
+                    (src_batches[i % 2] for i in range(QUANT_BATCHES)),
+                    prepared=True, depth=2, **kw):
+                pass
+            out[name][src].append(QUANT_BATCHES * BATCH / (time.perf_counter() - t0))
+            for k, v in dict(cuda_int8.LAUNCHES, nms_suppress=cuda_nms.LAUNCHES).items():
+                launches[name][k] += v
+    return out, launches
+
+
+def _score_gap(card_dets, cpu_dets, box_tol):
+    """Largest, over card detections with a CPU detection of the same class
+    and box within box_tol px, of the smallest score difference to one."""
+    gap = 0.0
+    for (b, s, c), (cb, cs, cc) in zip(card_dets, cpu_dets):
+        for i in range(len(b)):
+            same = (cc == c[i]) & (np.abs(cb - b[i]).max(-1) <= box_tol)
+            if same.any():
+                gap = max(gap, float(np.abs(cs[same] - s[i]).min()))
+    return gap
+
+
+def _dets(pred, x, kw):
+    with torch.inference_mode():
+        return [t.cpu() for t in pred.postprocess(pred.forward(pred._upload(x)), IMG, **kw)[:4]]
+
+
+def quant_int8(card: str, model, meta, host, dev, kw):
+    """int8 serving of edge_n at b128: kernels against plain versions at every
+    distinct quantized conv call (timed), launches in the serving window,
+    img/s beside bf16 in turns, the stage split, peak memory, the share of
+    int8 detections found by bf16, and the card's fp32 int8 against the CPU's."""
+    weights = (model, model.state_dict(), meta)
+    pred8 = Predictor(weights, device="cuda", dtype=torch.bfloat16, quantize="int8")
+    predbf = Predictor(weights, device="cuda", dtype=torch.bfloat16)
+    rows, calls = check_int8_model(pred8, dev[0], timing=True)
+    tot = _kernel_totals(rows, calls)
+    log(f"quant int8 edge_n b{BATCH}: {len(rows)} distinct quantized conv calls "
+        f"({sum(calls.values())} a forward), kernels equal their plain versions "
+        f"(x_q, s_x, int32 accumulators, bf16 output) [{card}]")
+    for name, t in tot.items():
+        log(f"kernel {name}: {t['ms']:.3f} ms a b{BATCH} forward over {t['calls']} calls, "
+            f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), plain {t['plain_ms']:.3f} ms"
+            + (f", 1x1 calls {t['ms_1x1']:.3f} ms vs torch._int_mm {t['library_ms']:.3f} ms"
+               if t["library_ms"] is not None else "") + f" [{card}]")
+    for p in (pred8, predbf):           # the b128 graphs' first calls, not timed
+        list(p.infer_batched_stream([dev[0], host[0]], prepared=True, **kw))
+    order = ("bf16", "int8", "int8", "bf16")
+    ips, by_pred = _serve_turns({"bf16": predbf, "int8": pred8},
+                                dict.fromkeys(order, {"device": dev, "host": host}), kw, order)
+    launches = by_pred["int8"]
+    # the int8 turns' graph calls: 2 turns x (device, host) x QUANT_BATCHES;
+    # each launches nms_suppress once and every kernel once per call of it
+    graph_calls = order.count("int8") * 2 * QUANT_BATCHES
+    want = dict({k: graph_calls * t["calls"] for k, t in tot.items()},
+                nms_suppress=graph_calls)
+    log(f"quant serve launches, int8 turns: {launches} (want {want}); bf16 turns: "
+        f"{by_pred['bf16']}")
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"the int8 serving path launched {launches}, not {want}")
+    if any(by_pred["bf16"][k] for k in cuda_int8.KERNEL_NAMES):
+        raise AssertionError(f"the bf16 Predictor launched int8 kernels: {by_pred['bf16']}")
+    for name, r in ips.items():
+        log(f"quant serve {name} b{BATCH}: img/s from device batches "
+            f"{', '.join(f'{v:.1f}' for v in r['device'])}; from host uint8 batches "
+            f"{', '.join(f'{v:.1f}' for v in r['host'])} [{card}]")
+    x = dev[0]
+    with torch.inference_mode():
+        graph = {name: cuda_ms(lambda p=p: p.postprocess(p.forward(x), IMG, **kw), 5)
+                 for name, p in (("bf16", predbf), ("int8", pred8))}
+        fwd = {name: cuda_ms(lambda p=p: p.forward(x), 5)
+               for name, p in (("bf16", predbf), ("int8", pred8))}
+    stages = _stage_split(pred8, x, kw, card)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        pred8.postprocess(pred8.forward(x), IMG, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    share, n = _iou_matched(_dets(predbf, x, kw), _dets(pred8, x, kw), 0.5)
+    log(f"quant graph b{BATCH}: whole graph int8 {graph['int8']:.3f} ms, bf16 "
+        f"{graph['bf16']:.3f} ms; forward int8 {fwd['int8']:.3f} ms, bf16 {fwd['bf16']:.3f} "
+        f"ms; int8 peak {peak:.2f} GB; {share:.4f} of {n} int8 detections found by bf16 "
+        f"(same class, IoU >= 0.5; the quantization error, not held) [{card}]")
+    # the card's fp32 int8 Predictor against the CPU's on a few frames
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        g32 = Predictor(weights, device="cuda", dtype=torch.float32, quantize="int8")
+        c32 = Predictor(weights, device="cpu", dtype=torch.float32, quantize="int8")
+        frames = host[0][:QUANT_CPU_FRAMES]
+        # the CPU keeps 3x as many: the seeded heads' top 100 scores lie
+        # close together (their spread is logged below), so a one-level
+        # flip may move a detection across the card's max_det cut
+        dg = [g32.infer_image(f[..., ::-1], conf=0.001, max_det=100) for f in frames]
+        dc = [c32.infer_image(f[..., ::-1], conf=0.001, max_det=300) for f in frames]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    frac, total = _match(dg, dc, 1.0, QUANT_SCORE_TOL)
+    gap = _score_gap(dg, dc, 1.0)
+    spread = max(float(s.max() - s.min()) for _, s, _ in dg)
+    log(f"quant int8 fp32 card vs CPU on {len(frames)} frames: {frac:.4f} of the card's "
+        f"{total} top-100 detections among the CPU's top 300 (same class, boxes within "
+        f"1 px, scores within {QUANT_SCORE_TOL}; need >= 0.99); largest score difference "
+        f"of a box match {gap:.3e}, the card's top-100 score spread {spread:.3e}")
+    if total == 0 or frac < 0.99:
+        raise AssertionError("int8 fp32 card and CPU detections disagree")
+    return {"rows": list(rows.values()), "totals": tot, "launches": launches, "img_s": ips,
+            "graph_ms": graph, "forward_ms": fwd, "stages_ms": stages, "peak_gb": peak,
+            "bf16_match": share, "dets": n, "cpu_match": frac, "cpu_score_gap": gap}
+
+
+def quant_shapes(card: str, dev):
+    """Kernels against plain versions at every distinct quantized conv call of
+    edge_n_seg at b128 and of every other detection config at b2 (@640)."""
+    counts = {}
+    seg_rel = "configs/models/edge_n_seg.yaml"
+    cfg = _seg_config(seg_rel)
+    seg = _seg_model(seg_rel, cfg, dev[0][:8])
+    meta = {"img_size": IMG, "names": ["c0", "c1", "c2"]}
+    pred = Predictor((seg, seg.state_dict(), meta), device="cuda", quantize="int8")
+    rows, _ = check_int8_model(pred, dev[0], timing=False)
+    counts["edge_n_seg_b128"] = len(rows)
+    kw = dict(conf=0.001, iou=0.45, max_det=300)
+    with torch.inference_mode():
+        out = pred.postprocess(pred.forward(dev[0]), IMG, **kw)
+        seg_ms = cuda_ms(lambda: pred.postprocess(pred.forward(dev[0]), IMG, **kw), 3)
+    if not (torch.isfinite(out[4]).all() and out[4].shape[:2] == (BATCH, 300)):
+        raise AssertionError("edge_n_seg int8: masks not finite / not [B, max_det, ...]")
+    log(f"quant edge_n_seg int8 b{BATCH}: finite masks {tuple(out[4].shape)}, whole graph "
+        f"{seg_ms:.3f} ms [{card}]")
+    del pred, out
+    for rel, cfg in zoo_configs():
+        if rel.endswith("/edge_n.yaml"):
+            continue
+        model = init_weights(build_model_from_config(cfg), 0).eval()
+        pred = Predictor((model, model.state_dict(), meta), device="cuda", quantize="int8")
+        rows, _ = check_int8_model(pred, dev[0][:2], timing=False)
+        counts[rel] = len(rows)
+        del pred, model
+    torch.cuda.empty_cache()
+    log(f"quant shapes: kernels equal their plain versions at {sum(counts.values())} "
+        f"distinct quantized conv calls ({counts}) [{card}]")
+    return {"distinct_calls": counts, "seg_graph_ms": seg_ms}
+
+
+def quant_qat(card: str, data: str, tmp: str):
+    """QAT_STEPS steps of edge_n b8 @640 bf16 with training.qat, beside the
+    plain step; an int8 Predictor serves the QAT checkpoint."""
+    out = {}
+    batch = _first_batch(_edge_n_train_config(data, amp=True))
+    for qat in (False, True, True, False):
+        cfg = _edge_n_train_config(data, amp=True)
+        cfg["training"]["qat"] = qat
+        params, stats = _seeded_flax_edge_n(cfg)
+        trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=100, device="cuda")
+        state = trainer.state_from_weights(params, stats)
+        start = [p.detach().clone() for p in state.params]
+        b = trainer.put_batch(batch)
+        lr = trainer.lr_vector(1e-3)
+        losses = []
+        trainer.train_step(state, b, lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(QAT_STEPS - 1):
+            _, m = trainer.train_step(state, b, lr)
+            losses.append(m["total"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (QAT_STEPS - 1)
+        losses = [float(v) for v in losses]
+        moved = max(float((p.detach() - s).abs().max()) for p, s in zip(state.params, start))
+        if not (np.isfinite(losses).all() and moved > 0):
+            raise AssertionError(f"qat={qat}: losses {losses}, moved {moved}")
+        out.setdefault("qat" if qat else "plain", []).append(step_ms)
+        if qat and "ckpt" not in out:
+            if trainer.qat is not True or not isinstance(
+                    state.model.backbone.ConvBNAct_0.Conv_0, quant.FakeQuantConv2d):
+                raise AssertionError("training.qat did not make fake-quant convs")
+            p, bs = to_flax(trainer.ema_variables(state))
+            out["ckpt"] = save_checkpoint(os.path.join(tmp, "qat.ckpt"), p, bs,
+                                          build_meta(cfg, {}, "map", ["c0", "c1", "c2"],
+                                                     (1, 1, 1)))
+            out["losses"] = losses
+        del trainer, state
+    pred = Predictor(out["ckpt"], device="cuda", quantize="int8")
+    res = list(pred.infer_batched_stream([batch["image"]], prepared=True, conf=0.001))
+    if len(res[0]) != len(batch["image"]) or not all(np.isfinite(r["boxes"]).all()
+                                                    for r in res[0]):
+        raise AssertionError("the int8 Predictor did not serve the QAT checkpoint")
+    log(f"quant qat edge_n b8 @{IMG} bf16: step ms plain {out['plain']}, QAT {out['qat']} "
+        f"(host clock, synced, {QAT_STEPS - 1} steps each); losses {out['losses'][:3]}... "
+        f"finite, parameters move; the int8 Predictor serves its checkpoint [{card}]")
+    return {k: v for k, v in out.items() if k != "ckpt"}
+
+
+def quant_s2d(card: str, model, meta, host, dev, kw):
+    """s2d against the folded Predictor: fp32 outputs, bf16 detections, img/s
+    in turns (packed device batches, host batches with the pack), host pack ms."""
+    weights = (model, model.state_dict(), meta)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        s32 = Predictor(weights, device="cuda", dtype=torch.float32, s2d_stem=True)
+        f32 = Predictor(weights, device="cuda", dtype=torch.float32)
+        x = dev[0][:8]
+        with torch.inference_mode():
+            err = max(_scale_err(a, b) for a, b in zip(s32.forward(s32._upload(x)),
+                                                        f32.forward(x)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    del s32, f32
+    s2d_p = Predictor(weights, device="cuda", dtype=torch.bfloat16, s2d_stem=True)
+    fold = Predictor(weights, device="cuda", dtype=torch.bfloat16)
+    if not (s2d_p.s2d and isinstance(s2d_p.model.backbone.ConvBNAct_0.Conv_0,
+                                     deploy_s2d.S2DStemConv)):
+        raise AssertionError("s2d_stem=True did not rewrite the stem")
+    match, n = _iou_matched(_dets(s2d_p, dev[0], kw), _dets(fold, dev[0], kw), 0.99)
+    log(f"quant s2d: fp32 outputs vs folded {err:.3e} of their scale (need <= "
+        f"{S2D_FP32_RTOL}); bf16 {match:.4f} of {n} folded detections matched at IoU 0.99 "
+        f"(need >= {S2D_BF16_MATCH}) [{card}]")
+    if err > S2D_FP32_RTOL or match < S2D_BF16_MATCH or n == 0:
+        raise AssertionError("s2d Predictor disagrees with the folded one")
+    packed_dev = [deploy_s2d.pack_s2d_device(d) for d in dev]
+    t0 = time.perf_counter()
+    packed_host = deploy_s2d.pack_s2d(host[0])
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = native.pack_s2d_plain(host[0])
+    pack_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(packed_host, plain)
+            and np.array_equal(packed_dev[0].cpu().numpy(), plain)):
+        raise AssertionError("s2d packs (C++, numpy, device) disagree")
+    list(s2d_p.infer_batched_stream([packed_dev[0], host[0]], prepared=True, **kw))
+    list(fold.infer_batched_stream([dev[0], host[0]], prepared=True, **kw))
+    ips, _ = _serve_turns({"folded": fold, "s2d": s2d_p},
+                          {"folded": {"device": dev, "host": host},
+                           "s2d": {"device": packed_dev, "host": host}},
+                          kw, ("folded", "s2d", "s2d", "folded"))
+    with torch.inference_mode():
+        graph = {"s2d": cuda_ms(lambda: s2d_p.postprocess(s2d_p.forward(packed_dev[0]), IMG,
+                                                          **kw), 5),
+                 "folded": cuda_ms(lambda: fold.postprocess(fold.forward(dev[0]), IMG, **kw), 5)}
+    # where the graphs differ: device ms a call by kernel, s2d minus folded
+    ks, kf = _kernel_ms(s2d_p, packed_dev[0], kw), _kernel_ms(fold, dev[0], kw)
+    diff = {k: ks.get(k, 0.0) - kf.get(k, 0.0) for k in set(ks) | set(kf)}
+    top = sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:6]
+    log(f"quant s2d profile (device ms a b{BATCH} call): s2d {sum(ks.values()):.3f}, folded "
+        f"{sum(kf.values()):.3f}; largest differences by kernel: "
+        + "; ".join(f"{k[:90]} {ks.get(k, 0.0):.3f} vs {kf.get(k, 0.0):.3f}" for k, _ in top)
+        + f" [{card}]")
+    for name, r in ips.items():
+        log(f"quant s2d serve {name} b{BATCH}: img/s from device batches "
+            f"{', '.join(f'{v:.1f}' for v in r['device'])}; from host batches "
+            f"{', '.join(f'{v:.1f}' for v in r['host'])} [{card}]")
+    log(f"quant s2d graph b{BATCH}: s2d {graph['s2d']:.3f} ms, folded {graph['folded']:.3f} "
+        f"ms; host pack of b{BATCH} @{IMG}: C++ {pack_ms:.1f} ms, numpy {pack_plain_ms:.1f} "
+        f"ms [{card}; {_cpu_name()}]")
+    return {"fp32_err": err, "bf16_match": match, "dets": n, "img_s": ips, "graph_ms": graph,
+            "pack_ms": pack_ms, "pack_plain_ms": pack_plain_ms,
+            "profile_diff_ms": {k: [ks.get(k, 0.0), kf.get(k, 0.0)] for k, _ in top}}
+
+
+def _match_pairs(seed: int, n_images: int, n_cls: int, n_dets: int):
+    """Seeded COCO matcher inputs: for each of n_images, 1-15 ground truths
+    (5% ignored, sorted last) and n_dets detections (half jittered copies of
+    the ground truths, 80% of their class), split into (image, category)
+    pairs of [D,G] IoU matrices with the detections by descending score."""
+    from yololite_tpu_torch.eval.coco import iou_xywh_matrix
+    rng = np.random.RandomState(seed)
+    pairs = []
+    for _ in range(n_images):
+        g = rng.randint(1, 16)
+        gt = np.concatenate([rng.rand(g, 2) * (IMG - 80), rng.rand(g, 2) * 120 + 8], 1)
+        gc = rng.randint(0, n_cls, g)
+        src = rng.randint(0, g, n_dets)
+        dt = gt[src] + rng.randn(n_dets, 4) * np.array([6.0, 6.0, 8.0, 8.0])
+        dt[n_dets // 2:, :2] = rng.rand(n_dets - n_dets // 2, 2) * (IMG - 80)
+        dt[:, 2:] = np.maximum(dt[:, 2:], 2.0)
+        dc = np.where(rng.rand(n_dets) < 0.8, gc[src], rng.randint(0, n_cls, n_dets))
+        sc = rng.rand(n_dets)
+        ig = rng.rand(g) < 0.05
+        for c in range(n_cls):
+            d, k = np.where(dc == c)[0], np.where(gc == c)[0]
+            if len(d) and len(k):
+                d = d[np.argsort(-sc[d], kind="stable")]
+                k = k[np.argsort(ig[k], kind="stable")]
+                pairs.append((iou_xywh_matrix(dt[d], gt[k]), ig[k]))
+    return pairs
+
+
+def quant_native(card: str, data: str, model, meta, dev, tmp: str):
+    """The host C++ matcher against the Python one: alone, timed, on seeded
+    pairs of a 5,000-image validation set, and in evaluate_model on the val
+    set (equal stats; its time is the eval forward's, a check only); and
+    nms_numpy on one "decoded" output."""
+    from yololite_tpu_torch.eval.coco import IOU_THRS
+    t0 = time.perf_counter()
+    pairs = _match_pairs(0, 5000, 3, 100)
+    gen_s = time.perf_counter() - t0
+    match_s, got = {}, {}
+    for name, fn in (("cpp", native.coco_match), ("python", native.coco_match_plain)):
+        fn(*pairs[0], IOU_THRS)
+        t0 = time.perf_counter()
+        got[name] = [fn(ious, ig, IOU_THRS) for ious, ig in pairs]
+        match_s[name] = time.perf_counter() - t0
+    if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(got["cpp"], got["python"])):
+        raise AssertionError("coco_match (C++) differs from its plain version")
+    d_mean = float(np.mean([p[0].shape[0] for p in pairs]))
+    g_mean = float(np.mean([p[0].shape[1] for p in pairs]))
+    log(f"quant native matcher: {len(pairs)} (image, category) pairs of 5,000 seeded images "
+        f"x 100 detections (mean D {d_mean:.1f}, G {g_mean:.2f}, 10 thresholds; made in "
+        f"{gen_s:.2f} s): C++ {match_s['cpp']:.3f} s, Python {match_s['python']:.3f} s, "
+        f"matches equal [{_cpu_name()}]")
+    n_pairs = len(pairs)
+    del pairs, got
+    cfg = _edge_n_train_config(data, amp=True)
+    trainer = Trainer(build_model_from_config(cfg), cfg, device="cuda")
+    variables = copy.deepcopy(model).cuda().to(memory_format=torch.channels_last).eval()
+    mb = int(cfg["training"]["max_boxes"])
+    val_ds = YoloDataset(cfg["dataset"]["val_images"], cfg["dataset"]["val_labels"],
+                         img_size=IMG, is_train=False, augment=False, max_boxes=mb)
+    loader = DataLoader(val_ds, 8, shuffle=False, drop_last=False)
+    res, secs = {}, {}
+    real = native.coco_match
+    # the first pass pays the eval graph's first-call costs; it is not timed
+    for name, matcher in (("warm-up", real), ("cpp", real), ("python", native.coco_match_plain)):
+        native.coco_match = matcher
+        try:
+            t0 = time.perf_counter()
+            res[name] = evaluate_model(trainer, variables, loader, os.path.join(tmp, name), 3,
+                                       IMG, run_bench=False)
+            secs[name] = time.perf_counter() - t0
+        finally:
+            native.coco_match = real
+    diff = max(abs(res["cpp"]["coco"][k] - res["python"]["coco"][k]) for k in res["cpp"]["coco"])
+    if diff > 1e-12:
+        raise AssertionError(f"evaluate_model: C++ and Python matchers differ by {diff}")
+    pred = Predictor((model, model.state_dict(), meta), device="cuda")
+    out = _eager(pred, "decoded", dev[0][:1])
+    t0 = time.perf_counter()
+    for _ in range(5):
+        boxes, _, _, _ = deploy_infer_exported.postprocess_decoded(out, 0.001, 0.45, 300)
+    post_ms = (time.perf_counter() - t0) * 1e3 / 5
+    box = out["boxes_xyxy"][0].float().cpu().numpy()
+    sc = torch.sigmoid(out["obj_logits"][0, :, 0].float()).cpu().numpy()
+    t0 = time.perf_counter()
+    keep = nms_numpy(box, sc, 0.45)
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(keep, native.nms_plain(box, sc, 0.45)):
+        raise AssertionError("nms_numpy (C++) differs from its plain version")
+    log(f"quant native: evaluate_model on {len(val_ds)} val images, C++ matcher "
+        f"{secs['cpp']:.3f} s, Python {secs['python']:.3f} s (the eval forward's time, a "
+        f"check only), stats equal (max diff {diff}); "
+        f"nms_numpy over all {len(box)} anchors of one decoded output {nms_ms:.2f} ms "
+        f"({len(keep)} kept); host post-processing of the decoded output {post_ms:.2f} ms "
+        f"[{_cpu_name()}]")
+    return {"match_s": match_s, "match_pairs": {"n": n_pairs, "mean_d": d_mean,
+                                                "mean_g": g_mean},
+            "evaluate_s": secs, "max_diff": diff, "nms_ms": nms_ms, "anchors": len(box),
+            "postprocess_ms": post_ms}
+
+
+def phase_quant(card: str, data: str, tmp: str):
+    model = _edge_n_model()
+    meta = {"img_size": IMG, "names": ["c0", "c1", "c2"]}
+    rng = np.random.RandomState(9)
+    host = [(rng.rand(BATCH, IMG, IMG, 3) * 255).astype(np.uint8) for _ in range(2)]
+    dev = [torch.from_numpy(h).cuda() for h in host]
+    kw = dict(conf=0.001, iou=0.45, max_det=300)
+    out = {}
+    for name, fn in (("int8", lambda: quant_int8(card, model, meta, host, dev, kw)),
+                     ("shapes", lambda: quant_shapes(card, dev)),
+                     ("qat", lambda: quant_qat(card, data, tmp)),
+                     ("s2d", lambda: quant_s2d(card, model, meta, host, dev, kw)),
+                     ("native", lambda: quant_native(card, data, model, meta, dev, tmp))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"quant {name}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -2470,7 +3073,8 @@ def main():
                          ("seg", lambda: phase_seg(card, tmp)),
                          ("codecs", lambda: phase_codecs(card, data, tmp)),
                          ("stream", lambda: phase_stream(card)),
-                         ("export", lambda: phase_export(card, tmp))):
+                         ("export", lambda: phase_export(card, tmp)),
+                         ("quant", lambda: phase_quant(card, data, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -2489,7 +3093,16 @@ def main():
                     launches_seg_train=phases["seg"]["train"]["launches"],
                     launches_jpeg_train=phases["codecs"]["train"]["launches"],
                     launches_stream=phases["stream"]["launches"],
-                    launches_export=phases["export"]["launches"])]
+                    launches_export=phases["export"]["launches"],
+                    launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"])]
+    q = phases["quant"]["int8"]
+    for k in KERNELS[1:]:
+        t = q["totals"][k["name"]]
+        kernels.append(dict(k, launches=q["launches"][k["name"]], max_abs_err=t["max_abs_err"],
+                            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                            bound_by=t["bound_by"], library_ms=t["library_ms"],
+                            ms_1x1=t["ms_1x1"], calls_per_forward=t["calls"],
+                            shape="edge_n b128 @640 bf16, summed over one forward"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels_by_k": krows, "fp32": fp32,

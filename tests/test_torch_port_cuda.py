@@ -247,3 +247,80 @@ def test_cuda_nms_artifact_equals_the_predictor(card, tmp_path):
     assert cuda_nms.LAUNCHES == before + 1 and meta["device"].startswith("cuda")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------------------------------------- #
+# int8 kernels (csrc/int8_conv.cu): equal to their plain versions bit for bit
+
+def _int8_input(shape, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=g) * 3).to(dtype)
+    return x.cuda().contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 33, 17), (1, 5, 3, 3), (4, 96, 40, 40)])
+def test_int8_quantize_matches_plain(card, shape, dtype):
+    from yololite_tpu_torch.ops import cuda_int8
+    x = _int8_input(shape, dtype)
+    before = cuda_int8.LAUNCHES["int8_quantize"]
+    q, s = cuda_int8.quantize(x)
+    q0, s0 = cuda_int8.quantize_reference(x)
+    torch.cuda.synchronize()
+    assert cuda_int8.LAUNCHES["int8_quantize"] == before + 1
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+    assert q.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w,o,k,s,groups,bias", [
+    (2, 16, 40, 40, 32, 3, 2, 1, False), (2, 32, 20, 20, 48, 1, 1, 1, True),
+    (1, 12, 33, 31, 16, 3, 1, 1, False), (2, 5, 16, 16, 70, 3, 1, 1, True),
+    (2, 64, 11, 11, 64, 4, 4, 1, False), (2, 48, 20, 20, 48, 3, 1, 48, False),
+    (2, 96, 21, 19, 96, 5, 2, 96, False), (1, 40, 13, 13, 40, 7, 1, 40, True)])
+def test_int8_conv_matches_plain(card, n, c, h, w, o, k, s, groups, bias):
+    from yololite_tpu_torch.ops import cuda_int8, quant
+    conv = torch.nn.Conv2d(c, o, k, s, k // 2, groups=groups, bias=bias)
+    quant.quantize_int8(conv).cuda()
+    x = _int8_input((n, c, h, w), seed=k)
+    q, sx = cuda_int8.quantize(x)
+    if conv.depthwise:
+        run = lambda f, t: f(q, sx, conv.w_packed, conv.s_w, conv.bias_f32, conv.stride,
+                             conv.padding, t)
+        kernel, plain = cuda_int8.conv_depthwise, cuda_int8.conv_depthwise_reference
+    else:
+        run = lambda f, t: f(q, sx, conv.w_packed, conv.s_w, conv.bias_f32, conv.kernel_size,
+                             conv.stride, conv.padding, t)
+        kernel, plain = cuda_int8.conv_dense, cuda_int8.conv_dense_reference
+    for t in (torch.int32, torch.float32, torch.bfloat16):
+        got, want = run(kernel, t), run(plain, t)
+        torch.cuda.synchronize()
+        assert got.dtype == t and torch.equal(got, want), t
+    with torch.no_grad():
+        assert torch.equal(conv.to(torch.bfloat16)(x), run(plain, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(card):
+    from yololite_tpu_torch.ops import cuda_int8
+    x = _int8_input((2, 16, 8, 8)).contiguous()          # NCHW memory
+    with pytest.raises(ValueError, match="channels_last"):
+        cuda_int8.quantize(x)
+    q, s = cuda_int8.quantize(x.contiguous(memory_format=torch.channels_last))
+    w = torch.zeros(8, 32, dtype=torch.int8, device="cuda")
+    sw = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="int8"):
+        cuda_int8.conv_dense(q.float(), s, w, sw, None, (1, 1), (1, 1), (0, 0))
+    with pytest.raises(ValueError, match="s_w"):
+        cuda_int8.conv_dense(q, s, w, sw[:4], None, (1, 1), (1, 1), (0, 0))
+    with pytest.raises(ValueError, match="packed K"):
+        cuda_int8.conv_dense(q, s, w, sw, None, (3, 3), (1, 1), (1, 1))
+
+
+@pytest.mark.cuda
+def test_s2d_device_pack_equals_host_pack(card):
+    from yololite_tpu_torch.deploy.s2d import pack_s2d, pack_s2d_device
+    x = (np.random.RandomState(0).rand(3, 64, 48, 3) * 255).astype(np.uint8)
+    got = pack_s2d_device(torch.from_numpy(x).cuda())
+    assert np.array_equal(got.cpu().numpy(), pack_s2d(x))

@@ -62,6 +62,12 @@ def test_training_modules_are_covered():
         assert os.path.join("yololite_tpu_torch", rel) in files
 
 
+def test_deploy_variant_modules_are_covered():
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("ops/quant.py", "ops/cuda_int8.py", "deploy/s2d.py", "native.py"):
+        assert os.path.join("yololite_tpu_torch", rel) in files
+
+
 def test_deploy_and_track_modules_are_covered():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     for rel in ("deploy/export.py", "deploy/onnx_emit.py", "deploy/onnx_proto.py",

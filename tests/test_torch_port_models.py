@@ -166,7 +166,7 @@ def test_unported_options_raise():
     # training and its augmentation are ported; multiple devices and the
     # orbax backend still raise
     from yololite_tpu_torch.train.loop import train_from_config
-    for training, item in (({"augment": True, "data_parallel": 2}, "item 12"),
+    for training, item in (({"augment": True, "data_parallel": 2}, "item 3"),
                            ({"augment": False, "checkpoint_backend": "orbax_async"},
                             "item 8c")):
         with pytest.raises(NotImplementedError, match=item):

@@ -359,8 +359,6 @@ def test_eval_step_detections_match_jax():
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Trainer(build_model_from_config(_train_cfg()), _train_cfg(qat=True), device="cpu")
     # device_augment is ported: it builds, and is on only with augmentation
     for augment in (True, False):
         tr = Trainer(build_model_from_config(_train_cfg()),

@@ -1,7 +1,7 @@
 """The port's training loop end to end on the CPU (edge_n at 64 px on a tiny
 PNG set written from a seed, and its JPEG copy): artifacts, exact resume, host augmentation
 with its taper (also across a chunked resume), device augmentation on a
-COCO-json dataset, and the options that still raise. Port only, apart from
+COCO-json dataset, one QAT epoch, and the options that still raise. Port only, apart from
 JAX's CSV header, which the port's must equal."""
 
 import csv
@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from yololite_tpu.train.loop import CSV_HEADER as JAX_CSV_HEADER
 
@@ -137,9 +138,8 @@ def test_exact_resume_equals_uninterrupted(data, tmp_path):
 
 
 @pytest.mark.parametrize("training,model,item", [
-    ({"data_parallel": 2}, {}, "item 12"),
-    ({"spatial_parallel": 2}, {}, "item 12"),
-    ({"qat": True}, {}, "item 10"),
+    ({"data_parallel": 2}, {}, "item 3"),
+    ({"spatial_parallel": 2}, {}, "item 3"),
     ({"checkpoint_backend": "orbax_async"}, {}, "item 8c"),
     ({"dataset": "tiff"}, {}, "TIFF"),
 ])
@@ -155,6 +155,33 @@ def test_unported_options_raise_naming_their_item(data, tmp_path, training, mode
         cfg["dataset"]["train_images"] = str(img_dir)
     with pytest.raises(NotImplementedError, match=item):
         train_from_config(cfg, device="cpu")
+
+
+def test_qat_epoch_through_the_api(data, tmp_path, monkeypatch):
+    """training.qat: true through YoloLite.train: the train steps and the
+    epoch's validation run fake-quant convs; the checkpoint holds plain
+    weights (the same tree as a plain run's), which an int8 Predictor
+    serves."""
+    from yololite_tpu_torch.deploy.predictor import Predictor
+    from yololite_tpu_torch.ops import quant
+    modes = []
+    real = quant.FakeQuantConv2d.forward
+    monkeypatch.setattr(quant.FakeQuantConv2d, "forward",
+                        lambda self, x: modes.append(self.training) or real(self, x))
+    res = YoloLite("edge_n", device="cpu").train(
+        data=data, run_dir=str(tmp_path / "runs"), workers=2, qat=True,
+        **dict({k: v for k, v in OVERRIDES.items() if k != "num_workers"}, epochs=1))
+    assert True in modes and False in modes
+    assert np.isfinite(res["history"]["step_loss"]).all()
+    last = os.path.join(res["log_dir"], "weights", "last_model_state.ckpt")
+    sd, meta = load_checkpoint(last)
+    assert meta["config"]["training"]["qat"] is True
+    plain, _ = load_checkpoint(os.path.join(ROOT, "weights", "mnv4_050_cls20.ckpt"))
+    assert set(sd["params"]["backbone"]) == set(plain["params"])
+    pred = Predictor(last, device="cpu", dtype=torch.float32, quantize="int8")
+    frame = (np.random.RandomState(0).rand(60, 80, 3) * 255).astype(np.uint8)
+    boxes, scores, _ = pred.infer_image(frame, img_size=64, conf=0.001)
+    assert np.isfinite(boxes).all() and np.isfinite(scores).all()
 
 
 def test_augmented_run_writes_best_model_state(data, tmp_path):

@@ -10,10 +10,12 @@ current stream.
 Flags: sm_90a only; -O3; --fmad=false and no fast math, because the kernels'
 outputs are compared bit for bit with plain fp32 PyTorch.
 
-Each `csrc/<name>.cpp` is host code (the image codecs) compiled by the host
-C++ compiler (`$CXX`, else `c++` or `g++` on PATH) with `HOST_FLAGS`, into
-the same directory under the same kind of key. It needs no CUDA, so the CPU
-tests build it too. A missing compiler, a failed build or a library that
+Each `csrc/<name>.cpp` is host code (the image codecs; NMS, IoU, the COCO
+matcher and the s2d pack) compiled by the host C++ compiler (`$CXX`, else
+`c++` or `g++` on PATH) with `HOST_FLAGS`, into the same directory under
+the same kind of key. `-ffp-contract=off` keeps every `a*b + c` two rounded
+operations, as numpy computes them (an FMA would differ in the last bit).
+It needs no CUDA, so the CPU tests build it too. A missing compiler, a failed build or a library that
 will not load raises `BuildError` naming the compiler or the file; nothing
 gives way to another decoder. `BuildError` is no `OSError`, so a caller that
 treats an unreadable image as a damaged one does not take it for one.
@@ -39,7 +41,7 @@ BUILD_DIR = SRC_DIR.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()

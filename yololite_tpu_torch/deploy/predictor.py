@@ -14,6 +14,11 @@ pad at prototype resolution, resize each mask to the frame (`cv2.resize`
 INTER_LINEAR on floats, `data/imgops.resize_f32`) and binarize at 0.5;
 `infer_batched_stream` computes the masks and drops them, as JAX does.
 
+Deploy variants: `quantize="int8"` runs the convs through the dynamic
+int8 kernels (`ops/quant.py`, `ops/cuda_int8.py`) on the unfolded, fused
+model; `s2d_stem=True` feeds the folded model a space-to-depth packed batch
+through a rewritten 2x2 stem (`deploy/s2d.py`).
+
 Suppression is exact greedy (JAX `fixpoint_unroll=0`) at every confidence;
 the JAX Predictor's default `unroll=8` approximates it on chains deeper
 than 8.
@@ -39,6 +44,9 @@ from yololite_tpu_torch.deploy.fold_norm import (
     fold_normalization, folded_stem, normalize_images, raw_cast,
 )
 from yololite_tpu_torch.deploy.fuse_head import fuse_head_params
+from yololite_tpu_torch.deploy.s2d import (
+    pack_s2d, pack_s2d_device, rewrite_stem_to_s2d, s2d_stem as s2d_stem_module,
+)
 from yololite_tpu_torch.models.detector import YOLOLiteMS
 from yololite_tpu_torch.ops.decode import decode_anchorfree
 from yololite_tpu_torch.ops.letterbox import (
@@ -46,6 +54,7 @@ from yololite_tpu_torch.ops.letterbox import (
 )
 from yololite_tpu_torch.ops.masks import assemble_masks_batch
 from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
+from yololite_tpu_torch.ops.quant import quantize_int8
 from yololite_tpu_torch.train.checkpoint import load_checkpoint, model_from_meta
 
 PRE_NMS_TOPK = 512
@@ -78,11 +87,17 @@ class Predictor:
                  quantize: Optional[str] = None, s2d_stem: bool = False):
         """`weights` is a checkpoint path (JAX msgpack format), or a
         `(model, state_dict, meta)` triple of an unfused `YOLOLiteMS`, its
-        torch state_dict and a meta dict (img_size, names)."""
-        if quantize is not None:
-            raise NotImplementedError("int8 quantization: ROADMAP Queue 1 item 10")
-        if s2d_stem:
-            raise NotImplementedError("space-to-depth stem: ROADMAP Queue 1 item 5")
+        torch state_dict and a meta dict (img_size, names).
+
+        quantize="int8": every conv whose input has more than 4 channels and
+        is not 1x1 runs the dynamic int8 path (`ops/quant.py`; kernels of
+        `ops/cuda_int8.py` on the card); the normalize fold is off, the
+        heads are fused first and quantized after. s2d_stem=True: after a
+        successful fold of a 3-channel 3x3 stem, the stem becomes a 2x2 conv
+        over the space-to-depth packed batch (`deploy/s2d.py`), packed on the
+        host before upload (on the card for a batch already there)."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         self.device = torch.device(device)
         self.dtype = dtype
         if isinstance(weights, (tuple, list)):
@@ -93,15 +108,22 @@ class Predictor:
                               flax_sd["batch_stats"])
             sd = model.state_dict()
         self.meta = meta
-        self.folded = False
-        if fold_normalize:
+        self.quantize = quantize
+        self.folded = self.s2d = False
+        if fold_normalize and quantize is None:
             sd, self.folded = fold_normalization(sd)
+            if self.folded and s2d_stem:
+                sd, self.s2d = rewrite_stem_to_s2d(sd)
         sd, fused = fuse_head_params(sd)
         self.model = YOLOLiteMS(**dict(model.config, fused_head=fused
                                        or model.config["fused_head"]))
+        if self.s2d:
+            s2d_stem_module(self.model)
         self.model.load_state_dict(sd)
-        if self.folded:
+        if self.folded and not self.s2d:
             folded_stem(self.model)
+        if quantize == "int8":          # int8 weights from the fp32 ones, before the cast
+            quantize_int8(self.model)
         self.model.to(device=self.device, dtype=dtype).eval()
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
@@ -112,9 +134,10 @@ class Predictor:
 
     # ------------------------------------------------------------------ #
     def forward(self, images_u8: torch.Tensor):
-        """[B,S,S,3] uint8 on the device -> per-level [B,A,S,S,5+C(+K)] maps
-        (and prototypes [B,Hp,Wp,K] for a segmentation model). The NHWC
-        batch viewed as NCHW is channels_last already."""
+        """[B,S,S,3] uint8 on the device ([B,S/2,S/2,12] packed with s2d) ->
+        per-level [B,A,S,S,5+C(+K)] maps (and prototypes [B,Hp,Wp,K] for a
+        segmentation model). The NHWC batch viewed as NCHW is channels_last
+        already."""
         x = images_u8.permute(0, 3, 1, 2)
         x = raw_cast(x, self.dtype) if self.folded else normalize_images(x, self.dtype)
         return self.model(x)
@@ -139,8 +162,17 @@ class Predictor:
         return boxes, s, c, v, assemble_masks_batch(protos, coef, boxes, float(img_size))
 
     def _upload(self, batch) -> torch.Tensor:
+        """The batch on the device; with s2d, every 3-channel batch packed:
+        on the host before upload (the C++ pack), or where it lies when it
+        is on the card already."""
+        pack = self.s2d and batch.shape[-1] == 3
         if isinstance(batch, torch.Tensor):
-            return batch.to(self.device, non_blocking=True)
+            if not (pack and batch.device.type == "cpu"):
+                t = batch.to(self.device, non_blocking=True)
+                return pack_s2d_device(t) if pack else t
+            batch = batch.numpy()
+        if pack:
+            batch = pack_s2d(np.asarray(batch))
         t = torch.from_numpy(np.ascontiguousarray(batch))
         if self.device.type == "cuda":
             t = t.pin_memory()

@@ -5,8 +5,9 @@ Returns {AP, AP50, AP75, APS, APM, APL, AR, ARS, ARM, ARL} with the official
 semantics: IoU thresholds 0.50:0.05:0.95, recall thresholds 0:0.01:1, area
 ranges all/small/medium/large, maxDets 100, greedy per-(image, category)
 matching with ignored-GT handling, 101-point interpolated precision averaged
-over the categories present in GT. The matcher is the JAX package's Python
-one (its native C++ twin is ROADMAP Queue 1 item 13). Inputs are the
+over the categories present in GT. The matcher is the host C++ one
+(`native.coco_match`, as JAX's `eval/coco.py` runs its native twin);
+`native.coco_match_plain` is the same loop in Python. Inputs are the
 reference's COCO list-of-dicts; an empty detection list gives zeros.
 `iou_type="segm"` matches by mask IoU (float64) on full-resolution RLE
 "segmentation" entries (or dense "mask" arrays) and bins GT areas by mask
@@ -20,6 +21,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from yololite_tpu_torch import native
 from yololite_tpu_torch.ops.masks import rle_decode_np
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
@@ -94,36 +96,12 @@ def _evaluate_img(dt_boxes, dt_scores, gt_boxes, gt_areas, area_rng, max_dets,
     dt_boxes = dt_boxes[dorder]
     dt_scores = dt_scores[dorder]
 
-    T = len(IOU_THRS)
-    D = len(dt_boxes)
-    G = len(gt_boxes)
     if iou_matrix is not None:
         ious = np.asarray(iou_matrix, np.float64)[dorder][:, gorder]
     else:
         ious = iou_xywh_matrix(dt_boxes, gt_boxes)
 
-    dtm = np.zeros((T, D), np.int32)      # matched gt index + 1, 0 = unmatched
-    dt_ig = np.zeros((T, D), bool)
-    gtm = np.zeros((T, G), bool)
-    for ti, thr in enumerate(IOU_THRS):
-        for di in range(D):
-            best = min(thr, 1.0 - 1e-10)
-            m = -1
-            for gi in range(G):
-                if gtm[ti, gi]:
-                    continue
-                # stop at ignored GTs once a non-ignored match exists
-                if m > -1 and not gt_ignore[m] and gt_ignore[gi]:
-                    break
-                if ious[di, gi] < best:
-                    continue
-                best = ious[di, gi]
-                m = gi
-            if m == -1:
-                continue
-            dtm[ti, di] = m + 1
-            dt_ig[ti, di] = gt_ignore[m]
-            gtm[ti, m] = True
+    dtm, dt_ig = native.coco_match(ious, gt_ignore, IOU_THRS)
     # unmatched dets outside the area range are ignored
     d_areas = np.maximum(dt_boxes[:, 2] * dt_boxes[:, 3], 0.0)
     out_rng = (d_areas < arng_lo) | (d_areas > arng_hi)

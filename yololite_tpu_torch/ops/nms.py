@@ -24,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from yololite_tpu_torch import native
 from yololite_tpu_torch.ops import cuda_nms
 from yololite_tpu_torch.ops.boxes import box_iou_matrix
 
@@ -153,23 +154,7 @@ def yolo_scores(obj_logits: torch.Tensor, cls_logits: torch.Tensor):
 
 
 def nms_numpy(boxes: np.ndarray, scores: np.ndarray, iou_th: float) -> np.ndarray:
-    """Greedy NMS on the host (numpy). Returns kept indices by descending score."""
-    order = scores.argsort()[::-1]
-    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
-    areas = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
-    keep = []
-    while order.size > 0:
-        i = order[0]
-        keep.append(int(i))
-        if order.size == 1:
-            break
-        xx1 = np.maximum(x1[i], x1[order[1:]])
-        yy1 = np.maximum(y1[i], y1[order[1:]])
-        xx2 = np.minimum(x2[i], x2[order[1:]])
-        yy2 = np.minimum(y2[i], y2[order[1:]])
-        w = np.maximum(0.0, xx2 - xx1)
-        h = np.maximum(0.0, yy2 - yy1)
-        inter = w * h
-        iou = inter / (areas[i] + areas[order[1:]] - inter + 1e-7)
-        order = order[1:][iou <= iou_th]
-    return np.asarray(keep, dtype=np.int64)
+    """Greedy NMS on the host: kept indices by descending score (ties in
+    index order), by the host C++ library (`native.nms`), as JAX's
+    `nms_numpy` runs its native kernel."""
+    return native.nms(boxes, scores, iou_th)

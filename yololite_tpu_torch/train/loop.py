@@ -103,7 +103,7 @@ def _check_supported(config: Dict[str, Any]) -> None:
     n_sp = int(tr.get("spatial_parallel") or 1)
     if n_dp * n_sp > 1:
         raise NotImplementedError("multi-device training (mesh, data_parallel, "
-                                  "spatial_parallel, multi-host): ROADMAP Queue 1 item 12")
+                                  "spatial_parallel, multi-host): ROADMAP Queue 1 item 3")
     if str(tr.get("checkpoint_backend", "msgpack")) != "msgpack":
         raise NotImplementedError("checkpoint_backend orbax_async (orbax is JAX-only): "
                                   "ROADMAP Queue 1 item 8c")

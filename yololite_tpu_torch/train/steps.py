@@ -13,6 +13,12 @@ The eval step runs the EMA model: val loss, then decode -> scores ->
 class-aware `batched_nms` (pre-NMS top-k 1024, JAX's default), whose greedy
 suppression is the `nms_suppress` CUDA kernel on the card.
 
+With `training.qat`, every conv of the model is a `FakeQuantConv2d`
+(`ops/quant.py`): its quantized calls fake-quantize input and weights, in
+the train step and in the eval step, as JAX wraps both in
+`fake_quant_training()`. The EMA copy and every model made from this one
+share it; parameters, state_dict keys and checkpoints stay plain.
+
 A segmentation model also returns prototypes: the loss adds its mask term
 against the GT masks, which ship bit-packed along W and are unpacked on the
 device (`gt_masks_from_batch`), and `detect` assembles the masks of the
@@ -41,6 +47,7 @@ from yololite_tpu_torch.models.detector import init_weights
 from yololite_tpu_torch.ops.decode import decode_anchorfree
 from yololite_tpu_torch.ops.masks import assemble_masks_batch
 from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
+from yololite_tpu_torch.ops.quant import fake_quant
 from yololite_tpu_torch.train.ema import ema_update, ema_warmup_limit
 from yololite_tpu_torch.train.optim import GroupedOptimizer
 
@@ -104,8 +111,9 @@ class Trainer:
     def __init__(self, model: nn.Module, config: Dict[str, Any],
                  total_updates: int = 10000, device: str = "cuda"):
         tr = config.get("training", {})
-        if bool(tr.get("qat", False)):
-            raise NotImplementedError("quantization-aware training: ROADMAP Queue 1 item 10")
+        self.qat = bool(tr.get("qat", False))
+        if self.qat:        # fake-quant convs in the train and eval steps
+            fake_quant(model)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         if self.device.type == "cuda":
