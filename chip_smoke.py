@@ -97,7 +97,9 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               edge_n's beside their bounds and torch._int_mm (1x1);
               Predictor(quantize="int8") img/s from device and host batches
               beside bf16 in turns with every kernel's launches counted, the
-              stage split, peak GB, the share of int8 detections bf16
+              stage split (each int8 kernel's time filed by its CUDA
+              symbols; a launched kernel with none fails), peak GB, the
+              share of int8 detections bf16
               finds, the card's fp32 int8 against the CPU's (>= 99%
               matched); one edge_n_seg int8 b128 call; 10 QAT steps of
               edge_n b8 beside plain ones, an int8 Predictor serving the
@@ -2495,6 +2497,13 @@ def _int8_args(mod):
     return (mod.w_packed, mod.s_w, mod.bias_f32, mod.kernel_size, mod.stride, mod.padding)
 
 
+def _int8_kernel(mod):
+    """The wrapper `Int8Conv2d.forward` calls, with its held operands."""
+    if mod.depthwise:
+        return cuda_int8.conv_depthwise
+    return lambda *a: cuda_int8.conv_dense(*a, w_mma=mod.w_mma)
+
+
 def _int8_bounds(mod, x, out_numel: int):
     """(quantize, conv) least ms on this card's published peaks: each input
     read once, each output written once; the conv's int8 ops from its shapes."""
@@ -2515,7 +2524,7 @@ def _check_int8_call(mod, x, timing: bool):
     the kernels', plain versions' and (1x1 dense) torch._int_mm's ms."""
     q, s = cuda_int8.quantize(x)
     q0, s0 = cuda_int8.quantize_reference(x)
-    kernel = cuda_int8.conv_depthwise if mod.depthwise else cuda_int8.conv_dense
+    kernel = _int8_kernel(mod)
     plain = (cuda_int8.conv_depthwise_reference if mod.depthwise
              else cuda_int8.conv_dense_reference)
     args = _int8_args(mod)
@@ -2625,18 +2634,21 @@ def _kernel_ms(pred, x, kw, iters: int = 3):
 
 
 def _stage_split(pred, x, kw, card: str):
-    """Device ms a b128 call in the int8 quantize passes, the int8 convs,
-    cuDNN's convs, BatchNorm and activations, and the rest (adds,
-    upsampling, decode, NMS), by kernel name."""
-    split = {"int8 quantize": 0.0, "int8 conv dense": 0.0, "int8 conv depthwise": 0.0,
-             "cuDNN conv": 0.0, "BN/activation": 0.0, "rest": 0.0}
-    for k, ms in _kernel_ms(pred, x, kw).items():
-        if "absmax_kernel" in k or "quantize_kernel" in k:
-            split["int8 quantize"] += ms
-        elif "conv_dense_kernel" in k:
-            split["int8 conv dense"] += ms
-        elif "conv_depthwise_kernel" in k:
-            split["int8 conv depthwise"] += ms
+    """Device ms a b128 call in the int8 quantize passes, the int8 convs
+    (each kernel's CUDA symbols, `cuda_int8.KERNEL_SYMBOLS`), cuDNN's convs,
+    BatchNorm and activations, and the rest (adds, upsampling, decode, NMS),
+    by kernel name. Raises when the profiled calls launched an int8 kernel
+    under which the profile filed no time."""
+    stage = {"int8_quantize": "int8 quantize", "int8_conv_dense": "int8 conv dense",
+             "int8_conv_depthwise": "int8 conv depthwise"}
+    split = dict.fromkeys((*stage.values(), "cuDNN conv", "BN/activation", "rest"), 0.0)
+    cuda_int8.reset_launches()
+    by_kernel = _kernel_ms(pred, x, kw)
+    launched = dict(cuda_int8.LAUNCHES)
+    for k, ms in by_kernel.items():
+        int8 = [n for n, syms in cuda_int8.KERNEL_SYMBOLS.items() if any(s in k for s in syms)]
+        if int8:
+            split[stage[int8[0]]] += ms
         elif any(s in k.lower() for s in ("conv", "implicit", "cudnn", "xmma", "sm90")):
             split["cuDNN conv"] += ms
         elif any(a in k.lower() for a in ("batch_norm", "bn_", "clamp", "threshold",
@@ -2646,6 +2658,11 @@ def _stage_split(pred, x, kw, card: str):
             split["rest"] += ms
     log(f"quant stages (profiler, device ms per b{BATCH} call): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{card}]")
+    missing = [n for n in stage if launched[n] and not split[stage[n]] > 0]
+    if missing:
+        raise AssertionError(f"int8 kernels {missing} launched {launched} times in the "
+                             f"profiled calls but no kernel time was filed under their "
+                             f"symbols {[cuda_int8.KERNEL_SYMBOLS[n] for n in missing]}")
     return split
 
 

@@ -273,12 +273,31 @@ def test_int8_quantize_matches_plain(card, shape, dtype):
     assert q.is_contiguous(memory_format=torch.channels_last)
 
 
+# dense 1x1 at the widths of the fused heads (O = 8), the stem (16) and the
+# wide expansions (96, 288, 480), with M = n*h*w not a multiple of the
+# kernel's 128-row tile; a 1x1 on C % 16 != 0 (4-byte copies) and C odd (the
+# byte gather); 3x3 on C % 16 == 0 through the input patch at s1 and s2 on
+# odd H and W; a 3x3 whose K streams through the 3-stage ring (K > 736)
+_DENSE_EDGES = [
+    (1, 96, 7, 9, 8, 1, 1, 1, True), (3, 16, 13, 11, 16, 1, 1, 1, False),
+    (2, 96, 17, 15, 96, 1, 1, 1, True), (1, 48, 19, 21, 288, 1, 1, 1, False),
+    (2, 64, 9, 13, 480, 1, 1, 1, True), (2, 196, 9, 11, 96, 1, 1, 1, True),
+    (1, 5, 10, 10, 24, 1, 1, 1, False), (2, 48, 19, 23, 40, 3, 1, 1, True),
+    (1, 32, 17, 13, 16, 3, 2, 1, False), (2, 512, 10, 9, 64, 3, 1, 1, True)]
+# depthwise at every channel width of the tail and group logic, 3x3, 5x5
+# and 7x7 (7x7 s2 runs the general loop), s1 and s2, odd H and W, with and
+# without bias
+_DW_EDGES = [(2, c, 23, 17 + 2 * i, c, k, s, c, (i + k + s) % 2 == 0)
+             for i, c in enumerate((16, 24, 32, 40, 96, 256)) for k in (3, 5, 7) for s in (1, 2)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,h,w,o,k,s,groups,bias", [
     (2, 16, 40, 40, 32, 3, 2, 1, False), (2, 32, 20, 20, 48, 1, 1, 1, True),
     (1, 12, 33, 31, 16, 3, 1, 1, False), (2, 5, 16, 16, 70, 3, 1, 1, True),
     (2, 64, 11, 11, 64, 4, 4, 1, False), (2, 48, 20, 20, 48, 3, 1, 48, False),
-    (2, 96, 21, 19, 96, 5, 2, 96, False), (1, 40, 13, 13, 40, 7, 1, 40, True)])
+    (2, 96, 21, 19, 96, 5, 2, 96, False), (1, 40, 13, 13, 40, 7, 1, 40, True),
+    *_DENSE_EDGES, *_DW_EDGES])
 def test_int8_conv_matches_plain(card, n, c, h, w, o, k, s, groups, bias):
     from yololite_tpu_torch.ops import cuda_int8, quant
     conv = torch.nn.Conv2d(c, o, k, s, k // 2, groups=groups, bias=bias)
@@ -316,6 +335,8 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(card):
         cuda_int8.conv_dense(q, s, w, sw[:4], None, (1, 1), (1, 1), (0, 0))
     with pytest.raises(ValueError, match="packed K"):
         cuda_int8.conv_dense(q, s, w, sw, None, (3, 3), (1, 1), (1, 1))
+    with pytest.raises(ValueError, match="w_mma"):
+        cuda_int8.conv_dense(q, s, w, sw, None, (1, 1), (1, 1), (0, 0), w_mma=w)
 
 
 @pytest.mark.cuda

@@ -72,6 +72,8 @@ class Int8Conv2d(nn.Conv2d):
         w_q, self.s_w = quantize_weights(self.weight)
         self.w_packed = (cuda_int8.pack_depthwise(w_q) if self.depthwise
                          else cuda_int8.pack_dense(w_q))
+        # the dense kernel's fragment order, made once (not part of state_dict)
+        self.w_mma = None if self.depthwise else cuda_int8.pack_dense_mma(self.w_packed)
         self.bias_f32 = None if self.bias is None else self.bias.detach().to(torch.float32)
 
     def _apply(self, fn, recurse=True):
@@ -80,6 +82,8 @@ class Int8Conv2d(nn.Conv2d):
         super()._apply(fn, recurse)
         dev = self.weight.device
         self.w_packed, self.s_w = self.w_packed.to(dev), self.s_w.to(dev)
+        if self.w_mma is not None:
+            self.w_mma = self.w_mma.to(dev)
         if self.bias_f32 is not None:
             self.bias_f32 = self.bias_f32.to(dev)
         return self
@@ -93,7 +97,7 @@ class Int8Conv2d(nn.Conv2d):
                                             self.stride, self.padding, self.weight.dtype)
         return cuda_int8.conv_dense(x_q, s_x, self.w_packed, self.s_w, self.bias_f32,
                                     self.kernel_size, self.stride, self.padding,
-                                    self.weight.dtype)
+                                    self.weight.dtype, w_mma=self.w_mma)
 
 
 def quantize_int8(model: nn.Module) -> nn.Module:
