@@ -1,23 +1,25 @@
-"""A/B of the int8 conv kernels on one NVIDIA card: this tree's
-`int8_conv_dense` and `int8_conv_depthwise` (csrc/int8_conv.cu) against an
-older build of the same file, at every distinct quantized conv call of the
-edge_n @640 b128 bf16 int8 forward, in turns (old, new, new, old); with
---parent, the bf16 and int8 serving graphs of an older checkout against this
-tree's, one process each, in turns (parent, change, change, parent).
+"""A/B of the int8 quantize on one NVIDIA card: this tree's `int8_quantize`
+(csrc/int8_conv.cu, one cooperative launch) against an older build of the
+same file (a memset, a max pass and a quantize pass), at every distinct quantized
+input of the edge_n @640 b128 bf16 int8 forward, in turns (old, new, new,
+old); with --parent, the bf16 and int8 serving graphs of an older checkout
+against this tree's, one process each, in turns (parent, change, change,
+parent).
 
     mkdir -p build/int8_ab/parent
     git show <commit>:yololite_tpu_torch/csrc/int8_conv.cu > build/int8_ab/int8_conv_old.cu
     git archive <commit> | tar -x -C build/int8_ab/parent
     python3 chip_int8_ab.py --old build/int8_ab/int8_conv_old.cu --parent build/int8_ab/parent
 
-The old file must have the C interface it had before the launch plans
-(`yl_int8_conv_dense` with 15 ints after the pointers, the depthwise with
-13), and its kernels must equal the plain versions as the new ones must: a
-call where either differs fails the run. Per call it prints both kernels'
-ms in each turn beside the bytes/operations bound and, for the 1x1 calls,
-`torch._int_mm` on the same operands; then the sums over one forward (each
-distinct call times its calls a forward) and the calls where the new kernel
-is slower than the old in both turns. Writes chiprun_out/int8_ab.json.
+The old file must have the quantize's C interface before the launch plan
+(`yl_int8_quantize(x, in_type, n, scratch, q, s, stream)`, a 4-byte
+scratch), and its output must equal the plain version as the new one's
+must: a call where either differs fails the run. Per distinct input it
+prints both kernels' ms in each turn beside the bytes bound and, as a
+yardstick for the max pass alone, `torch.linalg.vector_norm(x, inf)` (one
+read of x; the port never calls it); then the sums over one forward (each
+distinct input times its calls a forward) and the inputs where the new
+kernel is slower than the old in both turns. Writes chiprun_out/int8_ab.json.
 """
 
 from __future__ import annotations
@@ -84,34 +86,24 @@ def load_old(path: str) -> ctypes.CDLL:
         if r.returncode:
             raise RuntimeError(f"nvcc failed for {path}:\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(out)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.yl_int8_conv_dense.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
-    lib.yl_int8_conv_depthwise.argtypes = [ptr] * 6 + [i32] * 13 + [ptr]
-    lib.yl_int8_conv_dense.restype = lib.yl_int8_conv_depthwise.restype = i32
+    ptr = ctypes.c_void_p
+    lib.yl_int8_quantize.argtypes = [ptr, ctypes.c_int, ctypes.c_longlong] + [ptr] * 4
+    lib.yl_int8_quantize.restype = ctypes.c_int
     return lib
 
 
-def old_conv(lib, mod, q, s, out_dtype):
-    """The old kernels' launch (no plan: the argument list before launch plans)."""
-    n, c, h, w = q.shape
-    kh, kw = mod.kernel_size
-    oh, ow = cuda_int8._out_size(h, w, mod.kernel_size, mod.stride, mod.padding)
-    o = mod.out_channels
-    out = torch.empty((n, o, oh, ow), dtype=out_dtype, device=q.device,
-                      memory_format=torch.channels_last)
-    bias = 0 if mod.bias_f32 is None else mod.bias_f32.data_ptr()
-    ptrs = (q.data_ptr(), mod.w_packed.data_ptr(), s.data_ptr(), mod.s_w.data_ptr(), bias,
-            out.data_ptr(), cuda_int8._OUT_TYPES[out_dtype])
-    geo = (n, h, w, c, oh, ow)
-    sp = (mod.stride[0], mod.stride[1], mod.padding[0], mod.padding[1])
-    stream = torch.cuda.current_stream().cuda_stream
-    if mod.depthwise:
-        err = lib.yl_int8_conv_depthwise(*ptrs, *geo, kh, kw, *sp, stream)
-    else:
-        err = lib.yl_int8_conv_dense(*ptrs, *geo, o, kh, kw, *sp, mod.w_packed.shape[1], stream)
+def old_quantize(lib, x):
+    """The old kernels' launch: a memset of the 4-byte atomic max, then the
+    max and quantize passes."""
+    q = torch.empty_like(x, dtype=torch.int8, memory_format=torch.channels_last)
+    s = torch.empty(1, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
+    err = lib.yl_int8_quantize(x.data_ptr(), cuda_int8._IN_TYPES[x.dtype], x.numel(),
+                               scratch.data_ptr(), q.data_ptr(), s.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"old int8 kernel: CUDA error {err}")
-    return out
+        raise RuntimeError(f"old int8_quantize: CUDA error {err}")
+    return q, s
 
 
 def ab_calls(lib, card: str):
@@ -127,48 +119,31 @@ def ab_calls(lib, card: str):
         x = args[0]
         if not quant.should_quantize(x):
             return
-        key = cs._conv_key(mod, x)
+        key = (tuple(x.shape), str(x.dtype))
         calls[key] = calls.get(key, 0) + 1
         if key in rows:
             return
-        q, s = cuda_int8.quantize(x)
-        args_p = cs._int8_args(mod)
-        new = lambda: cs._int8_kernel(mod)(q, s, *args_p, x.dtype)    # noqa: E731
-        old = lambda: old_conv(lib, mod, q, s, x.dtype)                # noqa: E731
-        plain = cuda_int8.conv_depthwise_reference if mod.depthwise else \
-            cuda_int8.conv_dense_reference
-        want = plain(q, s, *args_p, x.dtype)
-        got_new, got_old = new(), old()
+        want = cuda_int8.quantize_reference(x)
+        got_new, got_old = cuda_int8.quantize(x), old_quantize(lib, x)
         torch.cuda.synchronize()
-        if not (torch.equal(got_new, want) and torch.equal(got_old, want)):
-            raise AssertionError(f"int8 kernels differ from the plain version at {key}: "
-                                 f"new {torch.equal(got_new, want)}, "
-                                 f"old {torch.equal(got_old, want)}")
+        same = [torch.equal(a, b) for got in (got_new, got_old) for a, b in zip(got, want)]
+        if not all(same):
+            raise AssertionError(f"quantize differs from the plain version at {key}: "
+                                 f"(x_q, s_x) new {same[:2]}, old {same[2:]}")
+        new = lambda: cuda_int8.quantize(x)                    # noqa: E731
+        old = lambda: old_quantize(lib, x)                     # noqa: E731
         t = [cs.cuda_ms(f, ITERS) for f in (old, new, new, old)]
-        _, bound, by = cs._int8_bounds(mod, x, want.numel())
-        lib_ms = None
-        if not mod.depthwise and mod.kernel_size == (1, 1) and mod.stride == (1, 1):
-            m, c = x.shape[0] * x.shape[2] * x.shape[3], x.shape[1]
-            if m > 16 and c % 8 == 0 and mod.out_channels % 8 == 0:
-                a2 = q.permute(0, 2, 3, 1).reshape(m, c)
-                b2 = mod.w_packed[:, :c].contiguous().t()
-                lib_ms = cs.cuda_ms(lambda: torch._int_mm(a2, b2), ITERS)
-        kind = "int8_conv_depthwise" if mod.depthwise else "int8_conv_dense"
-        plan = (cuda_int8.plan_depthwise(x.shape[0], x.shape[1], x.shape[2], x.shape[3],
-                                         mod.kernel_size, mod.stride, mod.padding, x.dtype)
-                if mod.depthwise else
-                cuda_int8.plan_dense(x.shape[0], x.shape[1], x.shape[2], x.shape[3],
-                                     mod.out_channels, mod.kernel_size, mod.stride,
-                                     mod.padding, x.dtype))
-        rows[key] = {"kernel": kind, "shape": list(x.shape), "cout": mod.out_channels,
-                     "ksize": list(mod.kernel_size), "stride": list(mod.stride),
-                     "bias": mod.bias is not None, "variant": plan.variant,
+        norm = cs.cuda_ms(lambda: torch.linalg.vector_norm(x, float("inf")), ITERS)
+        bound = (x.numel() * (x.element_size() + 1) + 4) / cs.PEAK_BYTES_S * 1e3
+        plan = cuda_int8.quantize_plan(x)
+        rows[key] = {"shape": list(x.shape), "dtype": str(x.dtype), "route": plan.route,
+                     "grid": plan.grid, "vec": plan.vec, "block_elems": plan.block_elems,
                      "old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]], "bound_ms": bound,
-                     "bound_by": by, "int_mm_ms": lib_ms}
-        cs.log(f"ab {kind} {tuple(x.shape)}->{mod.out_channels} {mod.kernel_size} "
-               f"s{mod.stride[0]} [{plan.variant}]: old {t[0]:.4f}/{t[3]:.4f} new "
-               f"{t[1]:.4f}/{t[2]:.4f} ms, bound {bound:.4f} ({by})"
-               + (f", _int_mm {lib_ms:.4f}" if lib_ms is not None else ""))
+                     "vector_norm_ms": norm}
+        cs.log(f"ab quantize {tuple(x.shape)} [{plan.route}, grid {plan.grid}, vec "
+               f"{plan.vec}, {plan.block_elems} elements a block]: old {t[0]:.4f}/{t[3]:.4f} "
+               f"new {t[1]:.4f}/{t[2]:.4f} ms; bound {bound:.4f} (bytes); "
+               f"vector_norm(inf) {norm:.4f} (yardstick: the max pass alone)")
 
     hooks = [m.register_forward_pre_hook(hook) for m in pred.model.modules()
              if isinstance(m, quant.Int8Conv2d)]
@@ -184,32 +159,18 @@ def ab_calls(lib, card: str):
 
 
 def totals(rows, card: str):
-    out = {}
-    for kind in ("int8_conv_dense", "int8_conv_depthwise"):
-        rs = [r for r in rows if r["kernel"] == kind]
-        t = {"calls": sum(r["calls"] for r in rs),
-             "bound_ms": sum(r["calls"] * r["bound_ms"] for r in rs),
-             "old_ms": [sum(r["calls"] * r["old_ms"][i] for r in rs) for i in (0, 1)],
-             "new_ms": [sum(r["calls"] * r["new_ms"][i] for r in rs) for i in (0, 1)],
-             "slower": [(r["shape"], r["cout"], r["ksize"], r["stride"])
-                        for r in rs if min(r["new_ms"]) > max(r["old_ms"])]}
-        mm = [r for r in rs if r["int_mm_ms"] is not None]
-        if mm:
-            t["int_mm_ms"] = sum(r["calls"] * r["int_mm_ms"] for r in mm)
-            t["ms_1x1_old"] = [sum(r["calls"] * r["old_ms"][i] for r in mm) for i in (0, 1)]
-            t["ms_1x1_new"] = [sum(r["calls"] * r["new_ms"][i] for r in mm) for i in (0, 1)]
-        worst = sorted(rs, key=lambda r: -r["calls"] * max(r["old_ms"]))[:5]
-        t["worst_old"] = [(r["shape"], r["cout"], r["ksize"], r["stride"], r["calls"],
-                           r["old_ms"], r["new_ms"], r["bound_ms"]) for r in worst]
-        out[kind] = t
-        cs.log(f"ab sum {kind} over {t['calls']} calls a b{cs.BATCH} forward: old "
-               f"{t['old_ms'][0]:.3f}/{t['old_ms'][1]:.3f} ms, new {t['new_ms'][0]:.3f}/"
-               f"{t['new_ms'][1]:.3f} ms, bound {t['bound_ms']:.3f} ms"
-               + (f"; 1x1 calls old {t['ms_1x1_old'][0]:.3f}/{t['ms_1x1_old'][1]:.3f}, new "
-                  f"{t['ms_1x1_new'][0]:.3f}/{t['ms_1x1_new'][1]:.3f}, torch._int_mm "
-                  f"{t['int_mm_ms']:.3f}" if mm else "")
-               + f"; new slower than old at {len(t['slower'])} calls [{card}]")
-    return out
+    t = {"calls": sum(r["calls"] for r in rows)}
+    for k in ("bound_ms", "vector_norm_ms"):
+        t[k] = sum(r["calls"] * r[k] for r in rows)
+    for k in ("old_ms", "new_ms"):
+        t[k] = [sum(r["calls"] * r[k][i] for r in rows) for i in (0, 1)]
+    t["slower"] = [r["shape"] for r in rows if min(r["new_ms"]) > max(r["old_ms"])]
+    cs.log(f"ab sum int8_quantize over {t['calls']} calls a b{cs.BATCH} forward: old "
+           f"{t['old_ms'][0]:.3f}/{t['old_ms'][1]:.3f} ms, new {t['new_ms'][0]:.3f}/"
+           f"{t['new_ms'][1]:.3f} ms, bound {t['bound_ms']:.3f} ms, vector_norm(inf) "
+           f"{t['vector_norm_ms']:.3f} ms (the max pass alone); new slower than old at "
+           f"{len(t['slower'])} inputs {t['slower']} [{card}]")
+    return t
 
 
 def graph_turns(parent: str, card: str):

@@ -94,11 +94,14 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               versions (x_q, s_x, int32 accumulators, output: equal) at
               every distinct quantized conv call of edge_n and edge_n_seg at
               b128 and of every other detection config at b2, timed at
-              edge_n's beside their bounds and torch._int_mm (1x1);
+              edge_n's beside their bounds and torch._int_mm (1x1), the
+              quantize's launch plan logged per call beside the yardstick
+              vector_norm(x, inf) (its max pass alone);
               Predictor(quantize="int8") img/s from device and host batches
               beside bf16 in turns with every kernel's launches counted, the
               stage split (each int8 kernel's time filed by its CUDA
-              symbols; a launched kernel with none fails), peak GB, the
+              symbols; a launched kernel with none fails, and so do more
+              quantize kernels a call than launches, or a memset), peak GB, the
               share of int8 detections bf16
               finds, the card's fp32 int8 against the CPU's (>= 99%
               matched); one edge_n_seg int8 b128 call; 10 QAT steps of
@@ -2543,8 +2546,15 @@ def _check_int8_call(mod, x, timing: bool):
                            float((out.float() - out0.float()).abs().max()))}
     if timing:
         bq, bc, by = _int8_bounds(mod, x, out.numel())
+        plan = cuda_int8.quantize_plan(x)
         row.update(quantize_ms=cuda_ms(lambda: cuda_int8.quantize(x), 5),
                    quantize_plain_ms=cuda_ms(lambda: cuda_int8.quantize_reference(x), 2, 1),
+                   # one read of x for the same max: a yardstick for phase 1
+                   # alone, not a library time for the whole function
+                   quantize_yardstick_ms=cuda_ms(
+                       lambda: torch.linalg.vector_norm(x, float("inf")), 5),
+                   quantize_plan={"route": plan.route, "grid": plan.grid, "vec": plan.vec,
+                                  "block_elems": plan.block_elems},
                    conv_ms=cuda_ms(lambda: kernel(q, s, *args, x.dtype), 5),
                    conv_plain_ms=cuda_ms(lambda: plain(q, s, *args, x.dtype), 1, 1),
                    quantize_bound_ms=bq, conv_bound_ms=bc, conv_bound_by=by, library_ms=None)
@@ -2556,6 +2566,10 @@ def _check_int8_call(mod, x, timing: bool):
                 if not torch.equal(torch._int_mm(a2, b2), acc.permute(0, 2, 3, 1).reshape(m, -1)):
                     raise AssertionError("torch._int_mm disagrees with the int32 accumulators")
                 row["library_ms"] = cuda_ms(lambda: torch._int_mm(a2, b2), 5)
+        log(f"quantize {tuple(x.shape)} {str(x.dtype)[6:]} [{plan.route}, grid {plan.grid}, "
+            f"vec {plan.vec}]: {row['quantize_ms']:.4f} ms, bound {bq:.4f} (bytes), "
+            f"vector_norm(inf) {row['quantize_yardstick_ms']:.4f} (yardstick: the max pass "
+            f"alone)")
     del q, q0, acc, acc0, out, out0
     return row
 
@@ -2591,6 +2605,7 @@ def _kernel_totals(rows, calls):
     """Per kernel, the sums over one b128 forward's quantized conv calls."""
     tot = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, ms_1x1=None,
                       ops_bound=0, calls=0, max_abs_err=0.0) for name in cuda_int8.KERNEL_NAMES}
+    tot["int8_quantize"]["yardstick_ms"] = 0.0
     for key, r in rows.items():
         n = calls[key]
         conv = "int8_conv_depthwise" if r["depthwise"] else "int8_conv_dense"
@@ -2605,6 +2620,7 @@ def _kernel_totals(rows, calls):
             t["bound_ms"] += n * bound
             t["calls"] += n
         tot[conv]["ops_bound"] += n * (r["conv_bound_by"] == "operations")
+        tot["int8_quantize"]["yardstick_ms"] += n * r["quantize_yardstick_ms"]
         if r["library_ms"] is not None:
             t = tot["int8_conv_dense"]
             t["library_ms"] = (t["library_ms"] or 0.0) + n * r["library_ms"]
@@ -2615,35 +2631,51 @@ def _kernel_totals(rows, calls):
     return tot
 
 
-def _kernel_ms(pred, x, kw, iters: int = 3):
+# graph calls _kernel_ms makes before its profiled ones: one warm call and
+# one traced by the profiler but not kept (its first kernels' records can
+# be lost while the tracer starts)
+PROFILE_WARM_CALLS = 2
+
+
+def _kernel_ms(pred, x, kw, iters: int = 3, counts=None):
     """torch.profiler over `iters` b128 graph calls: device ms a call by
-    kernel name."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel name (and, into `counts`, device launches a call by name)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     with torch.inference_mode():
         pred.postprocess(pred.forward(x), IMG, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=PROFILE_WARM_CALLS - 1, active=iters,
+                                       repeat=1)) as prof:
+            for i in range(PROFILE_WARM_CALLS - 1 + iters):
                 pred.postprocess(pred.forward(x), IMG, **kw)
-            torch.cuda.synchronize()
+                if i in (PROFILE_WARM_CALLS - 2, PROFILE_WARM_CALLS - 2 + iters):
+                    torch.cuda.synchronize()    # the kept calls run back to back
+                prof.step()
     out = {}
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # the schedule's step annotations carry the steps' device span
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and \
+                not e.key.startswith("ProfilerStep"):
             out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count / iters
     return out
 
 
 def _stage_split(pred, x, kw, card: str):
-    """Device ms a b128 call in the int8 quantize passes, the int8 convs
+    """Device ms a b128 call in the int8 quantize, the int8 convs
     (each kernel's CUDA symbols, `cuda_int8.KERNEL_SYMBOLS`), cuDNN's convs,
     BatchNorm and activations, and the rest (adds, upsampling, decode, NMS),
     by kernel name. Raises when the profiled calls launched an int8 kernel
-    under which the profile filed no time."""
+    under which the profile filed no time, or when the profile shows more
+    quantize kernels a call than launches, or any memset."""
     stage = {"int8_quantize": "int8 quantize", "int8_conv_dense": "int8 conv dense",
              "int8_conv_depthwise": "int8 conv depthwise"}
     split = dict.fromkeys((*stage.values(), "cuDNN conv", "BN/activation", "rest"), 0.0)
     cuda_int8.reset_launches()
-    by_kernel = _kernel_ms(pred, x, kw)
+    counts, iters = {}, 3
+    by_kernel = _kernel_ms(pred, x, kw, iters, counts)
     launched = dict(cuda_int8.LAUNCHES)
     for k, ms in by_kernel.items():
         int8 = [n for n, syms in cuda_int8.KERNEL_SYMBOLS.items() if any(s in k for s in syms)]
@@ -2658,6 +2690,18 @@ def _stage_split(pred, x, kw, card: str):
             split["rest"] += ms
     log(f"quant stages (profiler, device ms per b{BATCH} call): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{card}]")
+    # one device operation a quantize call: no more kernels under its symbols
+    # than launches (the tracer may lose a record, never add one), and no
+    # memset anywhere in the graph
+    syms = cuda_int8.KERNEL_SYMBOLS["int8_quantize"]
+    q_kernels = sum(c for k, c in counts.items() if any(s in k for s in syms))
+    q_launches = launched["int8_quantize"] / (PROFILE_WARM_CALLS + iters)
+    memsets = sum(c for k, c in counts.items() if "memset" in k.lower())
+    log(f"quant profile a b{BATCH} call: {q_kernels:g} quantize kernels, {q_launches:g} "
+        f"quantize launches, {memsets:g} memsets in the whole graph [{card}]")
+    if q_kernels > q_launches or memsets:
+        raise AssertionError(f"{q_kernels} quantize kernels and {memsets} memsets a call in "
+                             f"the profile, {q_launches} quantize launches")
     missing = [n for n in stage if launched[n] and not split[stage[n]] > 0]
     if missing:
         raise AssertionError(f"int8 kernels {missing} launched {launched} times in the "
@@ -3119,6 +3163,9 @@ def main():
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t["library_ms"],
                             ms_1x1=t["ms_1x1"], calls_per_forward=t["calls"],
+                            in_graph_ms=q["stages_ms"][k["name"].replace("_", " ")],
+                            **({"yardstick_phase1_ms": t["yardstick_ms"]}
+                               if "yardstick_ms" in t else {}),
                             shape="edge_n b128 @640 bf16, summed over one forward"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -258,12 +258,35 @@ def _int8_input(shape, dtype=torch.bfloat16, seed=0):
     return x.cuda().contiguous(memory_format=torch.channels_last)
 
 
+def _quantize_case(case, dtype):
+    """The input of one quantize case (channels_last on the card)."""
+    if case == "misaligned_view":       # a batch slice 45 elements in: scalar loads
+        x = _int8_input((3, 5, 3, 3), dtype)[1:]
+        assert x.data_ptr() % 16 != 0
+        return x
+    if case == "max_last_negative":     # the largest |x| is the last element, negative
+        x = _int8_input((2, 24, 9, 7), dtype)
+        x.permute(0, 2, 3, 1).reshape(-1)[-1] = -1000.0
+        return x
+    if case == "zeros":                 # -0.0 where x < 0
+        return _int8_input((2, 16, 8, 8), dtype) * 0
+    shapes = {"odd_hw": (2, 16, 33, 17), "tiny": (1, 5, 3, 3), "wide": (4, 96, 40, 40),
+              "n_not_multiple_of_8": (3, 7, 11, 13),
+              "above_l2": (16, 16, 320, 320)}   # 52 MB in bf16, 105 MB in fp32
+    return _int8_input(shapes[case], dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 33, 17), (1, 5, 3, 3), (4, 96, 40, 40)])
-def test_int8_quantize_matches_plain(card, shape, dtype):
+@pytest.mark.parametrize("case", ["odd_hw", "tiny", "wide", "misaligned_view",
+                                  "n_not_multiple_of_8", "max_last_negative", "zeros",
+                                  "above_l2"])
+def test_int8_quantize_matches_plain(card, case, dtype):
+    """One cooperative launch a call, x_q and s_x equal to the plain version,
+    on the vector route (16-byte aligned x, with an n % 8 tail) and the
+    scalar one (a misaligned view)."""
     from yololite_tpu_torch.ops import cuda_int8
-    x = _int8_input(shape, dtype)
+    x = _quantize_case(case, dtype)
     before = cuda_int8.LAUNCHES["int8_quantize"]
     q, s = cuda_int8.quantize(x)
     q0, s0 = cuda_int8.quantize_reference(x)
@@ -271,6 +294,65 @@ def test_int8_quantize_matches_plain(card, shape, dtype):
     assert cuda_int8.LAUNCHES["int8_quantize"] == before + 1
     assert torch.equal(q, q0) and torch.equal(s, s0)
     assert q.is_contiguous(memory_format=torch.channels_last)
+    if case == "max_last_negative":
+        assert s.item() == (torch.tensor([1000.0]) / torch.tensor([127.0])).item()
+        assert q.permute(0, 2, 3, 1).reshape(-1)[-1].item() == -127
+    if case == "zeros":
+        assert s.item() == 0.0 and not q.any()
+
+
+def _quantize_equal(x):
+    from yololite_tpu_torch.ops import cuda_int8
+    x = x.cuda().reshape(1, -1, 1, 1).contiguous(memory_format=torch.channels_last)
+    q, s = cuda_int8.quantize(x)
+    q0, s0 = cuda_int8.quantize_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0), (s.item(), s0.item())
+    bad = (q != q0).reshape(-1).nonzero()[:5, 0]
+    assert not len(bad), [(x.reshape(-1)[i].item(), q.reshape(-1)[i].item(),
+                           q0.reshape(-1)[i].item()) for i in bad]
+
+
+# largest |x| of each case: the scale at the 1e-12 clamp, at its edge, in
+# the usual range, and at bf16's largest finite values
+_QUANTIZE_MAXIMA = (1e-30, 1.27e-10, 1.3e-10, 0.5, 1.0, 3.0, 5.5, 127.0, 1000.0, 6.1e4,
+                    1e20, -3.3e38)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amax", _QUANTIZE_MAXIMA)
+def test_int8_quantize_every_bf16_value(card, amax):
+    """The kernel's division (a reciprocal computed once, two exact-remainder
+    corrections) against the plain version's IEEE division: every finite
+    bf16 value within |amax|, beside amax, in bf16 and in fp32."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    v = bits.view(torch.bfloat16)
+    m = torch.tensor([amax], dtype=torch.bfloat16)
+    v = v[torch.isfinite(v) & (v.float().abs() <= m.float().abs())]
+    x = torch.cat([v, m])
+    for dtype in (torch.bfloat16, torch.float32):
+        _quantize_equal(x.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amax", _QUANTIZE_MAXIMA)
+def test_int8_quantize_rounds_half_integers_as_the_plain_version(card, amax):
+    """fp32 inputs whose quotient lies within a few ulps of every k + 0.5
+    (the values where a quotient off by one ulp would round to another
+    level), of every k, and at the clamp."""
+    m = torch.tensor([amax], dtype=torch.float32)
+    d = (m.abs() / torch.tensor([127.0])).clamp_min(1e-12)
+    k = torch.arange(-128, 128, dtype=torch.float32)
+    mid = torch.cat([(k + 0.5) * d, k * d, torch.tensor([127.5, -127.5]) * d])
+    steps = [mid]
+    up, down = mid.clone(), mid.clone()
+    for _ in range(4):
+        up = torch.nextafter(up, torch.tensor(float("inf")))
+        down = torch.nextafter(down, torch.tensor(float("-inf")))
+        steps += [up, down]
+    x = torch.cat(steps)
+    x = x[x.abs() <= m.abs()]
+    _quantize_equal(torch.cat([x, m]))
 
 
 # dense 1x1 at the widths of the fused heads (O = 8), the stem (16) and the

@@ -1,6 +1,7 @@
-"""The int8 conv kernels' launch plans (`ops/cuda_int8.plan_dense`,
-`plan_depthwise`) at every distinct quantized conv call of every config, and
-the dense kernel's weight fragment order, on the CPU.
+"""The int8 kernels' launch plans (`ops/cuda_int8.plan_quantize`,
+`plan_dense`, `plan_depthwise`) at every distinct quantized conv call of
+every config, the quantize kernel's tile walk, and the dense kernel's weight
+fragment order, on the CPU.
 
 The kernels run only on the card (`tests/test_torch_port_cuda.py`,
 `chip_smoke.py`), but what they are launched with is a plain function of the
@@ -10,10 +11,13 @@ Predictor builds (heads fused): edge_n and edge_n_seg at 640 with N = 128 (the s
 batch), every other config at 640 with N = 2. Each plan must fit the H100's
 launch limits (grid.x < 2^31, grid.y/z <= 65,535, <= 1,024 threads, <=
 232,448 B of shared memory, which above 48 KB the launcher opts in to), for
-each output type, and no call may fall outside the planned variants.
+each output type, and no call may fall outside the planned variants. The
+quantize's cooperative grid must fit the blocks 132 SMs hold at once.
 """
 
+import functools
 import glob
+import math
 import os
 
 import numpy as np
@@ -43,6 +47,7 @@ def _configs():
 CONFIGS = _configs()
 
 
+@functools.lru_cache(maxsize=None)
 def quantized_calls(rel: str, n: int, img: int = 640):
     """Distinct (input shape, cout, kernel, stride, padding, groups, bias) of
     the quantized conv calls of one forward, on the meta device."""
@@ -162,6 +167,135 @@ def test_uncommon_shapes_take_the_general_variants():
         plan = cuda_int8.plan_depthwise(2, 40, 21, 19, kernel, stride, (1, 1), torch.float32)
         assert plan.args[0] == 0
         _assert_fits(plan)
+
+
+SMS = 132
+# co-resident quantize blocks an SM: the card's occupancy query gives the
+# number (registers); these cover the range 256-thread blocks can take
+QUANT_BLOCKS_PER_SM = (8, 5, 1)
+
+
+def _assert_quantize_plan(plan, n, dtype, aligned, sms, bps):
+    """Valid: the vector route only when aligned; every co-resident block
+    (or one a tile when there are fewer tiles), never more; the tiles cover
+    n exactly (the last one cut), each taken by one block, blocks differing
+    by at most one tile; one scratch slot a block."""
+    assert plan.route == ("vector" if aligned else "scalar")
+    assert plan.vec == cuda_int8.QUANT_ROUTES[plan.route][0]
+    assert plan.tile == plan.threads * plan.vec and plan.threads == 256
+    assert plan.grid == min(plan.tiles, sms * bps) >= 1
+    assert (plan.tiles - 1) * plan.tile < n <= plan.tiles * plan.tile
+    owned = np.bincount(np.arange(plan.tiles) % plan.grid, minlength=plan.grid)
+    assert owned.sum() == plan.tiles and owned.min() >= owned.max() - 1 >= 0
+    assert owned.max() * plan.tile == plan.block_elems
+    assert plan.scratch >= plan.grid
+    assert plan.args == (list(cuda_int8.QUANT_ROUTES).index(plan.route), plan.grid,
+                         plan.threads, plan.tile, plan.tiles)
+
+
+@pytest.mark.parametrize("rel", CONFIGS)
+def test_every_quantized_input_has_a_quantize_plan(rel):
+    n = 128 if rel in SERVING else 2
+    for shape in {c[0] for c in quantized_calls(rel, n)}:
+        numel = math.prod(shape)
+        for dtype in (torch.bfloat16, torch.float32):
+            for aligned in (True, False):
+                for bps in QUANT_BLOCKS_PER_SM:
+                    plan = cuda_int8.plan_quantize(numel, dtype, aligned, SMS, bps)
+                    _assert_quantize_plan(plan, numel, dtype, aligned, SMS, bps)
+
+
+def test_small_quantize_calls_take_a_small_grid():
+    """A call of a few tiles launches a block a tile, not the card's
+    co-resident limit."""
+    for n, aligned, grid in ((45, True, 1), (45, False, 1), (2048 * 3 + 1, True, 4),
+                             (2048 * 660, True, 660), (2048 * 661, True, 660)):
+        plan = cuda_int8.plan_quantize(n, torch.bfloat16, aligned, SMS, 5)
+        assert plan.grid == grid, (n, plan)
+        _assert_quantize_plan(plan, n, torch.bfloat16, aligned, SMS, 5)
+
+
+def test_quantize_plan_raises_on_what_no_plan_takes():
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        cuda_int8.plan_quantize(64, torch.float16, True, SMS, 4)
+    with pytest.raises(ValueError, match="empty"):
+        cuda_int8.plan_quantize(0, torch.bfloat16, True, SMS, 4)
+    with pytest.raises(ValueError, match="co-resident"):
+        cuda_int8.plan_quantize(64, torch.bfloat16, True, SMS, 0)
+
+
+def _walk_quantize(x: torch.Tensor, plan):
+    """The kernel's index math on the CPU: block b's k-th tile is b + k *
+    grid, taken `unroll` at a time (a group); thread i loads unit i of a
+    tile; phase 1 takes the groups last to first, the last tile's block
+    also the n % vec tail; phase 2 takes the groups first to last and
+    quantizes with d from the blocks' maxima. Returns (x_q, s, how often
+    each element was loaded from x in each phase, how often quantized, and
+    each phase's order of groups by block)."""
+    flat = x.permute(0, 2, 3, 1).reshape(-1).to(torch.float32)
+    n, v = flat.numel(), plan.vec
+    units = n // v
+    unroll = cuda_int8.QUANT_ROUTES[plan.route][1]
+    loads = np.zeros((2, n), np.int64)
+    threads = np.arange(plan.threads)
+
+    def group_elems(b, g):
+        tiles = [b + plan.grid * k for k in range(g * unroll, (g + 1) * unroll)]
+        u = np.concatenate([t * plan.threads + threads for t in tiles if t < plan.tiles])
+        u = u[u < units]
+        return (u[:, None] * v + np.arange(v)).reshape(-1)
+
+    def tail(b):
+        last = b == (plan.tiles - 1) % plan.grid and units * v < n
+        return np.arange(units * v, n) if last else np.arange(0)
+
+    partials = torch.zeros(plan.scratch)
+    orders = ({}, {})
+    for b in range(plan.grid):
+        mine = len(range(b, plan.tiles, plan.grid))
+        orders[1][b] = list(range(-(-mine // unroll)))
+        orders[0][b] = orders[1][b][::-1]
+        m = torch.zeros(())
+        for g in orders[0][b]:
+            e = group_elems(b, g)
+            loads[0, e] += 1
+            m = torch.maximum(m, flat[e].abs().max()) if len(e) else m
+        e = tail(b)
+        loads[0, e] += 1
+        partials[b] = torch.maximum(m, flat[e].abs().max()) if len(e) else m
+    amax = partials[:plan.grid].max().reshape(1)
+    s = amax / torch.full_like(amax, 127.0)
+    d = s.clamp_min(1e-12)
+    q = torch.zeros(n, dtype=torch.int8)
+    done = np.zeros(n, np.int64)
+    for b in range(plan.grid):
+        for e in [group_elems(b, g) for g in orders[1][b]] + [tail(b)]:
+            loads[1, e] += 1
+            done[e] += 1
+            q[e] = torch.round(flat[e] / d).clamp(-127, 127).to(torch.int8)
+    return q, s, loads, done, orders
+
+
+@pytest.mark.parametrize("shape,aligned,sms,bps", [
+    ((3, 7, 11, 13), True, 1, 1), ((3, 7, 11, 13), False, 2, 1),
+    ((4, 16, 40, 41), True, 2, 1), ((4, 16, 40, 41), True, 3, 2),
+    ((2, 5, 33, 17), False, 1, 1), ((1, 8, 64, 64), True, 132, 4)])
+def test_quantize_walk_covers_every_element_once(shape, aligned, sms, bps):
+    """Every element is read once in each phase and quantized once, phase 1
+    from a block's last group to its first and phase 2 back, and the
+    blocks' partial maxima and shares give the plain version's x_q and s_x
+    exactly."""
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy((rng.randn(*shape) * 3).astype(np.float32)).to(torch.bfloat16)
+    want_q, want_s = cuda_int8.quantize_reference(x)
+    plan = cuda_int8.plan_quantize(x.numel(), x.dtype, aligned, sms, bps)
+    assert plan.block_elems > plan.tile or sms * bps >= plan.tiles
+    q, s, loads, done, orders = _walk_quantize(x, plan)
+    assert (loads == 1).all() and (done == 1).all()
+    for b in range(plan.grid):
+        assert orders[0][b] == sorted(orders[0][b], reverse=True) == orders[1][b][::-1]
+    assert torch.equal(s, want_s)
+    assert torch.equal(q, want_q.permute(0, 2, 3, 1).reshape(-1))
 
 
 def _mma_m16n8k32(a_frag, b_frag):

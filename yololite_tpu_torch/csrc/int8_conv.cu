@@ -21,15 +21,30 @@
 // the fused heads, laterals, ProtoNet and `mcoef` are dense 1x1); the
 // wrapper (`ops/cuda_int8.py`) raises on any other grouping. Memory is NHWC
 // (the port's channels_last), padding symmetric, no dilation. The wrapper's
-// `plan_dense`/`plan_depthwise` pick each call's variant, tile and shared
-// memory; the launchers below check the plan against their own arithmetic.
+// `plan_quantize`/`plan_dense`/`plan_depthwise` pick each call's variant,
+// grid, tile and shared memory; the launchers below check the plan against
+// their own arithmetic.
 //
 // Bounds on the H100 (3.35 TB/s; 1,979 TOP/s dense int8) and the designs:
 //   quantize   bytes: each input read once (2 B in bf16) and x_q written
-//              once (1 B). It reads the input twice (max, then quantize),
-//              the second time mostly from the 50 MB L2 at b8 but from
-//              device memory at b128; a fused max in the producer would
-//              remove the first read (later work).
+//              once (1 B). One cooperative launch a call, nothing zeroed:
+//              each block writes its max |x| to its own slot of a scratch
+//              the wrapper allocates, a grid-wide barrier, then every block
+//              reduces the slots and quantizes its share. Tiles of one
+//              16-byte load a thread (8 bf16 or 8 fp32 in two loads; scalar
+//              loads when x is not 16-byte aligned) are dealt round-robin
+//              over every co-resident block (the occupancy query, at run
+//              time), so the SMs get equal work; x_q leaves in 8-byte
+//              stores. The input is read twice, a tensor that fits in the
+//              50 MB L2 the second time from there. Phase 1 walks the tiles
+//              last to first, where the producer's last writes still sit in
+//              L2, and phase 2 first to last, where phase 1's last reads do:
+//              in the b128 graph's profile this order beat the reverse by 5%
+//              (2.584 / 2.562 against 2.725 / 2.719 ms a forward). The
+//              division and the rounding are exact without the conversion
+//              pipe (`div_rn`, `quant1`).
+//              A max fused into the producer would remove a read (later
+//              work).
 //   dense      bytes at every edge_n call (x_q in once, the output out once:
 //              a 1x1 conv does 2*O int8 ops a byte of x_q, far below the
 //              tensor cores' break-even of ~590); operations only for wide
@@ -68,7 +83,10 @@
 //              a multiple of 16 mask the last group (4-byte copies, or bytes
 //              when C is not a multiple of 4).
 
+#include <atomic>
 #include <cstdint>
+#include <cstring>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,52 +94,249 @@ namespace {
 
 enum OutType { OUT_F32 = 0, OUT_BF16 = 1, OUT_I32 = 2 };
 
-__device__ __forceinline__ float load_f32(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
+// ---------------------------------------------------------------- quantize
+constexpr int QTHREADS = 256;
+enum QuantRoute { QR_SCALAR = 0, QR_VECTOR = 1 };
+
+// What one load brings: V elements. A tile is QTHREADS * V elements, one
+// load a thread (tile t is element range [t*tile, (t+1)*tile)); a thread
+// keeps U tiles' loads in flight. absmax folds |x| of the unit into m;
+// elem(k) is element k as fp32.
+template <typename T, int ROUTE>
+struct QUnit;
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+struct QUnit<T, QR_SCALAR> {     // any address: one element a load
+  static constexpr int V = 1, U = 8;
+  T v;
+  __device__ __forceinline__ void load(const T* x, long long e) { v = x[e]; }
+  __device__ __forceinline__ float elem(int) const { return to_f32(v); }
+  __device__ __forceinline__ float absmax(float m) const { return fmaxf(m, fabsf(to_f32(v))); }
+};
+template <>
+struct QUnit<__nv_bfloat16, QR_VECTOR> {   // 8 bf16 in one 16-byte load
+  static constexpr int V = 8, U = 4;
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* x, long long e) {
+    v = __ldg(reinterpret_cast<const uint4*>(x + e));
+  }
+  __device__ __forceinline__ unsigned word(int k) const {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+  __device__ __forceinline__ float elem(int k) const {
+    const unsigned w = word(k >> 1);
+    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(k & 1 ? w >> 16 : w)));
+  }
+  // max and |.| are exact in bf16: pairs first, then one fp32 max
+  __device__ __forceinline__ float absmax(float m) const {
+    __nv_bfloat162 h[4];
+    memcpy(h, &v, sizeof(h));
+    const __nv_bfloat162 p = __hmax2(__hmax2(__habs2(h[0]), __habs2(h[1])),
+                                     __hmax2(__habs2(h[2]), __habs2(h[3])));
+    return fmaxf(m, fmaxf(__low2float(p), __high2float(p)));
+  }
+};
+template <>
+struct QUnit<float, QR_VECTOR> {           // 8 fp32 in two 16-byte loads
+  static constexpr int V = 8, U = 4;
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* x, long long e) {
+    a = __ldg(reinterpret_cast<const float4*>(x + e));
+    b = __ldg(reinterpret_cast<const float4*>(x + e) + 1);
+  }
+  __device__ __forceinline__ float elem(int k) const {
+    const float4& f = k < 4 ? a : b;
+    k &= 3;
+    return k == 0 ? f.x : k == 1 ? f.y : k == 2 ? f.z : f.w;
+  }
+  __device__ __forceinline__ float absmax(float m) const {
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
+    return fmaxf(m, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+  }
+};
+
+struct QuantArgs {
+  const void* x;
+  long long n;
+  long long tiles;     // ceil(n / (QTHREADS * V))
+  float* partials;     // [gridDim.x] block maxima, written before they are read
+  int8_t* q;
+  float* s_out;
+};
+
+// x / d rounded to nearest even, as `__fdiv_rn(x, d)` gives it, with y =
+// `__frcp_rn(d)` computed once: q = RN(x*y), within two ulps of x/d, then
+// two corrections by the remainder r = x - d*q, which one fma gives
+// exactly. The first leaves q within an ulp of x/d; the second rounds
+// correctly by Markstein's theorem (P. Markstein, IBM J. Res. Dev. 34(1),
+// 1990; J.-M. Muller et al., Handbook of Floating-Point Arithmetic): with
+// round to nearest, if y = RN(1/d), q is within an ulp of x/d and r =
+// x - d*q is exact, then RN(q + r*y) = RN(x/d), provided nothing
+// overflows. The quantize's operands meet these hypotheses: d >= 1e-12 >
+// 2^-40 and y <= 1e12 are normal and |x/d| <= 127 * (1 + 2^-23) bounds
+// every value. Where |x/d| >= 2^-60, x (>= 2^-100) and q are normal, so
+// the remainder of a faithful q is representable, and where it falls below
+// 2^-126 it is a multiple of 2^-146, which a subnormal holds exactly. A
+// smaller quotient gives a result below 0.5, level 0 on either path. So no
+// per-element range check is needed, unlike div.rn.f32, whose check sends
+// zeros and subnormals down a divergent slow path. The card tests also hold
+// it to the plain version's IEEE division at every finite bf16 value.
+__device__ __forceinline__ float div_rn(float x, float d, float y) {
+  float q = __fmul_rn(x, y);
+  float r = __fmaf_rn(-d, q, x);
+  q = __fmaf_rn(r, y, q);
+  r = __fmaf_rn(-d, q, x);
+  return __fmaf_rn(r, y, q);
 }
 
-// ---------------------------------------------------------------- quantize
-template <typename T>
-__global__ void absmax_kernel(const T* __restrict__ x, long long n,
-                              unsigned int* __restrict__ amax_bits) {
-  float m = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    m = fmaxf(m, fabsf(load_f32(x, i)));
+// x_q of one element: the division, round half to even, then the clamp.
+// |x / d| <= 127 * (1 + 2^-23), so v + 1.5 * 2^23 lies in [2^23, 2^24),
+// where the float spacing is 1: the add rounds v to an integer, half to
+// even (as rintf does), and the integer is the sum's low bits. The clamp is
+// then on integers. rintf and a float-to-int conversion would run on the
+// quarter-rate conversion pipe, which bounded this loop.
+__device__ __forceinline__ int quant1(float x, float d, float y) {
+  const int v = __float_as_int(__fadd_rn(div_rn(x, d, y), 12582912.0f)) - 0x4B400000;
+  return min(max(v, -127), 127);
+}
+
+// the block's max of m, in every thread
+__device__ __forceinline__ float block_max(float m, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ float part[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = m;
+  if (lane == 0) red[warp] = m;
   __syncthreads();
-  if (warp == 0) {
-    m = lane < (int)(blockDim.x >> 5) ? part[lane] : 0.f;
+  m = lane < QTHREADS / 32 ? red[lane] : 0.f;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    // non-negative floats order as their bit patterns
-    if (lane == 0) atomicMax(amax_bits, __float_as_uint(m));
-  }
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
 }
 
-template <typename T>
-__global__ void quantize_kernel(const T* __restrict__ x, long long n,
-                                const unsigned int* __restrict__ amax_bits,
-                                int8_t* __restrict__ q, float* __restrict__ s_out) {
-  const float s = __fdiv_rn(__uint_as_float(*amax_bits), 127.0f);
+// One cooperative launch. Block b owns tiles b, b + grid, b + 2*grid, ...
+// (its k-th tile is b + k*grid), taken U at a time (a group); thread i loads
+// unit i of each. Phase 1 takes the block's groups last to first (the
+// producer's last writes are still in L2) and writes its max |x| to
+// partials[b]. A grid-wide barrier. Phase 2: every block reduces the
+// partials (a few KB from L2), derives s and d, and quantizes its groups
+// first to last (phase 1's last reads are in L2). The n % V elements past
+// the last whole unit belong to the last tile's block.
+template <typename T, int ROUTE>
+__global__ void __launch_bounds__(QTHREADS) int8_quantize_kernel(const QuantArgs a) {
+  using Unit = QUnit<T, ROUTE>;
+  constexpr int V = Unit::V, U = Unit::U;
+  __shared__ float red[2][QTHREADS / 32];
+  const T* const x = static_cast<const T*>(a.x);
+  const long long grid = gridDim.x, b = blockIdx.x;
+  const long long mine = b < a.tiles ? (a.tiles - 1 - b) / grid + 1 : 0;
+  const long long groups = (mine + U - 1) / U;
+  const long long units = a.n / V;
+  const long long tail_e = units * V + threadIdx.x;
+  const bool tail = b == (a.tiles - 1) % grid && tail_e < a.n;
+  // this thread's unit in the block's k-th tile, or -1 past the block's
+  // tiles or the whole units
+  auto unit_of = [&](long long k) {
+    const long long u = (b + grid * k) * QTHREADS + threadIdx.x;
+    return k < mine && u < units ? u : -1LL;
+  };
+
+  Unit u[U];
+  float m = 0.f;
+  for (long long g = groups - 1; g >= 0; --g) {
+    const long long k0 = g * U;
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (unit_of(k0 + j) >= 0) u[j].load(x, unit_of(k0 + j) * V);
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (unit_of(k0 + j) >= 0) m = u[j].absmax(m);
+  }
+  if (tail) m = fmaxf(m, fabsf(to_f32(x[tail_e])));
+  m = block_max(m, red[0]);
+  if (threadIdx.x == 0) a.partials[b] = m;
+  cooperative_groups::this_grid().sync();
+
+  float amax = 0.f;
+  for (long long i = threadIdx.x; i < grid; i += QTHREADS)
+    amax = fmaxf(amax, __ldcg(a.partials + i));
+  amax = block_max(amax, red[1]);
+  const float s = __fdiv_rn(amax, 127.0f);
   const float d = fmaxf(s, 1e-12f);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    float v = rintf(__fdiv_rn(load_f32(x, i), d));
-    q[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
+  const float y = __frcp_rn(d);
+  if (b == 0 && threadIdx.x == 0) *a.s_out = s;
+  for (long long g = 0; g < groups; ++g) {
+    const long long k0 = g * U;
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (unit_of(k0 + j) >= 0) u[j].load(x, unit_of(k0 + j) * V);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const long long e = unit_of(k0 + j) * V;
+      if (e < 0) continue;
+      if constexpr (V == 8) {
+        uint2 o;
+        o.x = (uint32_t)(quant1(u[j].elem(0), d, y) & 0xff) |
+              (uint32_t)(quant1(u[j].elem(1), d, y) & 0xff) << 8 |
+              (uint32_t)(quant1(u[j].elem(2), d, y) & 0xff) << 16 |
+              (uint32_t)quant1(u[j].elem(3), d, y) << 24;
+        o.y = (uint32_t)(quant1(u[j].elem(4), d, y) & 0xff) |
+              (uint32_t)(quant1(u[j].elem(5), d, y) & 0xff) << 8 |
+              (uint32_t)(quant1(u[j].elem(6), d, y) & 0xff) << 16 |
+              (uint32_t)quant1(u[j].elem(7), d, y) << 24;
+        *reinterpret_cast<uint2*>(a.q + e) = o;
+      } else {
+        a.q[e] = (int8_t)quant1(u[j].elem(0), d, y);
+      }
+    }
   }
+  if (tail) a.q[tail_e] = (int8_t)quant1(to_f32(x[tail_e]), d, y);
 }
 
-int grid_for(long long n, int block) {
-  long long blocks = (n + block - 1) / block;
-  const long long cap = 132LL * 16;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+template <typename T, int ROUTE>
+const void* quant_kernel() {
+  return reinterpret_cast<const void*>(&int8_quantize_kernel<T, ROUTE>);
+}
+const void* quant_kernel(int in_type, int route) {
+  if (in_type == 0)
+    return route == QR_VECTOR ? quant_kernel<float, QR_VECTOR>() : quant_kernel<float, QR_SCALAR>();
+  return route == QR_VECTOR ? quant_kernel<__nv_bfloat16, QR_VECTOR>()
+                            : quant_kernel<__nv_bfloat16, QR_SCALAR>();
+}
+// elements a tile
+constexpr int quant_tile(int route) {
+  return QTHREADS * (route == QR_VECTOR ? QUnit<float, QR_VECTOR>::V : QUnit<float, QR_SCALAR>::V);
+}
+
+// The device's SM count and the instance's co-resident blocks an SM, queried
+// once a device and instance: a cooperative grid larger than their product
+// does not launch.
+constexpr int QMAX_DEVICES = 64;
+std::atomic<int> quant_limits_seen[QMAX_DEVICES][4];   // (sms << 16 | bps) + 1; 0: not yet
+
+cudaError_t quant_limits(int in_type, int route, int* sms, int* bps) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= QMAX_DEVICES) return cudaErrorInvalidDevice;
+  std::atomic<int>& seen = quant_limits_seen[dev][2 * in_type + route];
+  int v = seen.load();
+  if (v == 0) {
+    int coop = 0;
+    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+      return err;
+    if (!coop) return cudaErrorNotSupported;
+    if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             bps, quant_kernel(in_type, route), QTHREADS, 0)) != cudaSuccess)
+      return err;
+    v = ((*sms << 16) | *bps) + 1;
+    seen.store(v);
+  }
+  *sms = (v - 1) >> 16;
+  *bps = (v - 1) & 0xffff;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------- common
@@ -723,27 +938,43 @@ cudaError_t launch_dw_out(int out_type, const DwArgs& a, dim3 grid, int threads,
 
 extern "C" {
 
+// The co-resident limits of the quantize instance for in_type (0 fp32, 1
+// bf16) and route (0 scalar, 1 vector) on the current device.
+int yl_int8_quantize_limits(int in_type, int route, int* sms, int* blocks_per_sm) {
+  if ((in_type != 0 && in_type != 1) || (route != QR_SCALAR && route != QR_VECTOR))
+    return (int)cudaErrorInvalidValue;
+  return (int)quant_limits(in_type, route, sms, blocks_per_sm);
+}
+
 // x (fp32 when in_type == 0, bf16 when 1) with n elements -> q int8 [n] and
-// s_out fp32 [1]; amax_scratch is 4 bytes of device memory.
-int yl_int8_quantize(const void* x, int in_type, long long n, void* amax_scratch, void* q,
-                     void* s_out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(amax_scratch, 0, sizeof(unsigned int), st);
+// s_out fp32 [1]. The plan (`cuda_int8.plan_quantize`): route, grid,
+// threads, tile and tiles, which must equal this file's own arithmetic on
+// the occupancy query; partials holds grid floats.
+int yl_int8_quantize(const void* x, int in_type, long long n, int route, int grid, int threads,
+                     int tile, long long tiles, void* partials, void* q, void* s_out,
+                     void* stream) {
+  int sms = 0, bps = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if ((in_type == 0 || in_type == 1) && (route == QR_SCALAR || route == QR_VECTOR))
+    err = quant_limits(in_type, route, &sms, &bps);
   if (err != cudaSuccess) return (int)err;
-  const int block = 256, grid = grid_for(n, block);
-  unsigned int* amax = (unsigned int*)amax_scratch;
-  if (in_type == 0) {
-    absmax_kernel<float><<<grid, block, 0, st>>>((const float*)x, n, amax);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    quantize_kernel<float><<<grid, block, 0, st>>>((const float*)x, n, amax, (int8_t*)q,
-                                                   (float*)s_out);
-  } else {
-    absmax_kernel<__nv_bfloat16><<<grid, block, 0, st>>>((const __nv_bfloat16*)x, n, amax);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    quantize_kernel<__nv_bfloat16><<<grid, block, 0, st>>>((const __nv_bfloat16*)x, n, amax,
-                                                           (int8_t*)q, (float*)s_out);
-  }
-  return (int)cudaGetLastError();
+  const long long cap = (long long)sms * bps;
+  const bool aligned = ((uintptr_t)x & 15) == 0 && ((uintptr_t)q & 7) == 0;
+  if (n < 1 || cap < 1 || threads != QTHREADS || tile != quant_tile(route) ||
+      tiles != (n + tile - 1) / tile ||
+      (route == QR_VECTOR && !aligned) || grid != (tiles < cap ? tiles : cap))
+    return (int)cudaErrorInvalidValue;
+  QuantArgs a;
+  a.x = x;
+  a.n = n;
+  a.tiles = tiles;
+  a.partials = (float*)partials;
+  a.q = (int8_t*)q;
+  a.s_out = (float*)s_out;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(quant_kernel(in_type, route), dim3((unsigned)grid),
+                                    dim3(QTHREADS), args, 0, (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The plan (`cuda_int8.plan_dense`): mode (DenseMode), nt (n8 tiles a column

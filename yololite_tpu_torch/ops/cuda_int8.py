@@ -19,8 +19,8 @@ a CPU tensor it computes the plain PyTorch version (`*_reference`), which
 repeats the kernel's arithmetic: the quantize in ATen, the conv as
 `F.conv2d` in float64 on the int8 values (exact: every sum stays below
 2^53) rounded to int32, then the same epilogue. The two agree bit for bit.
-`LAUNCHES` counts launches per kernel name (the quantize's two passes count
-one). `out_dtype=torch.int32` returns the raw accumulators.
+`LAUNCHES` counts launches per kernel name. `out_dtype=torch.int32` returns
+the raw accumulators.
 
 Weights come packed once (`pack_dense`, `pack_depthwise`) from the int8
 OIHW kernel: dense as [O, Kp] with K = kh*kw*cin ordered (ky, kx, c) and
@@ -29,10 +29,12 @@ reads its weights in mma fragment order (`pack_dense_mma`), made once from
 the [O, Kp] pack and held beside it (`Int8Conv2d.w_mma`); a caller that
 passes none gets one made for the call.
 
-`plan_dense` and `plan_depthwise` are plain functions of the shapes: they
-pick each call's kernel variant, tile, grid, threads and shared memory, and
-raise on a call no variant takes. The launchers in `int8_conv.cu` check the
-plan's shared memory against their own count.
+`plan_quantize`, `plan_dense` and `plan_depthwise` are plain functions of
+the shapes (and, for the quantize's cooperative grid, of the card's SM
+count and co-resident blocks an SM): they pick each call's kernel variant,
+tile, grid, threads and shared memory, and raise on a call no variant
+takes. The launchers in `int8_conv.cu` check the plan against their own
+arithmetic.
 """
 
 from __future__ import annotations
@@ -47,11 +49,17 @@ import torch.nn.functional as F
 SOURCE = "yololite_tpu_torch/csrc/int8_conv.cu"
 KERNEL_NAMES = ("int8_quantize", "int8_conv_dense", "int8_conv_depthwise")
 # the CUDA symbols of each kernel (profiler rows name the kernel by these)
-KERNEL_SYMBOLS = {"int8_quantize": ("absmax_kernel", "quantize_kernel"),
+KERNEL_SYMBOLS = {"int8_quantize": ("int8_quantize_kernel",),
                   "int8_conv_dense": ("int8_dense_mma_kernel",),
                   "int8_conv_depthwise": ("int8_depthwise_tile_kernel",)}
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 K_STEP = 32
+
+# quantize: one cooperative launch of QUANT_THREADS-thread blocks; by route,
+# (elements a load, tiles in flight a thread): 16-byte loads when x is
+# 16-byte aligned, scalar ones otherwise. A tile is QUANT_THREADS x one load.
+QUANT_THREADS = 256
+QUANT_ROUTES = {"scalar": (1, 8), "vector": (8, 4)}
 
 # H100 launch limits (sm_90)
 MAX_THREADS = 1024
@@ -94,10 +102,12 @@ def library() -> ctypes.CDLL:
         from yololite_tpu_torch.csrc.build import load
         lib = load("int8_conv")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.yl_int8_quantize.argtypes = [ptr, i32, i64, ptr, ptr, ptr, ptr]
+        lib.yl_int8_quantize_limits.argtypes = [i32, i32, ptr, ptr]
+        lib.yl_int8_quantize.argtypes = [ptr, i32, i64] + [i32] * 4 + [i64] + [ptr] * 4
         lib.yl_int8_conv_dense.argtypes = [ptr] * 6 + [i32] * 26 + [ptr]
         lib.yl_int8_conv_depthwise.argtypes = [ptr] * 6 + [i32] * 18 + [ptr]
-        for fn in (lib.yl_int8_quantize, lib.yl_int8_conv_dense, lib.yl_int8_conv_depthwise):
+        for fn in (lib.yl_int8_quantize_limits, lib.yl_int8_quantize, lib.yl_int8_conv_dense,
+                   lib.yl_int8_conv_depthwise):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -142,6 +152,78 @@ def quantize_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+class QuantPlan(NamedTuple):
+    """One quantize call's cooperative launch. Tile t is elements [t*tile,
+    (t+1)*tile) of x (the last one cut at n); block b takes tiles b, b +
+    grid, b + 2*grid, ..., so blocks differ by at most one tile."""
+    route: str
+    grid: int
+    threads: int
+    vec: int             # elements a load
+    tiles: int
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.vec
+
+    @property
+    def block_elems(self) -> int:
+        """The most elements a block takes."""
+        return -(-self.tiles // self.grid) * self.tile
+
+    @property
+    def scratch(self) -> int:
+        """fp32 slots for the blocks' partial maxima."""
+        return self.grid
+
+    @property
+    def args(self) -> Tuple[int, ...]:
+        """What the C launcher takes after n: route, grid, threads, tile,
+        tiles."""
+        return (list(QUANT_ROUTES).index(self.route), self.grid, self.threads, self.tile,
+                self.tiles)
+
+
+def plan_quantize(n: int, dtype, aligned: bool, sm_count: int, blocks_per_sm: int) -> QuantPlan:
+    """The quantize kernel's launch for n elements of `dtype` (shapes only):
+    the vector route when x's address is 16-byte aligned, and every block
+    that sm_count x blocks_per_sm co-resident blocks allow (a cooperative
+    launch may hold no more), or one a tile when there are fewer tiles. The
+    tiles are dealt round-robin, so blocks differ by at most one tile."""
+    if dtype not in _IN_TYPES:
+        raise ValueError(f"int8_quantize: fp32 or bf16 input expected, got {dtype}")
+    if n < 1:
+        raise ValueError("int8_quantize: an empty tensor has no scale")
+    if sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"int8_quantize: no co-resident block ({sm_count} SMs x "
+                         f"{blocks_per_sm} blocks)")
+    route = "vector" if aligned else "scalar"
+    vec = QUANT_ROUTES[route][0]
+    tiles = -(-n // (QUANT_THREADS * vec))
+    return QuantPlan(route, min(tiles, sm_count * blocks_per_sm), QUANT_THREADS, vec, tiles)
+
+
+def quantize_limits(device: torch.device, dtype, route: str) -> Tuple[int, int]:
+    """(SMs, co-resident blocks an SM) of the quantize instance for `dtype`
+    and `route` on `device`: the CUDA occupancy query, which the library
+    makes once a device, type and route and the launcher checks grids
+    against."""
+    sms, bps = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = library().yl_int8_quantize_limits(
+            _IN_TYPES[dtype], list(QUANT_ROUTES).index(route), ctypes.byref(sms),
+            ctypes.byref(bps))
+    _check_err(err, "int8_quantize")
+    return sms.value, bps.value
+
+
+def quantize_plan(x: torch.Tensor) -> QuantPlan:
+    """`plan_quantize` for a CUDA tensor, on its card's limits."""
+    aligned = x.data_ptr() % 16 == 0
+    limits = quantize_limits(x.device, x.dtype, "vector" if aligned else "scalar")
+    return plan_quantize(x.numel(), x.dtype, aligned, *limits)
+
+
 def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """bf16/fp32 [N,C,H,W] channels_last -> (x_q int8 channels_last, s_x fp32 [1])."""
     if not _route(x, "int8_quantize"):
@@ -149,12 +231,13 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _nhwc(x, "int8_quantize")
     if x.dtype not in _IN_TYPES:
         raise ValueError(f"int8_quantize: fp32 or bf16 input expected, got {x.dtype}")
+    plan = quantize_plan(x)
     q = torch.empty_like(x, dtype=torch.int8, memory_format=torch.channels_last)
     s = torch.empty(1, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
+    partials = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = library().yl_int8_quantize(x.data_ptr(), _IN_TYPES[x.dtype], x.numel(),
-                                         scratch.data_ptr(), q.data_ptr(), s.data_ptr(),
+        err = library().yl_int8_quantize(x.data_ptr(), _IN_TYPES[x.dtype], x.numel(), *plan.args,
+                                         partials.data_ptr(), q.data_ptr(), s.data_ptr(),
                                          _stream(x))
     _check_err(err, "int8_quantize")
     LAUNCHES["int8_quantize"] += 1
