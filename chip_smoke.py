@@ -111,6 +111,25 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               in turns, the host pack's ms (C++ and numpy); evaluate_model
               with the C++ and the Python matcher (equal stats, both times)
               and nms_numpy on one "decoded" output
+ 15. cli      every command-line tool of the port through its main(argv),
+              in-process, edge_n @640 on the PNG set: train (1 epoch b8,
+              standard_train.yaml, the bundled backbone; artifacts and
+              nms_suppress launches of its validation), evaluate bf16 and
+              --quantize int8 on the best checkpoint, its head logits
+              scaled to a standard deviation of CLI_LOGIT_STD, over the val
+              images labelled with bf16's own best detections (finite
+              stats, bf16 AP50 >= CLI_MIN_AP50, every int8 kernel launched,
+              int8's AP/AP50/AP75/AR within CLI_INT8_STAT_TOL of bf16's,
+              ms/img; then every
+              distinct quantized conv call of the b8 batch it fed its model
+              against the plain versions), infer on the val folder with --save_txt
+              --save_json (equal to YoloLite.predict), export "nms" and
+              "decoded" .pt2 and a "decoded" ONNX, each through
+              infer_exported on one frame against the fp32 Predictor, and
+              tracker over 60 frames of the synthetic clip written as a PNG
+              sequence (tracks equal to KalmanSortTracker over infer_image);
+              each tool's wall seconds and launches. import_backbone is held
+              on the CPU only (the card's machine has neither JAX nor timm)
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -123,6 +142,7 @@ import glob
 import hashlib
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -156,7 +176,7 @@ from yololite_tpu_torch.deploy.fold_norm import normalize_images  # noqa: E402
 from yololite_tpu_torch.deploy.predictor import PRE_NMS_TOPK, Predictor  # noqa: E402
 from yololite_tpu_torch.eval.evaluate import evaluate_model  # noqa: E402
 from yololite_tpu_torch.models.detector import (  # noqa: E402
-    build_model_from_config, count_params, init_weights,
+    DetectHead, build_model_from_config, count_params, init_weights,
 )
 from yololite_tpu_torch.models.layers import BatchNorm  # noqa: E402
 from yololite_tpu_torch.ops import cuda_int8, cuda_nms, quant  # noqa: E402
@@ -167,12 +187,18 @@ from yololite_tpu_torch.ops.nms import (  # noqa: E402
     batched_nms, finalize_detections, nms_numpy, select_candidates, yolo_scores,
 )
 from yololite_tpu_torch.train.checkpoint import (  # noqa: E402
-    build_meta, load_checkpoint, save_checkpoint,
+    build_meta, load_checkpoint, model_from_meta, save_checkpoint,
 )
 from yololite_tpu_torch.train import loop as train_loop  # noqa: E402
 from yololite_tpu_torch.train.loop import CSV_HEADER  # noqa: E402
 from yololite_tpu_torch.train.steps import Trainer, gt_masks_from_batch  # noqa: E402
 from yololite_tpu_torch.track import KalmanSortTracker  # noqa: E402
+from yololite_tpu_torch.tools import evaluate as cli_evaluate  # noqa: E402
+from yololite_tpu_torch.tools import export as cli_export  # noqa: E402
+from yololite_tpu_torch.tools import infer as cli_infer  # noqa: E402
+from yololite_tpu_torch.tools import infer_exported as cli_infer_exported  # noqa: E402
+from yololite_tpu_torch.tools import tracker as cli_tracker  # noqa: E402
+from yololite_tpu_torch.tools import train as cli_train  # noqa: E402
 
 IMG = 640
 BATCH = 128
@@ -2577,7 +2603,10 @@ def _check_int8_call(mod, x, timing: bool):
 def check_int8_model(pred, batch: torch.Tensor, timing: bool):
     """Run the int8 Predictor's forward once on `batch` (on the card) and
     hold every distinct quantized conv call against the plain versions.
-    Returns (rows by distinct call, calls per forward by key)."""
+    A uint8 `batch` goes through `Predictor.forward`; a floating one is the
+    model's own input (as evaluate's Trainer feeds it) and goes to
+    `pred.model` as it is. Returns (rows by distinct call, calls per
+    forward by key)."""
     rows, calls = {}, {}
 
     def hook(mod, args):
@@ -2593,7 +2622,10 @@ def check_int8_model(pred, batch: torch.Tensor, timing: bool):
              if isinstance(m, quant.Int8Conv2d)]
     try:
         with torch.inference_mode():
-            pred.forward(batch)
+            if batch.is_floating_point():
+                pred.model(batch)
+            else:
+                pred.forward(batch)
     finally:
         for h in hooks:
             h.remove()
@@ -3107,6 +3139,363 @@ def phase_quant(card: str, data: str, tmp: str):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# cli: every command-line tool of the port, in-process on the card
+# --------------------------------------------------------------------------- #
+CLI_CONF = 0.001                 # low enough that a 1-epoch model detects
+CLI_TRACK_FRAMES = 60
+# evaluate --quantize int8 against bf16 on the same checkpoint: every COCO
+# stat within this (absolute), a bound set beforehand for dynamic int8 with
+# one scale a tensor, not a measured one
+CLI_INT8_STAT_TOL = 0.05
+# and only the stats over all labels: each size-split stat rests on a few
+# labels, where one reordered detection moves it by more than the bound
+CLI_INT8_STATS = ("AP", "AP50", "AP75", "AR")
+# evaluate runs on the best checkpoint with its heads' obj and cls logits
+# (less their biases) scaled to this standard deviation over the val images:
+# the 1-epoch model's scores are nearly flat (300 detections an image at conf
+# 0.001, ties among the best), so that any rounding reorders them
+CLI_LOGIT_STD = 2.0
+# the val images are labelled with the bf16 Predictor's own best detections
+# (the model scores AP 0 on the set's labels); bf16's AP50 on them must reach
+# CLI_MIN_AP50, so that the int8 comparison cannot hold at 0
+CLI_LABELS_PER_IMAGE = 5
+CLI_MIN_AP50 = 0.3
+
+
+def _result_dets(r):
+    return [(np.asarray(r["boxes"]), np.asarray(r["scores"]), np.asarray(r["classes"]))]
+
+
+def _cli_train(card: str, data: str, work: str, secs: dict, launches: dict):
+    argv = ["--model", os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
+            "--train", os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
+            "--data", data, "--epochs", "1", "--batch_size", "8", "--img_size", str(IMG),
+            "--workers", "8", "--pretrained_backbone", BACKBONE_CKPT]
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = cli_train.main(argv)
+    torch.cuda.synchronize()
+    secs["train"], launches["train"] = time.perf_counter() - t0, cuda_nms.LAUNCHES
+    val_batches = -(-VAL_N // 8)
+    _check_run_dir(res["log_dir"])
+    hist = res["history"]
+    log(f"cli train: 1 epoch of edge_n @{IMG} b8 (standard_train.yaml, the bundled "
+        f"backbone) in {secs['train']:.1f} s; train loss {hist['train_loss'][0]:.4f}, val "
+        f"loss {hist['val_loss'][0]:.4f}; nms_suppress launched {launches['train']} times "
+        f"(expected {2 * val_batches}: {val_batches} val batch + {val_batches} in "
+        f"evaluate_model) [{card}]")
+    if launches["train"] != 2 * val_batches:
+        raise AssertionError("cli train: validation did not go through the kernel")
+    if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
+        raise AssertionError(f"cli train: non-finite loss {hist}")
+    if not res["log_dir"].startswith(work):
+        raise AssertionError(f"cli train: run dir {res['log_dir']} outside {work}")
+    return os.path.join(res["log_dir"], "weights", "best_model_state.ckpt")
+
+
+def _sharpened(best: str, data: str, path: str) -> str:
+    """`best` with each head's obj and cls kernels scaled so that the
+    logits they add to their biases have standard deviation CLI_LOGIT_STD
+    over the val images (fp32 forward on the card); written to `path`."""
+    sd, meta = load_checkpoint(best)
+    model = load_flax(model_from_meta(meta), sd["params"], sd["batch_stats"]).cuda().eval()
+    ds_cfg = load_configs(None, None, data, make_run_dir=False)["dataset"]
+    ds = YoloDataset(ds_cfg["val_images"], ds_cfg["val_labels"], img_size=IMG,
+                     is_train=False, augment=False)
+    images = torch.from_numpy(collate([ds.get(i) for i in range(len(ds))])["image"]).cuda()
+    heads = [m for m in model.modules() if isinstance(m, DetectHead)]
+    logits = {"obj": [], "cls": []}
+
+    def keep(part):
+        return lambda mod, args, out: logits[part].append(
+            (out - mod.bias[None, :, None, None]).flatten())
+    hooks = [getattr(h, part).register_forward_hook(keep(part)) for h in heads
+             for part in logits]
+    try:
+        with torch.inference_mode():
+            model(normalize_images(images.permute(0, 3, 1, 2)))
+    finally:
+        for h in hooks:
+            h.remove()
+    scale = {part: CLI_LOGIT_STD / float(torch.cat(v).std()) for part, v in logits.items()}
+    with torch.no_grad():
+        for h in heads:
+            for part, k in scale.items():
+                getattr(h, part).weight.mul_(k)
+    params, stats = to_flax(model)
+    save_checkpoint(path, params, stats, meta)
+    log(f"cli evaluate: head kernels scaled by obj {scale['obj']:.3f}, cls "
+        f"{scale['cls']:.3f} (logit std {CLI_LOGIT_STD} over the val images)")
+    del model, images
+    torch.cuda.empty_cache()
+    return path
+
+
+def _self_labelled(best: str, val_dir: str, root: str) -> str:
+    """The val images under `root`/images, labelled (`root`/labels, YOLO
+    txt) with the bf16 Predictor's CLI_LABELS_PER_IMAGE best detections at
+    evaluate's conf and iou; returns the images folder."""
+    pred = Predictor(best, device="cuda")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub))
+    for name in sorted(os.listdir(val_dir)):
+        src = os.path.join(val_dir, name)
+        shutil.copyfile(src, os.path.join(root, "images", name))
+        img = host_codecs.imread_bgr(src)
+        h, w = img.shape[:2]
+        r = pred.infer_image_profiled(img, conf=0.001, iou=0.65)
+        boxes, scores = np.asarray(r["boxes"]), np.asarray(r["scores"])
+        rows = []
+        for i in np.argsort(-scores, kind="stable"):
+            x1, y1, x2, y2 = np.clip(boxes[i], 0, [w, h, w, h])
+            if min(x2 - x1, y2 - y1) >= 1 and len(rows) < CLI_LABELS_PER_IMAGE:
+                rows.append(f"{int(r['classes'][i])} {(x1 + x2) / 2 / w:.6f} "
+                            f"{(y1 + y2) / 2 / h:.6f} {(x2 - x1) / w:.6f} "
+                            f"{(y2 - y1) / h:.6f}\n")
+        with open(os.path.join(root, "labels", os.path.splitext(name)[0] + ".txt"), "w") as f:
+            f.writelines(rows)
+    del pred
+    torch.cuda.empty_cache()
+    return os.path.join(root, "images")
+
+
+def _cli_evaluate(card: str, best: str, data: str, work: str, secs: dict,
+                  launches: dict):
+    """evaluate bf16 and --quantize int8 on the best checkpoint with
+    sharpened heads (`_sharpened`), over the val images labelled with the
+    bf16 Predictor's own best detections (`_self_labelled`), so that the
+    COCO stats are far from 0 and move with int8's detections. The int8
+    run's Predictor is kept, with the first input of each shape that its
+    model was fed on its device (the b8 val batch, not the CPU copy that
+    evaluate times); after the counted run, every distinct quantized conv
+    call of those inputs is held against the plain versions
+    (`check_int8_model`)."""
+    best = _sharpened(best, data, os.path.join(work, "sharpened.ckpt"))
+    images = _self_labelled(best, os.path.join(os.path.dirname(data), "valid", "images"),
+                            os.path.join(work, "labelled"))
+    kept = {}
+
+    def keep_input(_mod, args):
+        x = args[0]
+        same_device = x.device.type == kept["pred"].device.type
+        if same_device and tuple(x.shape) not in kept["inputs"]:
+            kept["inputs"][tuple(x.shape)] = x.detach().clone()
+
+    class KeptPredictor(Predictor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept.update(pred=self, inputs={})
+            self.model.register_forward_pre_hook(keep_input)
+
+    out = {}
+    cli_evaluate.Predictor = KeptPredictor
+    try:
+        for q in (None, "int8"):
+            key = f"evaluate_{q or 'bf16'}"
+            torch.cuda.synchronize()
+            cuda_nms.LAUNCHES = 0
+            cuda_int8.reset_launches()
+            t0 = time.perf_counter()
+            res = cli_evaluate.main(["--weights", best, "--test_folder", images]
+                                    + (["--quantize", q] if q else []))
+            torch.cuda.synchronize()
+            secs[key], launches[key] = time.perf_counter() - t0, cuda_nms.LAUNCHES
+            int8 = dict(cuda_int8.LAUNCHES)
+            out[key] = {"coco": res["coco"], "ms_per_img": res["ms_per_img"],
+                        "ms_per_img_cpu": res["ms_per_img_cpu"], "int8_launches": int8}
+            log(f"cli evaluate{' --quantize int8' if q else ''}: AP {res['coco']['AP']:.4f} "
+                f"AP50 {res['coco']['AP50']:.4f} AR {res['coco']['AR']:.4f} on {VAL_N} val "
+                f"images labelled with the bf16 Predictor's {CLI_LABELS_PER_IMAGE} best "
+                f"detections each, in {secs[key]:.1f} s; forward {res['ms_per_img']:.3f} "
+                f"ms/img (b8 @{IMG}, CUDA events); nms_suppress {launches[key]} launches, "
+                f"int8 kernels {int8} [{card}]")
+            if not all(np.isfinite(v) for v in res["coco"].values()):
+                raise AssertionError(f"cli evaluate {key}: non-finite stats {res['coco']}")
+            if launches[key] != -(-VAL_N // 8):
+                raise AssertionError(f"cli evaluate {key}: {launches[key]} nms_suppress "
+                                     f"launches")
+            if bool(q) != all(n > 0 for n in int8.values()) or (not q and any(int8.values())):
+                raise AssertionError(f"cli evaluate {key}: int8 kernel launches {int8}")
+    finally:
+        cli_evaluate.Predictor = Predictor
+    if out["evaluate_bf16"]["coco"]["AP50"] < CLI_MIN_AP50:
+        raise AssertionError(f"cli evaluate: bf16 AP50 {out['evaluate_bf16']['coco']['AP50']} "
+                             f"on its own detections, under {CLI_MIN_AP50}")
+    gap = {k: abs(out["evaluate_int8"]["coco"][k] - out["evaluate_bf16"]["coco"][k])
+           for k in CLI_INT8_STATS}
+    out["int8_gap"] = gap
+    log(f"cli evaluate: int8 against bf16, |stat gap| {json.dumps(gap)} (tolerance "
+        f"{CLI_INT8_STAT_TOL}); bf16 {json.dumps(out['evaluate_bf16']['coco'])}, int8 "
+        f"{json.dumps(out['evaluate_int8']['coco'])}")
+    if max(gap.values()) > CLI_INT8_STAT_TOL:
+        raise AssertionError(f"cli evaluate: int8 stats off bf16's by {gap}")
+    rows = {}
+    for x in kept["inputs"].values():
+        rows.update(check_int8_model(kept["pred"], x, timing=False)[0])
+    out["int8_distinct_calls"] = len(rows)
+    log(f"cli evaluate --quantize int8: kernels equal their plain versions at {len(rows)} "
+        f"distinct quantized conv calls of the inputs it fed its model "
+        f"({[list(k) for k in kept['inputs']]}) [{card}]")
+    if not rows:
+        raise AssertionError("cli evaluate: no quantized conv call was checked")
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cli_infer(card: str, best: str, val_dir: str, work: str, secs: dict, launches: dict):
+    out_dir = os.path.join(work, "infer")
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = cli_infer.main(["--weights", best, "--img", val_dir, "--conf", str(CLI_CONF),
+                          "--save_txt", "--save_json", "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    secs["infer"], launches["infer"] = time.perf_counter() - t0, cuda_nms.LAUNCHES
+    if launches["infer"] != VAL_N or len(got) != VAL_N:
+        raise AssertionError(f"cli infer: {launches['infer']} launches, {len(got)} images")
+    api = YoloLite(best, device="cuda")
+    n = 0
+    for path, r in got.items():
+        want = api.predict(path, conf=CLI_CONF)[0]
+        stem = os.path.splitext(os.path.basename(path))[0]
+        with open(os.path.join(out_dir, f"{stem}.json")) as f:
+            saved = json.load(f)
+        same = all(np.array_equal(r[k], want[k]) and np.allclose(saved[k], want[k], rtol=0,
+                                                                   atol=1e-4)
+                   for k in ("boxes", "scores", "classes"))
+        with open(os.path.join(out_dir, f"{stem}.txt")) as f:
+            rows = f.read().splitlines()
+        if not same or len(rows) != len(want["boxes"]):
+            raise AssertionError(f"cli infer: {path} differs from YoloLite.predict")
+        n += len(rows)
+    log(f"cli infer: {VAL_N} images in {secs['infer']:.1f} s, {n} detections at conf "
+        f"{CLI_CONF}, equal to YoloLite.predict's, YOLO-txt and JSON written; "
+        f"{launches['infer']} nms_suppress launches [{card}]")
+    return {"detections": n}
+
+
+def _cli_export(card: str, best: str, frame_path: str, work: str, secs: dict,
+                launches: dict):
+    """"nms" and "decoded" `.pt2` (fp32) and a "decoded" ONNX, each run by
+    infer_exported on one frame and held against the fp32 Predictor (TF32
+    off): "nms" against its infer_image, "decoded" against its eager graph
+    through the same host post-processing. Each way, >= EXPORT_BF16_MATCH of
+    the detections have one of the same class with the box within
+    EXPORT_FP32_RTOL (.pt2) or ONNX_TOL (ONNX) of the image size and the
+    score within the same bound (the host NMS may keep the other of two
+    near-equal boxes)."""
+    frame = host_codecs.imread_bgr(frame_path)
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pred32 = Predictor(best, device="cuda", dtype=torch.float32)
+
+        def eager(images_u8):
+            with torch.inference_mode():
+                x = torch.from_numpy(np.ascontiguousarray(images_u8)).cuda()
+                return deploy_export.graph_outputs(pred32, pred32.forward(x), "decoded",
+                                                   IMG, CLI_CONF, 0.65, 300)
+        want_dec = deploy_infer_exported.infer_frame(eager, {"format": "decoded",
+                                                             "img_size": IMG},
+                                                     frame, CLI_CONF, 0.45, 300)
+        want_nms = pred32.infer_image_profiled(frame, conf=CLI_CONF, iou=0.65, max_det=300)
+        for name, argv, want, tol in (
+                ("nms_pt2", ["--format", "nms", "--fp32"], want_nms, EXPORT_FP32_RTOL),
+                ("decoded_pt2", ["--format", "decoded", "--fp32"], want_dec,
+                 EXPORT_FP32_RTOL),
+                ("decoded_onnx", ["--format", "decoded", "--runtime", "onnx"], want_dec,
+                 ONNX_TOL)):
+            t0 = time.perf_counter()
+            path = cli_export.main(["--weights", best, "--out_dir",
+                                    os.path.join(work, "export", name)] + argv)
+            secs[f"export_{name}"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            cuda_nms.LAUNCHES = 0
+            t0 = time.perf_counter()
+            got = cli_infer_exported.main(["--artifact", path, "--img", frame_path,
+                                           "--conf", str(CLI_CONF)])
+            torch.cuda.synchronize()
+            secs[f"infer_exported_{name}"] = time.perf_counter() - t0
+            launches[f"infer_exported_{name}"] = cuda_nms.LAUNCHES
+            share, total = _match(_result_dets(got), _result_dets(want), tol * IMG, tol)
+            back, _ = _match(_result_dets(want), _result_dets(got), tol * IMG, tol)
+            share = min(share, back)
+            ok = share >= EXPORT_BF16_MATCH and total > 0
+            out[name] = {"matched": share, "detections": total,
+                         "launches": launches[f"infer_exported_{name}"]}
+            log(f"cli export {name}: {secs[f'export_{name}']:.1f} s; infer_exported "
+                f"{len(got['boxes'])} detections, {100 * share:.2f}% of the Predictor's "
+                f"matched, {out[name]['launches']} nms_suppress launches, "
+                f"{secs[f'infer_exported_{name}']:.2f} s [{card}]")
+            if not ok or out[name]["launches"] != (name == "nms_pt2"):
+                raise AssertionError(f"cli export {name}: {out[name]}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def _cli_tracker(card: str, best: str, work: str, secs: dict, launches: dict):
+    frames = make_clip(CLI_TRACK_FRAMES)
+    seq = os.path.join(work, "frames")
+    os.makedirs(seq)
+    for i, f in enumerate(frames):
+        write_png(os.path.join(seq, "%04d.png" % i), f[..., ::-1])
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = cli_tracker.main(["--weights", best, "--video", os.path.join(seq, "%04d.png"),
+                            "--conf", str(CLI_CONF)])
+    torch.cuda.synchronize()
+    secs["tracker"], launches["tracker"] = time.perf_counter() - t0, cuda_nms.LAUNCHES
+    pred = Predictor(best, device="cuda")
+    tracker = KalmanSortTracker(iou_threshold=0.3, max_age=15, min_hits=2)
+    want = [tracker.update(*pred.infer_image(f, conf=CLI_CONF, iou=0.45)) for f in frames]
+    key = lambda per_frame: [[(t["track_id"], t["cls"], t["score"], t["bbox"].tolist())
+                              for t in ts] for ts in per_frame]
+    ids = {t["track_id"] for ts in got for t in ts}
+    log(f"cli tracker: {len(got)} PNG frames (480x640) in {secs['tracker']:.1f} s, "
+        f"{len(ids)} track ids, {launches['tracker']} nms_suppress launches (a frame and "
+        f"the warmup) [{card}]")
+    if launches["tracker"] != CLI_TRACK_FRAMES + 1 or len(got) != CLI_TRACK_FRAMES:
+        raise AssertionError(f"cli tracker: {launches['tracker']} launches, {len(got)} frames")
+    if key(got) != key(want) or not ids:
+        raise AssertionError("cli tracker: tracks differ from KalmanSortTracker over "
+                             "infer_image")
+    return {"tracks": len(ids), "reported": sum(map(len, got))}
+
+
+def phase_cli(card: str, data: str, tmp: str):
+    """The port's command-line tools, each called in-process through its
+    `main(argv)` on the card, edge_n at full width and depth @640 on the
+    synthetic PNG set; runs go under a working directory of `tmp`. The
+    backbone importer is host work with numpy and needs the JAX package and
+    timm weights, which the card's machine lacks: it is held on the CPU only
+    (tests/test_torch_port_backbone_import.py)."""
+    work = os.path.join(tmp, "cli")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    secs, launches, out = {}, {}, {}
+    try:
+        best = _cli_train(card, data, work, secs, launches)
+        out.update(_cli_evaluate(card, best, data, work, secs, launches))
+        val_dir = os.path.join(os.path.dirname(data), "valid", "images")
+        out["infer"] = _cli_infer(card, best, val_dir, work, secs, launches)
+        out["export"] = _cli_export(card, best, os.path.join(val_dir, "0000.png"), work,
+                                    secs, launches)
+        out["tracker"] = _cli_tracker(card, best, work, secs, launches)
+    finally:
+        os.chdir(cwd)
+    out["seconds"], out["launches"] = secs, launches
+    log(f"cli: wall seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}; "
+        f"nms_suppress launches {json.dumps(launches)} [{card}]")
+    return out
+
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -3135,7 +3524,8 @@ def main():
                          ("codecs", lambda: phase_codecs(card, data, tmp)),
                          ("stream", lambda: phase_stream(card)),
                          ("export", lambda: phase_export(card, tmp)),
-                         ("quant", lambda: phase_quant(card, data, tmp))):
+                         ("quant", lambda: phase_quant(card, data, tmp)),
+                         ("cli", lambda: phase_cli(card, data, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -3155,7 +3545,8 @@ def main():
                     launches_jpeg_train=phases["codecs"]["train"]["launches"],
                     launches_stream=phases["stream"]["launches"],
                     launches_export=phases["export"]["launches"],
-                    launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"])]
+                    launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],
+                    launches_cli=phases["cli"]["launches"])]
     q = phases["quant"]["int8"]
     for k in KERNELS[1:]:
         t = q["totals"][k["name"]]
@@ -3166,6 +3557,8 @@ def main():
                             in_graph_ms=q["stages_ms"][k["name"].replace("_", " ")],
                             **({"yardstick_phase1_ms": t["yardstick_ms"]}
                                if "yardstick_ms" in t else {}),
+                            launches_cli_evaluate_int8=phases["cli"]["evaluate_int8"][
+                                "int8_launches"][k["name"]],
                             shape="edge_n b128 @640 bf16, summed over one forward"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

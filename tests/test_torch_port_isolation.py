@@ -74,3 +74,35 @@ def test_deploy_and_track_modules_are_covered():
                 "deploy/onnx_run.py", "deploy/infer_exported.py", "deploy/predictor.py",
                 "track/__init__.py", "track/kalman.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files
+
+
+CLI_TOOLS = ("train", "evaluate", "infer", "export", "infer_exported", "tracker",
+             "import_backbone")
+
+
+def test_cli_and_import_modules_are_covered():
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ["config/config.py", "models/backbones/torch_import.py", "tools/__init__.py"] + \
+            [f"tools/{name}.py" for name in CLI_TOOLS]:
+        assert os.path.join("yololite_tpu_torch", rel) in files
+
+
+def test_cli_devices_default_to_cuda(monkeypatch):
+    """Each CLI that runs a model defaults to the card; infer_exported runs
+    an artifact where it was exported, import_backbone on the host."""
+    import importlib
+    tools = {name: importlib.import_module(f"yololite_tpu_torch.tools.{name}")
+             for name in CLI_TOOLS}
+    for name in ("evaluate", "infer", "export", "tracker"):
+        assert tools[name].build_parser().get_default("device") == "cuda", name
+    for name in ("infer_exported", "import_backbone"):
+        assert "--device" not in tools[name].build_parser()._option_string_actions
+    # train: --device (default None) over the recipe's training.device, else cuda
+    seen = []
+    monkeypatch.setattr(tools["train"], "load_configs",
+                        lambda **kw: {"training": {}, "model": {}})
+    monkeypatch.setattr(tools["train"], "train_from_config",
+                        lambda cfg, device: seen.append(device) or {})
+    for argv, want in (([], "cuda"), (["--device", "cuda:1"], "cuda:1")):
+        tools["train"].main(["--model", "m.yaml", "--data", "d.yaml"] + argv)
+        assert seen[-1] == want

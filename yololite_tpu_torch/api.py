@@ -171,32 +171,22 @@ class YoloLite:
             img_size: Optional[int] = None, out_dir: str = "runs/val") -> Dict[str, Any]:
         """COCO evaluation of this object's checkpoint on a split of `data`."""
         from yololite_tpu_torch.config.config import load_configs
-        from yololite_tpu_torch.data.dataset import YoloDataset
-        from yololite_tpu_torch.data.loader import DataLoader
-        from yololite_tpu_torch.eval.evaluate import evaluate_model
-        from yololite_tpu_torch.train.checkpoint import load_checkpoint, model_from_meta
-        from yololite_tpu_torch.train.steps import Trainer
+        from yololite_tpu_torch.eval.evaluate import evaluate_checkpoint
+        from yololite_tpu_torch.train.checkpoint import load_checkpoint
 
         if "ckpt" not in self._src:
             raise RuntimeError("val() needs a trained checkpoint; train first or pass "
                                "a .ckpt path.")
-        sd, meta = load_checkpoint(self._src["ckpt"])
+        ckpt = load_checkpoint(self._src["ckpt"])
+        meta = ckpt[1]
         cfg = load_configs(None, None, data, make_run_dir=False)
         ds_cfg = cfg["dataset"]
         key = "test" if split == "test" and ds_cfg.get("test_images") else "val"
-        img_size = int(img_size or meta.get("img_size", 640))
         num_classes = int(meta.get("num_classes", len(ds_cfg.get("names", [])) or 1))
-        ds = YoloDataset(ds_cfg.get(f"{key}_images"), ds_cfg.get(f"{key}_labels"),
-                         img_size=img_size, is_train=False, augment=False)
-        loader = DataLoader(ds, batch_size, shuffle=False, drop_last=False)
-        t_cfg = dict(meta.get("config") or {})
-        t_cfg["model"] = dict(t_cfg.get("model") or {}, num_classes=num_classes)
-        t_cfg["training"] = dict(t_cfg.get("training") or {}, img_size=img_size)
-        trainer = Trainer(model_from_meta(meta), t_cfg, device=self.device)
-        variables = trainer.variables_from_flax(sd["params"], sd["batch_stats"])
-        os.makedirs(out_dir, exist_ok=True)
-        results = evaluate_model(trainer, variables, loader, out_dir, num_classes,
-                                 img_size, ds_cfg.get("names"), conf_th=conf, iou_th=iou)
+        results = evaluate_checkpoint(
+            ckpt, ds_cfg.get(f"{key}_images"), ds_cfg.get(f"{key}_labels"),
+            out_dir, num_classes, ds_cfg.get("names"), batch_size=batch_size, conf=conf,
+            iou=iou, img_size=img_size, device=self.device)
         stats = results["coco"]
         return {"map": stats["AP"], "map_50": stats["AP50"], "map_75": stats["AP75"],
                 **stats, "best_f1": results["best_f1"], "best_conf": results["best_conf"],

@@ -1,9 +1,11 @@
 """Configs: the port's own YAML reader and writer, the 3-way merge of model,
-train and data yamls, run directories, and model-name resolution.
+train and data yamls, run directories, the training CLI's argparser and
+overrides, and model-name resolution.
 
 Port of `yololite_tpu/config/config.py` (`load_configs`, `save_merged_config`,
-`next_run_dir`, `update_latest_pointer`, `deep_merge`) and of the name
-resolution of `yololite_tpu/api.py`. The card's machine has no PyYAML, so
+`next_run_dir`, `update_latest_pointer`, `deep_merge`, `build_argparser`,
+`apply_overrides`, `SAVE_BY_KEYS`) and of the name resolution of
+`yololite_tpu/api.py`. The card's machine has no PyYAML, so
 `read_yaml` parses the subset of YAML that `configs/` and a dataset's
 `data.yaml` use: block mappings nested by indentation, block sequences of
 scalars (`- a`), flow sequences of scalars (`[320, 416]`), the empty flow
@@ -18,6 +20,7 @@ config so that both `read_yaml` and `yaml.safe_load` read it back equal.
 
 from __future__ import annotations
 
+import argparse
 import math
 import os
 import re
@@ -27,6 +30,7 @@ from typing import Any, Dict, List, Optional
 from yololite_tpu_torch.data.coco_ingest import coco_to_yolo_labels
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SAVE_BY_KEYS = ["AP50", "AP75", "AP", "AR", "APS", "APM", "APL"]
 # where a bare model name is looked up, in this order (as yololite_tpu/api.py)
 MODEL_DIRS = ("models", "v2_models", "custom")
 
@@ -450,3 +454,79 @@ def save_merged_config(config: Dict[str, Any], run_dir: Optional[str] = None) ->
     with open(path, "w", encoding="utf-8") as f:
         f.write(dump_yaml(config))
     return path
+
+
+# --------------------------------------------------------------------------- #
+# The training CLI
+# --------------------------------------------------------------------------- #
+
+def build_argparser() -> argparse.ArgumentParser:
+    """The training CLI's argparser: the JAX package's flags and defaults;
+    `--device` names a torch device."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", type=str, required=True, help="Path to model.yaml")
+    ap.add_argument("--train", type=str, default=None, help="Path to train.yaml")
+    ap.add_argument("--data", type=str, required=True, help="Path to data.yaml")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--batch_size", type=int, default=None)
+    ap.add_argument("--device", type=str, default=None,
+                    help="cuda | cpu | cuda:<n> (default cuda)")
+    ap.add_argument("--img_size", type=int, default=None)
+    ap.add_argument("--workers", type=int, default=None)
+    ap.add_argument("--augment", default=None, action=argparse.BooleanOptionalAction)
+    ap.add_argument("--use_p6", default=None, action=argparse.BooleanOptionalAction)
+    ap.add_argument("--use_p2", default=None, action=argparse.BooleanOptionalAction)
+    ap.add_argument("--use_resize", default=None, action=argparse.BooleanOptionalAction,
+                    help="Use plain resize instead of letterbox")
+    ap.add_argument("--resume", type=str, default=None)
+    ap.add_argument("--start_epoch", type=int, default=None,
+                    help="With --resume on a save_optimizer checkpoint: "
+                         "continue the LR schedule / aug taper / CSV from "
+                         "this epoch instead of replaying from zero "
+                         "(chunked long runs)")
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--save_every", type=int, default=None)
+    ap.add_argument("--save_by", type=str, default=None,
+                    help=f"Checkpoint selection metric, one of {SAVE_BY_KEYS}")
+    ap.add_argument("--anchors_per_level", type=int, default=None)
+    ap.add_argument("--data_parallel", type=int, default=None,
+                    help="Number of devices for data-parallel training "
+                         "(above 1: ROADMAP Queue 1 item 3)")
+    ap.add_argument("--spatial_parallel", type=int, default=None,
+                    help="Shard image height over this many devices "
+                         "(above 1: ROADMAP Queue 1 item 3)")
+    ap.add_argument("--pretrained_backbone", type=str, default=None,
+                    help="Backbone checkpoint from the import_backbone tool")
+    return ap
+
+
+# CLI flag -> (training key, type), in the JAX package's order
+_TRAINING_OVERRIDES = (
+    ("epochs", "epochs", int), ("batch_size", "batch_size", int),
+    ("img_size", "img_size", int), ("workers", "num_workers", int),
+    ("device", "device", str), ("use_p6", "use_p6", bool), ("use_p2", "use_p2", bool),
+    ("use_resize", "resize", bool), ("augment", "augment", bool),
+    ("resume", "resume", str), ("start_epoch", "start_epoch", int),
+    ("pretrained_backbone", "pretrained_backbone", str),
+    ("spatial_parallel", "spatial_parallel", int), ("lr", "lr", float),
+    ("save_every", "save_every", int),
+)
+
+
+def apply_overrides(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
+    """CLI overrides win over the YAMLs. A `--save_by` outside SAVE_BY_KEYS
+    raises ValueError."""
+    tr = config.setdefault("training", {})
+    for flag, key, typ in _TRAINING_OVERRIDES:
+        if getattr(args, flag, None) is not None:
+            tr[key] = typ(getattr(args, flag))
+    save_by = getattr(args, "save_by", None)
+    if save_by is not None:
+        if save_by not in SAVE_BY_KEYS:
+            raise ValueError(f"Invalid --save_by {save_by!r}. Valid: {SAVE_BY_KEYS}")
+        tr["save_by"] = str(save_by)
+    if getattr(args, "anchors_per_level", None) is not None:
+        config.setdefault("model", {})["num_anchors_per_level"] = int(args.anchors_per_level)
+    if getattr(args, "data_parallel", None) is not None:
+        tr["data_parallel"] = int(args.data_parallel)
+    return config

@@ -85,7 +85,8 @@ class Predictor:
     def __init__(self, weights, device: str = "cuda", dtype=torch.bfloat16,
                  use_letterbox: bool = True, fold_normalize: bool = True,
                  quantize: Optional[str] = None, s2d_stem: bool = False):
-        """`weights` is a checkpoint path (JAX msgpack format), or a
+        """`weights` is a checkpoint path (JAX msgpack format), the
+        `(state, meta)` pair that `load_checkpoint` returns for one, or a
         `(model, state_dict, meta)` triple of an unfused `YOLOLiteMS`, its
         torch state_dict and a meta dict (img_size, names).
 
@@ -100,10 +101,11 @@ class Predictor:
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         self.device = torch.device(device)
         self.dtype = dtype
-        if isinstance(weights, (tuple, list)):
+        if isinstance(weights, (tuple, list)) and len(weights) == 3:
             model, sd, meta = weights
         else:
-            flax_sd, meta = load_checkpoint(weights)
+            flax_sd, meta = (weights if isinstance(weights, (tuple, list))
+                             else load_checkpoint(weights))
             model = load_flax(model_from_meta(meta), flax_sd["params"],
                               flax_sd["batch_stats"])
             sd = model.state_dict()

@@ -9,6 +9,8 @@ detection carries its mask upsampled to `img_size` (`cv2.resize` INTER_LINEAR
 on floats, `data/imgops.resize_f32`), binarized at 0.5 and stored as RLE;
 GT masks are the dataset's full-resolution RLEs (or the bit-packed
 prototype-resolution masks), and `coco_segm` holds the mask-IoU stats.
+`evaluate_checkpoint` runs it on a loaded checkpoint and an images/labels
+folder pair (`YoloLite.val` and the evaluate CLI).
 """
 
 from __future__ import annotations
@@ -231,3 +233,35 @@ def evaluate_model(trainer, variables, val_loader, log_dir: str, num_classes: in
     with open(os.path.join(log_dir, "eval_results.json"), "w") as f:
         json.dump(results, f, indent=2)
     return results
+
+
+def evaluate_checkpoint(ckpt, img_dir: str, lbl_dir: str, out_dir: str,
+                        num_classes: int, class_names: Optional[Sequence[str]] = None,
+                        batch_size: int = 8, conf: float = 0.001, iou: float = 0.65,
+                        img_size: Optional[int] = None, task: str = "detect",
+                        model: Optional[torch.nn.Module] = None, device: str = "cuda"
+                        ) -> Dict[str, Any]:
+    """`evaluate_model` of a checkpoint, `ckpt` = (state, meta) as
+    `load_checkpoint` returns it, on `img_dir`/`lbl_dir` into `out_dir`, at
+    the meta's img_size unless given. The Trainer is rebuilt from the meta
+    and evaluates the checkpoint's weights, or `model` when given (the
+    evaluate CLI's int8 Predictor model)."""
+    from yololite_tpu_torch.convert import load_flax
+    from yololite_tpu_torch.data.dataset import YoloDataset
+    from yololite_tpu_torch.data.loader import DataLoader
+    from yololite_tpu_torch.train.checkpoint import model_from_meta
+    from yololite_tpu_torch.train.steps import Trainer
+
+    sd, meta = ckpt
+    img_size = int(img_size or meta.get("img_size", 640))
+    ds = YoloDataset(img_dir, lbl_dir, img_size=img_size, is_train=False, augment=False,
+                     task=task)
+    loader = DataLoader(ds, batch_size, shuffle=False, drop_last=False)
+    t_cfg = dict(meta.get("config") or {})
+    t_cfg["model"] = dict(t_cfg.get("model") or {}, num_classes=num_classes)
+    t_cfg["training"] = dict(t_cfg.get("training") or {}, img_size=img_size)
+    trainer = Trainer(model_from_meta(meta), t_cfg, device=device)
+    if model is None:
+        model = load_flax(trainer.model, sd["params"], sd["batch_stats"])
+    return evaluate_model(trainer, model, loader, out_dir, num_classes, img_size,
+                          class_names, conf_th=conf, iou_th=iou)

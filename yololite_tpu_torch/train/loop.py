@@ -24,7 +24,7 @@ as the JAX loop drops them), and the final `evaluate_model` adds segm mAP.
 
 Runs on one device (`device`, the card by default). Not ported, each raising
 `NotImplementedError` with its ROADMAP item: the device mesh / multi-host /
-data_parallel > 1 (12), the orbax checkpoint backend (8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
+data_parallel > 1 (ROADMAP Queue 1 item 3), the orbax checkpoint backend (8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
 skipped with a message, as the JAX loop does when drawing fails.
 """
 

@@ -298,11 +298,14 @@ class Trainer:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def eval_forward(self, variables: nn.Module, images_u8: torch.Tensor):
-        """-> (per-level maps, prototypes or None), fp32."""
+        """-> (per-level maps, prototypes or None), fp32. The images are
+        normalized in fp32 and cast to the model's dtype (a bf16 model, such
+        as the int8 Predictor's, also runs with amp off, as a flax module
+        casts its input)."""
         variables.eval()
+        x = normalize_images(images_u8, next(variables.parameters()).dtype)
         with self._autocast():
-            outs, protos = split_outputs(variables(normalize_images(images_u8)),
-                                         self.with_masks)
+            outs, protos = split_outputs(variables(x), self.with_masks)
         return [o.float() for o in outs], None if protos is None else protos.float()
 
     def detect(self, outs, conf_th: float, iou_th: float, max_det: int,
