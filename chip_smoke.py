@@ -130,6 +130,20 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               sequence (tracks equal to KalmanSortTracker over infer_image);
               each tool's wall seconds and launches. import_backbone is held
               on the CPU only (the card's machine has neither JAX nor timm)
+ 16. tools    the remaining user tools through their entry points, on the
+              same PNG set: model_info --all (12 configs @640) on the card,
+              its table logged, parameters and FLOPs equal to the CPU's;
+              pretrain_backbone (MobileNetV4-Conv-S-050, 25 epochs b32 @224)
+              on an imagefolder of PNG crops of the set's boxes, in
+              make_crop_corpus's layout (finite, falling loss; EMA val top-1
+              above the majority class's share), its checkpoint loaded into
+              a 1-epoch edge_n run through pretrained_backbone (the backbone
+              at step 0 equal to it); benchmark --epochs 1 --batch_size 8
+              --bench_batch 128 (a non-zero row; nms_suppress launched by
+              validation, the 51 latency calls and the 13 graph calls, as
+              predicted; its batched img/s beside serve's); the loop's
+              profile flag on a 2-epoch run (one trace, holding CUDA kernel
+              events)
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -137,9 +151,11 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -199,6 +215,9 @@ from yololite_tpu_torch.tools import infer as cli_infer  # noqa: E402
 from yololite_tpu_torch.tools import infer_exported as cli_infer_exported  # noqa: E402
 from yololite_tpu_torch.tools import tracker as cli_tracker  # noqa: E402
 from yololite_tpu_torch.tools import train as cli_train  # noqa: E402
+from yololite_tpu_torch.tools import benchmark as cli_benchmark  # noqa: E402
+from yololite_tpu_torch.tools import model_info as cli_model_info  # noqa: E402
+from yololite_tpu_torch.tools import pretrain_backbone as cli_pretrain  # noqa: E402
 
 IMG = 640
 BATCH = 128
@@ -1061,6 +1080,35 @@ def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
                 f"names: [{', '.join(f'c{i}' for i in range(n_cls))}]\n")
     return data_yaml
 
+
+
+def make_crop_set(data_yaml: str, out: str, margin: float = 0.25, min_px: int = 10) -> str:
+    """`tools/make_crop_corpus.py`'s imagefolder of a synthetic set, as PNG
+    crops of `write_png`: every labelled box with a context margin of
+    `margin` of its size, under out/train/<class>/ and out/val/<class>/.
+    Returns `out`."""
+    root = os.path.dirname(data_yaml)
+    for split, src in (("train", "train"), ("val", "valid")):
+        img_dir = os.path.join(root, src, "images")
+        for fn in sorted(os.listdir(img_dir)):
+            stem = os.path.splitext(fn)[0]
+            img = host_codecs.imread_bgr(os.path.join(img_dir, fn))[..., ::-1]
+            h, w = img.shape[:2]
+            with open(os.path.join(root, src, "labels", stem + ".txt")) as f:
+                rows = [ln.split() for ln in f.read().splitlines() if ln.strip()]
+            for ri, r in enumerate(rows):
+                cx, cy, bw, bh = (float(v) for v in r[1:5])
+                x1, y1, x2, y2 = (cx - bw / 2) * w, (cy - bh / 2) * h, \
+                    (cx + bw / 2) * w, (cy + bh / 2) * h
+                mx, my = margin * (x2 - x1), margin * (y2 - y1)
+                xa, ya = max(0, int(x1 - mx)), max(0, int(y1 - my))
+                xb, yb = min(w, int(x2 + mx) + 1), min(h, int(y2 + my) + 1)
+                if xb - xa < min_px or yb - ya < min_px:
+                    continue
+                cdir = os.path.join(out, split, f"c{int(float(r[0]))}")
+                os.makedirs(cdir, exist_ok=True)
+                write_png(os.path.join(cdir, f"{stem}_{ri}.png"), img[ya:yb, xa:xb])
+    return out
 
 SEG_SHAPES = ("rect", "tri", "ell")
 
@@ -3495,6 +3543,189 @@ def phase_cli(card: str, data: str, tmp: str):
     return out
 
 
+# tools phase: model_info over configs/models (12 configs), backbone
+# pretraining on crops of the synthetic set (3 colour classes; ~2 steps an
+# epoch at batch 32, so the EMA weights need ~20 epochs before their
+# BatchNorm statistics catch up, as a CPU rehearsal showed), the benchmark
+# harness, and the loop's profile flag
+MODEL_INFO_CONFIGS = 12
+PRETRAIN = dict(backbone="mobilenetv4_conv_small_050", epochs=25, batch_size=32,
+                img_size=224, log_every=1)
+BENCH_BATCH = 128
+
+
+def _tools_model_info(card: str) -> dict:
+    """`model_info --all` on the card, the table logged; parameters and
+    FLOPs equal to the CPU's counts of the same configs."""
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = cli_model_info.main(["--all", "--img_size", str(IMG), "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"model_info: {line}")
+    if len(rows) != MODEL_INFO_CONFIGS or "FAILED" in buf.getvalue():
+        raise AssertionError(f"model_info: {len(rows)} rows of {MODEL_INFO_CONFIGS}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = cli_model_info.main(["--all", "--img_size", str(IMG), "--device", "cpu"])
+    for a, b in zip(rows, cpu):
+        if (a["params_M"], a["flops_G"]) != (b["params_M"], b["flops_G"]):
+            raise AssertionError(f"model_info {a['model']}: card {a} != CPU {b}")
+    log(f"model_info --all @{IMG}: {len(rows)} configs in {secs:.1f} s on the card, "
+        f"params and FLOPs equal to the CPU's [{card}]")
+    return {"seconds": secs, "rows": rows}
+
+
+def _tools_pretrain(card: str, data: str, work: str) -> dict:
+    """Crops of the synthetic set as an imagefolder, `pretrain_backbone` on
+    the card: finite and falling loss, EMA val top-1 above the majority
+    class's share."""
+    crops = make_crop_set(data, os.path.join(work, "crops"))
+    counts = {split: {c: len(os.listdir(os.path.join(crops, split, c)))
+                      for c in sorted(os.listdir(os.path.join(crops, split)))}
+              for split in ("train", "val")}
+    out = os.path.join(work, "mnv4_050_pre.ckpt")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_pretrain.pretrain(crops, out=out, device="cuda", **PRETRAIN)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in lines if " loss " in ln]
+    top1 = [float(ln.rsplit(" ", 1)[1]) for ln in lines if "val top-1" in ln]
+    chance = max(counts["val"].values()) / sum(counts["val"].values())
+    log(f"tools pretrain: {PRETRAIN['backbone']} {PRETRAIN['epochs']} epochs b"
+        f"{PRETRAIN['batch_size']} @{PRETRAIN['img_size']} on {counts} crops in {secs:.1f} s "
+        f"({len(losses)} steps); loss {losses[0]:.4f} -> {losses[-1]:.4f}; val top-1 by "
+        f"epoch {top1} (majority share {chance:.4f}) [{card}]")
+    k = max(1, len(losses) // 5)
+    if not (np.all(np.isfinite(losses)) and np.mean(losses[-k:]) < np.mean(losses[:k])):
+        raise AssertionError(f"pretrain: loss not finite and falling {losses}")
+    if not top1[-1] > max(chance, 1 / 3):
+        raise AssertionError(f"pretrain: val top-1 {top1[-1]} not above chance {chance}")
+    return {"seconds": secs, "crops": counts, "losses": losses, "val_top1": top1,
+            "checkpoint": out}
+
+
+def _tools_pretrained_train(card: str, data: str, ckpt: str, work: str) -> dict:
+    """The pretrained checkpoint in a 1-epoch edge_n run through
+    `pretrained_backbone`: the backbone at step 0 equals it."""
+    sd, _ = load_checkpoint(ckpt)
+    seen = []
+    real = Trainer.train_step
+
+    def first(self, state, batch, lr_vec):
+        if not seen:        # copies of the backbone's weights before the first step
+            seen.append([[np.array(a) for a in _leaves(t["backbone"])]
+                         for t in to_flax(state.model)])
+        return real(self, state, batch, lr_vec)
+
+    Trainer.train_step = first
+    t0 = time.perf_counter()
+    try:
+        YoloLite("edge_n", device="cuda").train(
+            data=data, epochs=1, batch_size=8, img_size=IMG, workers=8, augment=False,
+            run_dir=os.path.join(work, "runs_pre"), pretrained_backbone=ckpt)
+    finally:
+        Trainer.train_step = real
+    secs = time.perf_counter() - t0
+    for got, want in zip(seen[0], (sd["params"], sd["batch_stats"])):
+        want = _leaves(want)
+        if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("pretrained_backbone: the backbone at step 0 is not the "
+                                 "checkpoint's")
+    log(f"tools pretrained_backbone: 1 epoch of edge_n @{IMG} b8 from the pretrained "
+        f"checkpoint in {secs:.1f} s; backbone at step 0 equal to it ({len(seen[0][0])} "
+        f"+ {len(seen[0][1])} arrays) [{card}]")
+    return {"seconds": secs}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _tools_benchmark(card: str, data: str, work: str, serve: dict) -> dict:
+    """`benchmark --epochs 1 --batch_size 8 --bench_batch 128` on the card:
+    a non-zero row; nms_suppress launched by validation, the latency calls
+    and every graph call."""
+    csv_path = os.path.join(work, "benchmark_results.csv")
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = cli_benchmark.main(["--data", data, "--epochs", "1", "--batch_size", "8",
+                               "--img_size", str(IMG), "--bench_batch", str(BENCH_BATCH),
+                               "--out", csv_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs, launches = time.perf_counter() - t0, cuda_nms.LAUNCHES
+    row = rows[0]
+    if float(row[5]) == 0 or float(row[6]) == 0:
+        raise AssertionError(f"benchmark wrote the zero row of a failed run: {row}")
+    val_batches = -(-VAL_N // 8)
+    want = (2 * val_batches + val_batches + 1 + cli_benchmark.LATENCY_CALLS
+            + cli_benchmark.GRAPH_WARM + cli_benchmark.GRAPH_TIMED)
+    log(f"tools benchmark: row {row} in {secs:.1f} s; batched graph {row[6]} img/s at "
+        f"b{BENCH_BATCH} from a zero uint8 batch on the card (serve phase, prepared "
+        f"batches: {[round(float(v), 1) for v in np.atleast_1d(serve['img_s_device_stream'])]} "
+        f"img/s); latency {row[5]} ms a frame; nms_suppress launched {launches} times "
+        f"(expected {want}: train {2 * val_batches}, val {val_batches}, warmup 1, "
+        f"{cli_benchmark.LATENCY_CALLS} latency calls, "
+        f"{cli_benchmark.GRAPH_WARM + cli_benchmark.GRAPH_TIMED} graph calls) [{card}]")
+    if launches != want:
+        raise AssertionError(f"benchmark: {launches} nms_suppress launches, expected {want}")
+    return {"seconds": secs, "row": row, "launches": launches}
+
+
+def _tools_profile(card: str, data: str, work: str) -> dict:
+    """The loop's `profile` flag on a 2-epoch edge_n run: one trace of epoch
+    1's batches 3 on (4 batches, so closed at the epoch's end) holding CUDA
+    kernel events."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = YoloLite("edge_n", device="cuda").train(
+            data=data, epochs=2, batch_size=8, img_size=IMG, workers=8, augment=False,
+            run_dir=os.path.join(work, "runs_profile"), profile=True)
+    secs = time.perf_counter() - t0
+    prof = os.path.join(res["log_dir"], "profile")
+    files = glob.glob(os.path.join(prof, "trace_*.json"))
+    if buf.getvalue().count(f"[profile] trace saved to {prof}") != 1 or len(files) != 1:
+        raise AssertionError(f"profile: {files} under {prof}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+    log(f"tools profile: 2 epochs of edge_n @{IMG} b8 in {secs:.1f} s; trace "
+        f"{os.path.basename(files[0])} ({os.path.getsize(files[0]) / 1e6:.1f} MB) holds "
+        f"{len(kernels)} CUDA kernel events, {busy:.1f} ms of kernels [{card}]")
+    if not kernels:
+        raise AssertionError("profile: the trace holds no CUDA kernel events")
+    return {"seconds": secs, "kernel_events": len(kernels), "kernel_ms": busy}
+
+
+def phase_tools(card: str, data: str, tmp: str, serve: dict):
+    """The remaining user tools on the card, each through its entry point,
+    edge_n at full width and depth @640 on the synthetic PNG set; runs go
+    under a working directory of `tmp`."""
+    work = os.path.join(tmp, "tools")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    out = {}
+    try:
+        out["model_info"] = _tools_model_info(card)
+        out["pretrain"] = _tools_pretrain(card, data, work)
+        out["pretrained_train"] = _tools_pretrained_train(card, data,
+                                                          out["pretrain"]["checkpoint"], work)
+        out["benchmark"] = _tools_benchmark(card, data, work, serve)
+        out["profile"] = _tools_profile(card, data, work)
+    finally:
+        os.chdir(cwd)
+    out["launches"] = out["benchmark"]["launches"]
+    return out
+
 
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
@@ -3525,7 +3756,8 @@ def main():
                          ("stream", lambda: phase_stream(card)),
                          ("export", lambda: phase_export(card, tmp)),
                          ("quant", lambda: phase_quant(card, data, tmp)),
-                         ("cli", lambda: phase_cli(card, data, tmp))):
+                         ("cli", lambda: phase_cli(card, data, tmp)),
+                         ("tools", lambda: phase_tools(card, data, tmp, serve))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -3546,7 +3778,8 @@ def main():
                     launches_stream=phases["stream"]["launches"],
                     launches_export=phases["export"]["launches"],
                     launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],
-                    launches_cli=phases["cli"]["launches"])]
+                    launches_cli=phases["cli"]["launches"],
+                    launches_tools=phases["tools"]["launches"])]
     q = phases["quant"]["int8"]
     for k in KERNELS[1:]:
         t = q["totals"][k["name"]]

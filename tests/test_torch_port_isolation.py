@@ -106,3 +106,23 @@ def test_cli_devices_default_to_cuda(monkeypatch):
     for argv, want in (([], "cuda"), (["--device", "cuda:1"], "cuda:1")):
         tools["train"].main(["--model", "m.yaml", "--data", "d.yaml"] + argv)
         assert seen[-1] == want
+
+
+USER_TOOLS = ("model_info", "pretrain_backbone", "benchmark")
+
+
+def test_user_tools_and_utils_are_covered():
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ["utils/__init__.py", "utils/profiling.py"] + \
+            [f"tools/{name}.py" for name in USER_TOOLS]:
+        assert os.path.join("yololite_tpu_torch", rel) in files
+
+
+def test_user_tools_default_to_cuda():
+    import importlib
+    for name in USER_TOOLS:
+        mod = importlib.import_module(f"yololite_tpu_torch.tools.{name}")
+        assert mod.build_parser().get_default("device") == "cuda", name
+    from yololite_tpu_torch.tools import model_info, pretrain_backbone
+    for fn in (model_info.analyze, pretrain_backbone.pretrain):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -24,9 +24,10 @@ Tolerances, each with its reason:
   - fake-quant: forward 1e-5 of the scale, gradients 1e-4 of the scale
     (fp32 convolutions in another order; the STE passes the same gradient);
   - QAT on the whole model, BatchNorm on running statistics: output and
-    gradients 1e-5 of their scale; the 3-step QAT Trainer trajectory: losses
-    within 10%, the updates' signs (train-mode fake-quant amplifies the last
-    bit; see the test);
+    gradients 1e-5 of their scale; the 3-step QAT Trainer trajectory, each
+    step from JAX's state: losses at twice their measured spread (train-mode
+    fake-quant amplifies the last bit in both packages; see the test), the
+    update norms 2%;
   - the int8 Predictor: equal counts of valid detections and equal classes;
     boxes within 1e-3 px and scores 1e-5 for at least 90% of them, the rest
     (touched by a flip) within 0.5 px and 1e-3; seg masks of the matched
@@ -40,6 +41,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from flax import linen as fnn
+from flax import serialization
 
 import yololite_tpu.ops.quant as jax_quant
 from yololite_tpu.deploy.predictor import Predictor as JaxPredictor
@@ -323,44 +325,76 @@ def test_qat_model_forward_and_grads_equal_jax():
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def _jax_full_state(js):
+    """JAX's Trainer state in the layout `Trainer.state_from_full` reads (a
+    `save_optimizer` checkpoint's)."""
+    return jax.tree.map(np.asarray, {
+        "params": js.params, "batch_stats": js.batch_stats,
+        "raw_params": js.params, "raw_batch_stats": js.batch_stats,
+        "ema_params": js.ema_params, "ema_batch_stats": js.ema_batch_stats,
+        "updates": js.updates, "micro": js.micro,
+        "opt_state": serialization.to_state_dict(js.opt_state)})
+
+
 def test_qat_trainer_trajectory_tracks_jax():
     """Three QAT steps of the Trainer against JAX's Trainer with qat: True
-    (edge_n, 128 px, batch 2). Train-mode fake-quant is chaotic in the last
-    bit: an fp32 rounding difference flips one value a level, the flip
-    moves the layer's batch statistics and the next layer's max-based scale,
-    and every later value near a rounding midpoint flips with it (the scales
-    part by 3e-6 at the 5th quantized conv and by 6% at the 60th). So the
-    trajectories part where the plain ones agree to 1e-3 (the eval-mode
-    test above shows the arithmetic agrees): losses are held to 10% (measured
-    up to 4.8% at step 3), the updates to the same signs on most elements,
-    and both runs must move away from the port's plain trajectory."""
-    img = 128
+    (edge_n, 128 px, batch 2), each step from JAX's state carried into the
+    port.
+
+    Train-mode fake-quant is ill-conditioned in both packages, so the two
+    trajectories cannot be compared as the plain ones are. An fp32 rounding
+    difference flips one quantized value a level; with BatchNorm on batch
+    statistics and a max-based scale per tensor the flip spreads (the port
+    on 1 and 6 threads: 1e-6 of the scale after the first two convs, 4e-3
+    after the third, 10% at the backbone's end), and the gradient grows
+    from ~1 at the heads to ~150 at the stem. Measured on one state, the step-0 gradient of one
+    package against itself: the port on 1 and 6 threads 113% apart (norm of
+    the difference over the norm), its signs equal at 57% of the elements
+    with |g| > 1; JAX eager against jit 72% apart, 87%; the port against
+    JAX 159%, 57-64%. The loss at one state: JAX's train step against its own
+    forward 3.5% apart in the total and 21% in cls (step 1); the port on 1
+    and 6 threads 1.5%, npos 8 against 7. So the state is carried across
+    (loaded through `state_from_full` and held equal to JAX's) and each
+    step's losses are held at about twice the spread measured from carried
+    states (torch on 1-12 threads with oneDNN on and off, against JAX's
+    states from XLA's multi- and single-threaded CPU): total 6.1%, box 4.5%,
+    obj 12.9%, cls 36.5% (a mean over 6-8 positives), npos 1 apart.
+    What does not depend on the rounding is held exactly or closely: the
+    carried state (equal), Adam's step size (each step's update norm within
+    2%; measured within 0.53%), and the QAT step differing from the plain
+    one from the same state."""
+    img, lr = 128, 1e-3
     params, stats = jax_edge_variables()
-    runs = {}
-    for qat in (True, False):
-        cfg = _train_cfg(img_size=img, qat=qat)
-        pt = Trainer(build_model_from_config(cfg), cfg, total_updates=30, device="cpu")
-        ps = pt.state_from_weights(params, stats)
-        jt = JaxTrainer(jax_build(cfg, dtype=jnp.float32), cfg, total_updates=30) if qat else None
-        js = jt.state_from_weights(params, stats) if qat else None
-        assert pt.qat == qat and (not qat or jt.qat)
-        lr = 1e-3
-        for i, batch in enumerate(_batches(img=img)):
-            ps, pm = pt.train_step(ps, pt.put_batch(batch), pt.lr_vector(lr))
-            if qat:
-                js, jm = jt.train_step(js, jt.put_batch(batch), jt.lr_vector(lr))
-                for k in ("total", "box", "obj", "cls"):
-                    np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=0.1,
-                                               err_msg=f"step {i} {k}")
-                assert float(pm["npos"]) == float(jm["npos"])
-        runs[qat] = _flat(to_flax(ps.model)[0]) - _flat(params)
-        if qat:
-            jax_q = _flat(js.params) - _flat(params)
-    port_q, port_p = runs[True], runs[False]
-    moved = np.abs(jax_q) > 1e-6
-    assert (np.sign(port_q[moved]) == np.sign(jax_q[moved])).mean() > 0.6
-    assert np.linalg.norm(port_q - port_p) > 0.05 * np.linalg.norm(port_p)
-    assert np.linalg.norm(jax_q - port_p) > 0.05 * np.linalg.norm(port_p)
+    cfg = _train_cfg(img_size=img, qat=True)
+    pt = Trainer(build_model_from_config(cfg), cfg, total_updates=30, device="cpu")
+    plain_cfg = _train_cfg(img_size=img)
+    plain = Trainer(build_model_from_config(plain_cfg), plain_cfg, total_updates=30,
+                    device="cpu")
+    jt = JaxTrainer(jax_build(cfg, dtype=jnp.float32), cfg, total_updates=30)
+    assert pt.qat and jt.qat and not plain.qat
+    js = jt.state_from_weights(params, stats)
+    tol = {"total": 0.12, "box": 0.1, "obj": 0.25, "cls": 0.6}
+    for i, batch in enumerate(_batches(img=img)):
+        full = _jax_full_state(js)
+        ps = pt.state_from_full(full)
+        start = _flat(js.params)
+        assert ps.updates == int(js.updates) == i and ps.opt.count == i
+        assert np.array_equal(_flat(to_flax(ps.model)[0]), start)
+        assert np.array_equal(_flat(to_flax(ps.ema)[0]), _flat(js.ema_params))
+        ps, pm = pt.train_step(ps, pt.put_batch(batch), pt.lr_vector(lr))
+        js, jm = jt.train_step(js, jt.put_batch(batch), jt.lr_vector(lr))
+        for k, rtol in tol.items():
+            np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=rtol,
+                                       err_msg=f"step {i} {k}")
+        assert abs(float(pm["npos"]) - float(jm["npos"])) <= 2, (i, pm["npos"], jm["npos"])
+        d_port = _flat(to_flax(ps.model)[0]) - start
+        d_jax = _flat(js.params) - start
+        np.testing.assert_allclose(np.linalg.norm(d_port), np.linalg.norm(d_jax), rtol=0.02,
+                                   err_msg=f"step {i} update norm")
+        qs = plain.state_from_full(full)
+        qs, _ = plain.train_step(qs, plain.put_batch(batch), plain.lr_vector(lr))
+        d_plain = _flat(to_flax(qs.model)[0]) - start
+        assert np.linalg.norm(d_port - d_plain) > 0.05 * np.linalg.norm(d_plain)
 
 
 def test_qat_keeps_state_dict_keys_and_plain_checkpoints():

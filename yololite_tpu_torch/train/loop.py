@@ -16,7 +16,10 @@
     best_model_state.ckpt (best while augmenting), best_no_aug.ckpt (best
     without augmentation), last_model_state.ckpt, epoch_N.ckpt every
     `save_every`;
-  - the final `evaluate_model` (conf 0.001) on the best checkpoint.
+  - the final `evaluate_model` (conf 0.001) on the best checkpoint;
+  - `profile: true`: a `torch.profiler` trace of batches 3-7 of epoch 1
+    into <log_dir>/profile (`utils/profiling.py`), closed at that epoch's
+    end when it has fewer than 7 batches.
 
 Segmentation (`model.with_masks`, or `task: segment`) trains the mask loss
 on polygon datasets; per-epoch COCO stays bbox-only (the masks are dropped,
@@ -51,6 +54,7 @@ from yololite_tpu_torch.train.checkpoint import build_meta, load_checkpoint, sav
 from yololite_tpu_torch.train.schedulers import build_scheduler
 from yololite_tpu_torch.train.steps import Trainer
 from yololite_tpu_torch.train.writers import MetricWriters
+from yololite_tpu_torch.utils.profiling import start_trace, stop_trace
 
 CSV_HEADER = ["epoch", "AP", "AP50", "AP75", "APS", "APM", "APL", "AR",
               "train_loss", "val_loss", "lr_g0", "lr_g1", "lr_g2",
@@ -61,6 +65,11 @@ COCO_KEYS = ("AP", "AP50", "AP75", "APS", "APM", "APL", "AR")
 def set_seed(seed: int = 1337):
     random.seed(seed)
     np.random.seed(seed)
+
+
+def _end_profile(prof, profile_dir: str) -> None:
+    stop_trace(prof, profile_dir)
+    print(f"[profile] trace saved to {profile_dir}")
 
 
 def _write_json_atomic(path: str, data):
@@ -205,6 +214,7 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
     num_anchors = model.get_num_anchors_per_level()
 
     weight_dir = os.path.join(log_dir, "weights")
+    profile_dir = os.path.join(log_dir, "profile")
     os.makedirs(weight_dir, exist_ok=True)
     best_ckpt = os.path.join(weight_dir, "best_model_state.ckpt")
     last_ckpt = os.path.join(weight_dir, "last_model_state.ckpt")
@@ -247,7 +257,12 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
         running = np.zeros(4)  # total, box, obj, cls
         nb = 0
         freeze_bb = epoch < freeze_epochs
+        # `profile`: a profiler trace of batches 3-7 of epoch 1, stopped at
+        # that epoch's end if it has fewer batches (JAX's trace stays open)
+        profiling, prof = bool(tr.get("profile")) and epoch == 1, None
         for batch in train_loader:
+            if profiling and nb == 2:
+                prof = start_trace(profile_dir)
             lr = base_lr * scheduler.lr_factor(epoch, global_step)
             state, metrics = trainer.train_step(state, trainer.put_batch(batch),
                                                 trainer.lr_vector(lr, freeze_bb))
@@ -258,6 +273,10 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
             running += vals / b
             nb += 1
             global_step += 1
+            if prof is not None and nb == 7:
+                prof = _end_profile(prof, profile_dir)
+        if prof is not None:
+            prof = _end_profile(prof, profile_dir)
         avg_train = running[0] / max(1, nb)
         train_losses.append(avg_train)
         scheduler.end_epoch(epoch)
