@@ -144,6 +144,23 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               predicted; its batched img/s beside serve's); the loop's
               profile flag on a 2-epoch run (one trace, holding CUDA kernel
               events)
+ 17. ddp      data-parallel training, edge_n @640 at full width: two ranks
+              spawned on this one card over gloo (NCCL refuses two ranks on
+              one device) against one process at the same global batch and
+              weights: a b16 step (8 a rank) in fp32 (TF32 off) and bf16,
+              the bf16 one against one process on the ranks' BatchNorm path
+              (loss, metrics, the reduced gradients, BatchNorm statistics;
+              DDP_FP32 / DDP_BF16), each rank's reduced gradient bit for bit
+              the sum of the ranks' local ones, the ranks' parameters, EMA
+              and optimizer state bitwise equal after 3 steps, the
+              collectives a step and their ms, the step's ms at world 1 and
+              2; then
+              train_from_config with data_parallel 2 joined to the ranks'
+              group, 2 epochs b8 on the PNG set (nms_suppress launched by
+              each rank's share of validation, rank 1 writing nothing, the
+              final COCO equal to one process's evaluate_model of the best
+              checkpoint); with 2 cards the same over NCCL, else a world-1
+              NCCL group
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -199,6 +216,7 @@ from yololite_tpu_torch.ops import cuda_int8, cuda_nms, quant  # noqa: E402
 from yololite_tpu_torch.losses.simota import mask_losses  # noqa: E402
 from yololite_tpu_torch.ops.decode import decode_anchorfree, flatten_levels  # noqa: E402
 from yololite_tpu_torch.ops.masks import assemble_masks_batch  # noqa: E402
+from yololite_tpu_torch.parallel import dist as pdist  # noqa: E402
 from yololite_tpu_torch.ops.nms import (  # noqa: E402
     batched_nms, finalize_detections, nms_numpy, select_candidates, yolo_scores,
 )
@@ -271,10 +289,13 @@ ZOO_FP32_RTOL = 1e-3
 ZOO_BATCHES, ZOO_RUNS = 4, 2
 # train phase: edge_n @640 b8, standard_train.yaml with these overrides
 # (augment: true, the recipe's default: mosaic and cutmix in epoch 1, tapered
-# off in epoch 2 as int(0.7 * 2) = 1)
+# off in epoch 2 as int(0.7 * 2) = 1). data_parallel 1: unset, training takes
+# every visible card, so on a host with several this pins every phase before
+# `ddp` to one process on cuda:0 (its launch counts and patches are this
+# process's)
 TRAIN_OVERRIDES = dict(epochs=2, batch_size=8, img_size=640, augment=True, amp=True,
                        freeze_backbone_epochs=1, pretrained_backbone=BACKBONE_CKPT,
-                       save_optimizer=True)
+                       save_optimizer=True, data_parallel=1)
 TRAIN_N, VAL_N = 32, 8
 # augment phase: samples per preset, each from RandomState(seed base + i)
 AUG_SAMPLES = 64
@@ -1690,7 +1711,7 @@ def phase_device_augment(card: str, data: str, tmp: str):
     cuda_nms.LAUNCHES = 0
     t0 = time.perf_counter()
     res = YoloLite("edge_n", device="cuda").train(
-        data=data, epochs=1, batch_size=8, img_size=IMG, workers=8,
+        data=data, epochs=1, batch_size=8, img_size=IMG, workers=8, data_parallel=1,
         run_dir=os.path.join(tmp, "runs_devaug"), pretrained_backbone=BACKBONE_CKPT,
         train_yaml=os.path.join(ROOT, "configs", "train", "hardsynth_device_aug.yaml"))
     torch.cuda.synchronize()
@@ -3219,7 +3240,7 @@ def _cli_train(card: str, data: str, work: str, secs: dict, launches: dict):
     argv = ["--model", os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
             "--train", os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
             "--data", data, "--epochs", "1", "--batch_size", "8", "--img_size", str(IMG),
-            "--workers", "8", "--pretrained_backbone", BACKBONE_CKPT]
+            "--workers", "8", "--pretrained_backbone", BACKBONE_CKPT, "--data_parallel", "1"]
     torch.cuda.synchronize()
     cuda_nms.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -3626,7 +3647,7 @@ def _tools_pretrained_train(card: str, data: str, ckpt: str, work: str) -> dict:
     try:
         YoloLite("edge_n", device="cuda").train(
             data=data, epochs=1, batch_size=8, img_size=IMG, workers=8, augment=False,
-            run_dir=os.path.join(work, "runs_pre"), pretrained_backbone=ckpt)
+            data_parallel=1, run_dir=os.path.join(work, "runs_pre"), pretrained_backbone=ckpt)
     finally:
         Trainer.train_step = real
     secs = time.perf_counter() - t0
@@ -3647,6 +3668,23 @@ def _leaves(tree):
     return [np.asarray(tree)]
 
 
+@contextlib.contextmanager
+def _one_process_training():
+    """YoloLite.train with data_parallel 1 unless given (the benchmark tool,
+    like JAX's, has no such flag)."""
+    real = YoloLite.train
+
+    def train(self, *a, **kw):
+        kw.setdefault("data_parallel", 1)
+        return real(self, *a, **kw)
+
+    YoloLite.train = train
+    try:
+        yield
+    finally:
+        YoloLite.train = real
+
+
 def _tools_benchmark(card: str, data: str, work: str, serve: dict) -> dict:
     """`benchmark --epochs 1 --batch_size 8 --bench_batch 128` on the card:
     a non-zero row; nms_suppress launched by validation, the latency calls
@@ -3655,9 +3693,10 @@ def _tools_benchmark(card: str, data: str, work: str, serve: dict) -> dict:
     torch.cuda.synchronize()
     cuda_nms.LAUNCHES = 0
     t0 = time.perf_counter()
-    rows = cli_benchmark.main(["--data", data, "--epochs", "1", "--batch_size", "8",
-                               "--img_size", str(IMG), "--bench_batch", str(BENCH_BATCH),
-                               "--out", csv_path, "--device", "cuda"])
+    with _one_process_training():
+        rows = cli_benchmark.main(["--data", data, "--epochs", "1", "--batch_size", "8",
+                                   "--img_size", str(IMG), "--bench_batch", str(BENCH_BATCH),
+                                   "--out", csv_path, "--device", "cuda"])
     torch.cuda.synchronize()
     secs, launches = time.perf_counter() - t0, cuda_nms.LAUNCHES
     row = rows[0]
@@ -3687,7 +3726,7 @@ def _tools_profile(card: str, data: str, work: str) -> dict:
     with contextlib.redirect_stdout(buf):
         res = YoloLite("edge_n", device="cuda").train(
             data=data, epochs=2, batch_size=8, img_size=IMG, workers=8, augment=False,
-            run_dir=os.path.join(work, "runs_profile"), profile=True)
+            data_parallel=1, run_dir=os.path.join(work, "runs_profile"), profile=True)
     secs = time.perf_counter() - t0
     prof = os.path.join(res["log_dir"], "profile")
     files = glob.glob(os.path.join(prof, "trace_*.json"))
@@ -3727,6 +3766,409 @@ def phase_tools(card: str, data: str, tmp: str, serve: dict):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# ddp: data-parallel training, two ranks on this card over gloo (NCCL refuses
+# two ranks on one device), each a process spawned here
+DDP_WORLD = 2
+DDP_BATCH = 16                   # the step check's global batch (8 a rank)
+DDP_STEPS = 3                    # steps before the ranks' state checksums
+DDP_TIME_STEPS = 10
+DDP_TIMEOUT_S = 420
+DDP_TRAIN = dict(TRAIN_OVERRIDES, save_optimizer=False, num_workers=8)
+# 2 ranks vs one process, the same global batch and weights. fp32 (TF32
+# off): the CPU test's tolerances (tests/test_torch_port_ddp.py: the loss
+# 1e-5, metrics 3e-5, gradients 5e-4 relative L2, BN statistics 1e-4 abs;
+# measured there 1.8e-6, 9.8e-6, 9.0e-5, 1.5e-5); on the card the
+# gradients read 2.7e-4 at 640, where cuDNN picks its own algorithms for b8
+# and b16. bf16 autocast: one process's plain step runs the bf16 batch_norm
+# kernel where a rank normalizes in fp32 from the all-reduced sums, and the
+# two part by 0.28 in the gradients. So the ranks' bf16 step is held against
+# one process's bf16 step on the ranks' BatchNorm path at world 1
+# (`_world_one_global_batchnorm`), where only the reduction (and cuDNN's
+# b8 against b16 algorithms) differs. That reads loss 1.15e-4, metrics
+# 1.22e-3, gradients 0.129 rel L2, BN 1.46e-3 (PR 14's chip run 5, PERF.md):
+# a bf16 train-mode step of these seeded weights amplifies rounding as the
+# fp32 one does (2.7e-4 from ~1e-7), to tenths at bf16's 2^-9, so DDP_BF16
+# sits a few times above those readings (1.55x for the gradients, which
+# reproduce to 3 digits run to run). What the bf16 gradients cannot show at
+# that level is held exactly: each rank's reduced gradient is the sum of
+# the two ranks' local ones, bit for bit (fp32 buckets in both precisions);
+# the BatchNorm sums are all-reduced in fp32 in both, by the code the fp32
+# check holds to 5e-4. One process's step on the batch with its halves
+# swapped (the same sums in another order) prints bf16's own floor.
+DDP_FP32 = {"loss": 1e-5, "metrics": 3e-5, "grads": 5e-4, "bn": 1e-4}
+DDP_BF16 = {"loss": 5e-4, "metrics": 5e-3, "grads": 0.2, "bn": 5e-3}
+DDP_EVAL_TOL = 1e-12             # the run's final COCO stats vs one process's
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ddp_step_run(cfg, params, stats, batch, dp, device: str, timed: bool):
+    """One Trainer step of edge_n from (params, stats) on `batch` (this
+    rank's rows of it with `dp`): metrics, the gradients handed to the
+    optimizer, BatchNorm running statistics, the collectives it called;
+    after DDP_STEPS steps the state's digests; with `timed`, ms a step by
+    CUDA events over DDP_TIME_STEPS more."""
+    trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=100, device=device,
+                      parallel=dp)
+    state = trainer.state_from_weights(params, stats)
+    seen = []
+    real = trainer._apply_grads
+
+    def keep(st, grads, lr_vec):
+        if not seen:
+            seen.append(torch.cat([g.reshape(-1).float() for g in grads]).cpu().numpy())
+        return real(st, grads, lr_vec)
+
+    trainer._apply_grads = keep
+    local = []
+    reduce_grads = trainer._reduce_grads
+
+    def keep_local(grads):
+        if not local:
+            local.append(torch.cat([g.reshape(-1).float() for g in grads]).cpu().numpy())
+        return reduce_grads(grads)
+
+    trainer._reduce_grads = keep_local
+    rows = batch if dp is None else {k: v[dp.batch_rows(len(v))] for k, v in batch.items()}
+    b = trainer.put_batch(rows)
+    lr = trainer.lr_vector(1e-3)
+    torch.cuda.synchronize()
+    pdist.reset_calls()
+    state, m = trainer.train_step(state, b, lr)
+    torch.cuda.synchronize()
+    out = {"metrics": {k: float(v) for k, v in m.items()}, "grads": seen[0],
+           "local_grads": local[0] if dp is not None else None, "calls": dict(pdist.CALLS),
+           "bn": torch.cat([v.reshape(-1).float() for k, v in state.model.state_dict().items()
+                            if "running" in k]).cpu().numpy()}
+    for _ in range(DDP_STEPS - 1):
+        trainer.train_step(state, b, lr)
+    opt = state.opt
+    out["digest"] = {"model": _digest(state.model.state_dict().values()),
+                     "ema": _digest(state.ema.state_dict().values()),
+                     "opt": _digest([t for ts in (opt.mu, opt.nu, opt.trace) if ts is not None
+                                     for t in ts]),
+                     "counters": [state.updates, state.micro, opt.count]}
+    if timed:
+        s, e = _events(2)
+        torch.cuda.synchronize()
+        s.record()
+        for _ in range(DDP_TIME_STEPS):
+            trainer.train_step(state, b, lr)
+        e.record()
+        e.synchronize()
+        out["step_ms"] = s.elapsed_time(e) / DDP_TIME_STEPS
+    return out
+
+
+@contextlib.contextmanager
+def _world_one_global_batchnorm():
+    """BatchNorm's data-parallel train forward (`_global_forward`: fp32
+    statistics from the sums, normalized in fp32) in one process, where the
+    sums' all-reduce is the identity: a world-1 step that differs from the
+    ranks' only by the reduction."""
+    forward, reduce_sum = BatchNorm.forward, pdist.all_reduce_sum
+
+    def global_forward(self, x):
+        return self._global_forward(x, 1) if self.training else forward(self, x)
+
+    BatchNorm.forward, pdist.all_reduce_sum = global_forward, (lambda x: x)
+    try:
+        yield
+    finally:
+        BatchNorm.forward, pdist.all_reduce_sum = forward, reduce_sum
+
+
+def _ddp_collective_ms(dp, grads: np.ndarray, device: str) -> dict:
+    """Device ms of the step's collectives alone, by CUDA events over 10
+    calls each: the gradient bucket's all-reduce and one BatchNorm's (2C
+    floats, C=96)."""
+    out = {}
+    for name, n in (("grad_bucket", grads.size), ("batchnorm_96", 192)):
+        t = torch.ones(n, device=device)
+        pdist.all_reduce_(t)
+        torch.cuda.synchronize()
+        s, e = _events(2)
+        s.record()
+        for _ in range(10):
+            pdist.all_reduce_(t)
+        e.record()
+        e.synchronize()
+        out[name] = s.elapsed_time(e) / 10
+    return out
+
+
+def _ddp_rank(rank: int, port: int, backend: str, devices, job) -> dict:
+    """One rank of the ddp phase: the step checks, then train_from_config
+    joined to this group."""
+    os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = str(rank), str(DDP_WORLD)
+    device = devices[rank]
+    torch.cuda.set_device(device)
+    pdist.init_distributed(f"localhost:{port}", DDP_WORLD, rank, backend=backend)
+    try:
+        dp = pdist.DataParallel.from_group()
+        res = {"backend": backend}
+        for name, amp in (("fp32", False), ("bf16", True)):
+            torch.backends.cudnn.allow_tf32 = amp
+            torch.backends.cuda.matmul.allow_tf32 = amp
+            res[name] = _ddp_step_run(job["cfgs"][name], *job["weights"], job["batch"], dp,
+                                      device, timed=amp)
+        torch.backends.cudnn.allow_tf32 = True
+        res["collective_ms"] = _ddp_collective_ms(dp, res["bf16"]["grads"], device)
+        cuda_nms.LAUNCHES = 0
+        pdist.reset_calls()
+        t0 = time.perf_counter()
+        train = train_loop.train_from_config(job["train_cfgs"][rank], device=device)
+        torch.cuda.synchronize()
+        res["train"] = {"launches": cuda_nms.LAUNCHES, "seconds": time.perf_counter() - t0,
+                        "coco": train.get("coco"), "history": train.get("history"),
+                        "log_dir": train.get("log_dir"), "calls": dict(pdist.CALLS)}
+    finally:
+        pdist.shutdown()
+    return res
+
+
+def _ddp_spawn(backend: str, devices, job):
+    return pdist.spawn(_ddp_rank, (pdist.free_port(), backend, devices, job), DDP_WORLD,
+                       timeout=DDP_TIMEOUT_S)
+
+
+def _grad_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got.astype(np.float64) - want) / np.linalg.norm(want))
+
+
+def _halves_swapped(batch: dict) -> dict:
+    """The batch with its second half first (every loss term and batch
+    statistic is a sum over images: the same step in another order)."""
+    h = DDP_BATCH // 2
+    return {k: (np.concatenate([v[h:], v[:h]]) if isinstance(v, np.ndarray)
+                else v[h:] + v[:h]) for k, v in batch.items()}
+
+
+def _ddp_compare(name: str, want: dict, got: dict, tol: dict, card: str,
+                 plain: dict = None, floor: dict = None) -> dict:
+    """A rank's step against one process's: loss, metrics, gradients, BN.
+    `plain` (bf16): one process's plain step, and `floor`: one process's on
+    the halves-swapped batch; their distances are printed."""
+    loss = abs(got["metrics"]["total"] - want["metrics"]["total"]) / abs(want["metrics"]["total"])
+    metrics = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in want["metrics"].items() if k != "total")
+    dg = got["grads"].astype(np.float64) - want["grads"]
+    grads = _grad_rel(got["grads"], want["grads"])
+    bn = float(np.abs(got["bn"].astype(np.float64) - want["bn"]).max())
+    out = {"loss_rel": loss, "metrics_rel": metrics, "grad_rel_l2": grads,
+           "grad_max_abs": float(np.abs(dg).max()), "grad_max": float(np.abs(want["grads"]).max()),
+           "bn_max_abs": bn}
+    note = ""
+    if plain is not None:
+        out["plain"] = {
+            "loss_rel": abs(got["metrics"]["total"] - plain["metrics"]["total"])
+            / abs(plain["metrics"]["total"]),
+            "grad_rel_l2": _grad_rel(got["grads"], plain["grads"]),
+            "witness_grad_rel_l2": _grad_rel(want["grads"], plain["grads"]),
+            "bn_max_abs": float(np.abs(got["bn"].astype(np.float64) - plain["bn"]).max())}
+        note = (f"; against one process's plain bf16 step (bf16 batch_norm, unchecked): loss "
+                f"rel {out['plain']['loss_rel']:.3e}, gradients rel L2 "
+                f"{out['plain']['grad_rel_l2']:.3e} (the world-1 witness's own "
+                f"{out['plain']['witness_grad_rel_l2']:.3e}), BN max abs diff "
+                f"{out['plain']['bn_max_abs']:.3e}")
+    if floor is not None:
+        out["floor"] = {
+            "loss_rel": abs(floor["metrics"]["total"] - want["metrics"]["total"])
+            / abs(want["metrics"]["total"]),
+            "grad_rel_l2": _grad_rel(floor["grads"], want["grads"]),
+            "bn_max_abs": float(np.abs(floor["bn"].astype(np.float64) - want["bn"]).max())}
+        note += (f"; bf16's floor, one process on the halves-swapped batch against it: loss "
+                 f"rel {out['floor']['loss_rel']:.3e}, gradients rel L2 "
+                 f"{out['floor']['grad_rel_l2']:.3e}, BN max abs diff "
+                 f"{out['floor']['bn_max_abs']:.3e}")
+    witness = " on the ranks' BatchNorm path" if plain is not None else ""
+    log(f"ddp {name} step, 2 ranks (b8 each) vs one process b{DDP_BATCH}{witness} from the "
+        f"same weights: loss rel {loss:.3e} (tolerance {tol['loss']:g}), other metrics rel "
+        f"{metrics:.3e} ({tol['metrics']:g}), reduced gradients rel L2 {grads:.3e} "
+        f"({tol['grads']:g}), max abs diff {out['grad_max_abs']:.3e} of max "
+        f"{out['grad_max']:.3e}; BN running stats max abs diff {bn:.3e} ({tol['bn']:g})"
+        f"{note} [{card}]")
+    if not (loss <= tol["loss"] and metrics <= tol["metrics"] and grads <= tol["grads"]
+            and bn <= tol["bn"]):
+        raise AssertionError(f"ddp {name}: the 2-rank step differs from one process's")
+    return out
+
+
+def _ddp_nccl_world_one(card: str) -> dict:
+    """A one-rank NCCL group on this card: init, one all-reduce, shutdown."""
+    pdist.init_distributed(f"localhost:{pdist.free_port()}", 1, 0, backend="nccl")
+    try:
+        t = torch.arange(4, dtype=torch.float32, device="cuda")
+        pdist.all_reduce_(t)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(t.cpu(), torch.arange(4, dtype=torch.float32)))
+        backend = torch.distributed.get_backend()
+    finally:
+        pdist.shutdown()
+    log(f"ddp: NCCL with more than one rank was not run on this machine "
+        f"({torch.cuda.device_count()} card); a world-1 NCCL group ({backend}) initialized, "
+        f"all-reduced and shut down: {'ok' if ok else 'WRONG'} [{card}]")
+    if not ok:
+        raise AssertionError("ddp: the world-1 NCCL all-reduce is wrong")
+    return {"nccl_world1": ok}
+
+
+def _ddp_checks(card: str, label: str, devices, ranks, want: dict, data: str, job,
+                tmp: str) -> dict:
+    """The step checks, the ranks' checksums, and the 2-epoch run's
+    launches, files and final COCO against one process's evaluate_model of
+    its best checkpoint."""
+    out = {label: {
+        "fp32": _ddp_compare(f"{label} fp32", want["fp32"], ranks[0]["fp32"], DDP_FP32, card),
+        "bf16": _ddp_compare(f"{label} bf16", want["bf16_global_bn"], ranks[0]["bf16"],
+                             DDP_BF16, card, want["bf16"], want["bf16_global_bn_swapped"])}}
+    for name in ("fp32", "bf16"):
+        local = [r[name]["local_grads"] for r in ranks]
+        summed = all(np.array_equal(local[0] + local[1], r[name]["grads"]) for r in ranks)
+        out[label][name]["reduced_is_sum"] = summed
+        log(f"ddp {label} {name}: each rank's reduced gradient ({local[0].size} fp32) "
+            f"{'equals' if summed else 'DIFFERS FROM'} the sum of the two ranks' local "
+            f"gradients bit for bit")
+        if not summed:
+            raise AssertionError(f"ddp {label} {name}: the reduced gradient is not the sum")
+        digests = [r[name]["digest"] for r in ranks]
+        log(f"ddp {label} {name}: after {DDP_STEPS} steps the ranks' parameters, EMA and "
+            f"optimizer state are {'bitwise equal' if digests[0] == digests[1] else 'DIFFERENT'}"
+            f" (sha256 {digests[0]['model'][:12]}.., counters {digests[0]['counters']})")
+        if digests[0] != digests[1]:
+            raise AssertionError(f"ddp {label} {name}: the ranks' states differ")
+    calls = ranks[0]["bf16"]["calls"]
+    n_bn = sum(isinstance(m, BatchNorm) for m in build_model_from_config(job["cfgs"]["bf16"])
+               .modules())
+    coll = ranks[0]["collective_ms"]
+    out[label].update(calls_per_step=calls, batchnorms=n_bn, collective_ms=coll,
+                      step_ms_world2=ranks[0]["bf16"]["step_ms"],
+                      step_ms_world1=want["bf16"]["step_ms"],
+                      step_ms_world1_ranks_batchnorm=want["bf16_global_bn"]["step_ms"])
+    cards = (f"both ranks on {devices[0]}" if len(set(devices)) == 1
+             else f"on {', '.join(devices)}")
+    log(f"ddp {label}: one bf16 step makes {calls['all_reduce']} all-reduces (one a "
+        f"BatchNorm forward and one a BatchNorm backward where the loss's gradient reaches, "
+        f"{n_bn} BatchNorm modules; one gradient bucket of "
+        f"{ranks[0]['bf16']['grads'].size} fp32; one of the metrics) "
+        f"and {calls['broadcast']} broadcasts; gradient bucket all-reduce "
+        f"{coll['grad_bucket']:.3f} ms, one BatchNorm's (192 floats) "
+        f"{coll['batchnorm_96']:.3f} ms; step b{DDP_BATCH} bf16 {want['bf16']['step_ms']:.2f} ms "
+        f"in one process (world 1), {want['bf16_global_bn']['step_ms']:.2f} ms in one process "
+        f"on the ranks' BatchNorm path, {ranks[0]['bf16']['step_ms']:.2f} ms a rank at world 2 "
+        f"(b8 each, {cards}) [{card}]")
+
+    # the 2-epoch run joined to this group
+    tr0, tr1 = ranks[0]["train"], ranks[1]["train"]
+    log_dir = tr0["log_dir"]
+    val_batches = -(-VAL_N // DDP_TRAIN["batch_size"])
+    want_launches = (DDP_TRAIN["epochs"] + 1) * val_batches
+    launches = [tr0["launches"], tr1["launches"]]
+    rank1_dir = job["train_cfgs"][1]["logging"]["log_dir"]
+    cfg = job["train_cfgs"][0]
+    sd, _ = load_checkpoint(os.path.join(log_dir, "weights", "best_model_state.ckpt"))
+    trainer = Trainer(build_model_from_config(cfg), cfg, device="cuda")
+    variables = trainer.variables_from_flax(sd["params"], sd["batch_stats"])
+    val_ds = YoloDataset(cfg["dataset"]["val_images"], cfg["dataset"]["val_labels"],
+                         img_size=IMG, is_train=False, augment=False,
+                         max_boxes=int(cfg["training"]["max_boxes"]))
+    cuda_nms.LAUNCHES = 0
+    single = evaluate_model(trainer, variables, DataLoader(val_ds, DDP_TRAIN["batch_size"],
+                                                           shuffle=False, drop_last=False),
+                            os.path.join(tmp, f"ddp_eval_{label}"), 3, IMG, run_bench=False)
+    torch.cuda.synchronize()
+    diff = max(abs(tr0["coco"][k] - v) for k, v in single["coco"].items())
+    hist = tr0["history"]
+    log(f"ddp {label} train_from_config data_parallel 2, {DDP_TRAIN['epochs']} epochs edge_n "
+        f"@{IMG} b{DDP_TRAIN['batch_size']} (4 a rank) bf16 in {tr0['seconds']:.1f} s: train "
+        f"loss {', '.join(f'{v:.4f}' for v in hist['train_loss'])}, val loss "
+        f"{', '.join(f'{v:.4f}' for v in hist['val_loss'])}; nms_suppress launched {launches} "
+        f"times by the ranks (expected {want_launches} each: {val_batches} val batch x "
+        f"{DDP_TRAIN['epochs']} epochs + {val_batches} in evaluate_model); final AP "
+        f"{tr0['coco']['AP']:.6f} AP50 {tr0['coco']['AP50']:.6f}, one process's evaluate_model "
+        f"of its best checkpoint AP {single['coco']['AP']:.6f} AP50 "
+        f"{single['coco']['AP50']:.6f} (max diff {diff:.3e}, tolerance {DDP_EVAL_TOL:g}; "
+        f"{cuda_nms.LAUNCHES} launch); rank 1 wrote {'nothing' if not os.path.exists(rank1_dir) else 'FILES'} "
+        f"[{card}]")
+    if launches != [want_launches] * DDP_WORLD:
+        raise AssertionError("ddp: validation did not go through the kernel on every rank")
+    if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
+        raise AssertionError(f"ddp: non-finite loss {hist}")
+    if tr1["coco"] != tr0["coco"] or diff > DDP_EVAL_TOL:
+        raise AssertionError("ddp: the run's final COCO is not one process's")
+    if os.path.exists(rank1_dir):
+        raise AssertionError(f"ddp: rank 1 wrote {rank1_dir}")
+    _check_run_dir(log_dir)
+    out[label]["train"] = {"launches": launches, "seconds": tr0["seconds"], "coco": tr0["coco"],
+                           "single_coco": single["coco"], "history": hist,
+                           "calls": tr0["calls"]}
+    return out
+
+
+def _ddp_one_process(data: str) -> dict:
+    """One process's b16 steps from the seeded weights, which the ranks are
+    held against: plain fp32 and bf16, and bf16 on the ranks' BatchNorm path
+    (on the batch and on its halves swapped)."""
+    cfgs = {"fp32": _edge_n_train_config(data, amp=False),
+            "bf16": _edge_n_train_config(data, amp=True)}
+    weights = _seeded_flax_edge_n(cfgs["fp32"])
+    batch = _first_batch(cfgs["fp32"], DDP_BATCH)
+    want = {}
+    for name, amp in (("fp32", False), ("bf16", True)):
+        torch.backends.cudnn.allow_tf32 = amp
+        torch.backends.cuda.matmul.allow_tf32 = amp
+        want[name] = _ddp_step_run(cfgs[name], *weights, batch, None, "cuda", timed=amp)
+    with _world_one_global_batchnorm():
+        for key, b in (("bf16_global_bn", batch), ("bf16_global_bn_swapped",
+                                                   _halves_swapped(batch))):
+            want[key] = _ddp_step_run(cfgs["bf16"], *weights, b, None, "cuda",
+                                      timed=key == "bf16_global_bn")
+    torch.backends.cudnn.allow_tf32 = True
+    return {"cfgs": cfgs, "weights": weights, "batch": batch, "want": want}
+
+
+def _ddp_backend(card: str, backend: str, devices, one: dict, data: str, tmp: str) -> dict:
+    """Two ranks over `backend` on `devices`: the step checks against `one`,
+    then the 2-epoch train_from_config joined to their group."""
+    train_cfgs = []
+    for r in range(DDP_WORLD):
+        c = load_configs(os.path.join(ROOT, "configs", "models", "edge_n.yaml"),
+                         os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
+                         data, make_run_dir=False)
+        c["training"].update(DDP_TRAIN, data_parallel=DDP_WORLD)
+        c["logging"] = {"log_dir": os.path.join(tmp, f"ddp_{backend}_rank{r}")}
+        train_cfgs.append(c)
+    job = {"cfgs": one["cfgs"], "weights": one["weights"], "batch": one["batch"],
+           "train_cfgs": train_cfgs}
+    t0 = time.perf_counter()
+    ranks = _ddp_spawn(backend, devices, job)
+    log(f"ddp {backend}: 2 ranks on {', '.join(devices)} ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return _ddp_checks(card, backend, devices, ranks, one["want"], data, job, tmp)
+
+
+def phase_ddp(card: str, data: str, tmp: str):
+    """Data-parallel training at edge_n @640's full width: 2 ranks on this
+    card over gloo against one process (a b16 step in fp32 and bf16, the
+    ranks' state after 3 steps), then a 2-epoch train_from_config with
+    data_parallel 2 joined to the ranks' group; over NCCL with one rank a
+    card when there are 2 cards."""
+    one = _ddp_one_process(data)
+    out = _ddp_backend(card, "gloo", ["cuda:0"] * DDP_WORLD, one, data, tmp)
+    if torch.cuda.device_count() >= 2:
+        out.update(_ddp_backend(card, "nccl", ["cuda:0", "cuda:1"], one, data, tmp))
+    else:
+        out.update(_ddp_nccl_world_one(card))
+    out["launches"] = sum(out["gloo"]["train"]["launches"])
+    return out
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -3757,7 +4199,8 @@ def main():
                          ("export", lambda: phase_export(card, tmp)),
                          ("quant", lambda: phase_quant(card, data, tmp)),
                          ("cli", lambda: phase_cli(card, data, tmp)),
-                         ("tools", lambda: phase_tools(card, data, tmp, serve))):
+                         ("tools", lambda: phase_tools(card, data, tmp, serve)),
+                         ("ddp", lambda: phase_ddp(card, data, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -3779,7 +4222,8 @@ def main():
                     launches_export=phases["export"]["launches"],
                     launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],
                     launches_cli=phases["cli"]["launches"],
-                    launches_tools=phases["tools"]["launches"])]
+                    launches_tools=phases["tools"]["launches"],
+                    launches_ddp=phases["ddp"]["launches"])]
     q = phases["quant"]["int8"]
     for k in KERNELS[1:]:
         t = q["totals"][k["name"]]

@@ -126,3 +126,9 @@ def test_user_tools_default_to_cuda():
     from yololite_tpu_torch.tools import model_info, pretrain_backbone
     for fn in (model_info.analyze, pretrain_backbone.pretrain):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_parallel_modules_are_covered():
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("parallel/__init__.py", "parallel/dist.py"):
+        assert os.path.join("yololite_tpu_torch", rel) in files

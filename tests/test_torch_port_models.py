@@ -163,10 +163,10 @@ def test_unported_options_raise():
     for overrides in ({"with_masks": True}, {"task": "segment"}):
         seg = build_model_from_config(edge_cfg(64, **overrides))
         assert seg.with_masks and hasattr(seg, "protonet") and hasattr(seg.head3, "mcoef")
-    # training and its augmentation are ported; multiple devices and the
-    # orbax backend still raise
+    # training, its augmentation and data parallelism are ported; the
+    # spatial axis and the orbax backend still raise
     from yololite_tpu_torch.train.loop import train_from_config
-    for training, item in (({"augment": True, "data_parallel": 2}, "item 3"),
+    for training, item in (({"augment": True, "spatial_parallel": 2}, "item 3b"),
                            ({"augment": False, "checkpoint_backend": "orbax_async"},
                             "item 8c")):
         with pytest.raises(NotImplementedError, match=item):

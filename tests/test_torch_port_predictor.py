@@ -98,12 +98,12 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
     with pytest.raises(NotImplementedError, match="TFLite"):
         export_tflite(ckpt)
     # training and validation are ported; what they still refuse raises
-    # naming its ROADMAP item: multiple devices (with or without the
-    # recipe's augmentation, which is ported)
+    # naming its ROADMAP item: the spatial axis (with or without the
+    # recipe's augmentation, which is ported; data parallelism is ported)
     from chip_smoke import make_synth_set
     data = make_synth_set(str(tmp_path / "set"), n_train=2, n_val=1, w=32, h=24)
-    for overrides, item in (({"augment": True, "data_parallel": 2}, "item 3"),
-                            ({"augment": False, "data_parallel": 2}, "item 3")):
+    for overrides, item in (({"augment": True, "spatial_parallel": 2}, "item 3b"),
+                            ({"augment": False, "spatial_parallel": 2}, "item 3b")):
         with pytest.raises(NotImplementedError, match=item):
             model.train(data=data, epochs=1, run_dir=str(tmp_path / "runs"), **overrides)
 

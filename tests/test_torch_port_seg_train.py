@@ -28,7 +28,6 @@ from chip_smoke import make_seg_set
 from tests.test_torch_port_zoo import nhwc, random_vars
 from yololite_tpu_torch.api import YoloLite
 from yololite_tpu_torch.config import load_configs
-from yololite_tpu_torch.train import loop as train_loop
 from yololite_tpu_torch.train.loop import train_from_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,16 +79,18 @@ def test_two_epoch_seg_trajectory_matches_jax(segdata, tmp_path):
 def test_yololite_trains_and_validates_a_seg_model(segdata, tmp_path, monkeypatch):
     """Seg training and validation through the API; per-epoch COCO gets the
     detections without their masks (bbox only, as in the JAX loop), the
-    final evaluate_model adds coco_segm."""
+    final evaluate_model gets them with their masks and adds coco_segm."""
+    from yololite_tpu_torch.eval import evaluate as port_evaluate
     data = segdata["small"]
     seen = []
-    real = train_loop.dets_to_coco
-    monkeypatch.setattr(train_loop, "dets_to_coco",
+    real = port_evaluate.dets_to_coco
+    monkeypatch.setattr(port_evaluate, "dets_to_coco",
                         lambda dets, *a, **k: seen.append(sorted(dets)) or real(dets, *a, **k))
     model = YoloLite("edge_n_seg", device="cpu", task="segment")
     res = model.train(data=data, epochs=2, batch_size=4, img_size=64, workers=2,
                       run_dir=str(tmp_path / "runs"), augment=True, amp=False)
-    assert len(seen) == 2 and all("masks" not in keys for keys in seen)
+    assert len(seen) == 3 and all("masks" not in keys for keys in seen[:2])
+    assert "masks" in seen[2]
     assert np.isfinite(res["history"]["step_loss"]).all()
     assert "coco_segm" in res and all(np.isfinite(v) for v in res["coco_segm"].values())
     stats = model.val(data=data, batch_size=4, out_dir=str(tmp_path / "val"))

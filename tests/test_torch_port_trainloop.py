@@ -138,7 +138,7 @@ def test_exact_resume_equals_uninterrupted(data, tmp_path):
 
 
 @pytest.mark.parametrize("training,model,item", [
-    ({"data_parallel": 2}, {}, "item 3"),
+    ({"data_parallel": 2, "spatial_parallel": 2}, {}, "item 3"),    # item 3b
     ({"spatial_parallel": 2}, {}, "item 3"),
     ({"checkpoint_backend": "orbax_async"}, {}, "item 8c"),
     ({"dataset": "tiff"}, {}, "TIFF"),

@@ -112,7 +112,8 @@ class YoloLite:
               train_yaml: Optional[str] = None, run_dir: str = "runs/det",
               **overrides) -> Dict[str, Any]:
         """Train on `data` (a data.yaml) with configs/train/standard_train.yaml
-        (or `train_yaml`) and `overrides` of its `training` block; afterwards
+        (or `train_yaml`) and `overrides` of its `training` block
+        (`data_parallel=N` trains on N GPUs, one process each); afterwards
         this object serves the best checkpoint."""
         from yololite_tpu_torch.config.config import (REPO_ROOT, load_configs, next_run_dir,
                                                       update_latest_pointer)

@@ -490,11 +490,11 @@ def build_argparser() -> argparse.ArgumentParser:
                     help=f"Checkpoint selection metric, one of {SAVE_BY_KEYS}")
     ap.add_argument("--anchors_per_level", type=int, default=None)
     ap.add_argument("--data_parallel", type=int, default=None,
-                    help="Number of devices for data-parallel training "
-                         "(above 1: ROADMAP Queue 1 item 3)")
+                    help="Number of GPUs for data-parallel training, one process "
+                         "each (default: every visible GPU on cuda, 1 on the CPU)")
     ap.add_argument("--spatial_parallel", type=int, default=None,
                     help="Shard image height over this many devices "
-                         "(above 1: ROADMAP Queue 1 item 3)")
+                         "(above 1: ROADMAP Queue 1 item 3b)")
     ap.add_argument("--pretrained_backbone", type=str, default=None,
                     help="Backbone checkpoint from the import_backbone tool")
     return ap

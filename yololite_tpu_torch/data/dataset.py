@@ -10,6 +10,8 @@ detection, and instance segmentation with `task="segment"`.
     leaves the colour and noise ops to the device, `data/device_augment.py`);
     every draw comes from the caller's RandomState in the JAX package's order;
   - otherwise letterbox only (`ValTransform`);
+  - `shard_index`/`shard_count` (multi-node training) keep one stripe of the
+    sorted list, wrap-padded to equal length, as the JAX package's hosts do;
   - `get` returns fixed-shape padded targets: image uint8 [S,S,3], boxes f32
     [M,4], labels i32 [M], mask bool [M], image_id;
   - segmentation (`task="segment"`) keeps each label row's polygon (a box
@@ -207,12 +209,31 @@ class YoloDataset:
                  cutmix_p: float = 0.2, augment: bool = True, seed: int = 0,
                  task: str = "detect", cache_images: bool = False,
                  photometric: bool = True, aug_preset: str = "base",
-                 cache_budget_mb: Optional[float] = None, want_rles: bool = True):
+                 cache_budget_mb: Optional[float] = None, want_rles: bool = True,
+                 shard_index: int = 0, shard_count: int = 1):
         self.img_dir = Path(img_dir)
         self.label_dir = Path(label_dir)
         self.img_files = list_images(str(img_dir))
         if len(self.img_files) == 0:
             raise ValueError(f"No images found in {img_dir}")
+        # multi-node: each node ingests its stripe of the sorted list, padded
+        # with wrap-around duplicates to a multiple of shard_count first, so
+        # every stripe has ceil(n / shard_count) files and every node as many
+        # steps (unequal stripes would leave one node in a collective the
+        # others never join)
+        if not (0 <= int(shard_index) < int(shard_count)):
+            raise ValueError(f"shard_index {shard_index} out of range for "
+                             f"shard_count {shard_count}")
+        self.shard_index = int(shard_index)
+        self.shard_count = int(shard_count)
+        if self.shard_count > 1:
+            total = len(self.img_files)
+            pad = (-total) % self.shard_count
+            reps = -(-pad // total)          # total < shard_count wraps more than once
+            padded = self.img_files + (self.img_files * reps)[:pad]
+            self.img_files = padded[self.shard_index::self.shard_count]
+            if len(self.img_files) == 0:
+                raise ValueError(f"Shard {shard_index}/{shard_count} of {img_dir} is empty")
         bad = [f for f in self.img_files if not f.lower().endswith(READABLE_EXTS)]
         if bad:
             raise UnsupportedImage(f"{bad[0]} (and {len(bad) - 1} more): this package "

@@ -20,7 +20,7 @@ hold; `apply` on JAX's draws equals JAX's output within one level.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -129,7 +129,16 @@ def apply(images_u8: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def photometric_augment(images_u8: torch.Tensor, gen: torch.Generator,
-                        p_color: float = 0.4, p_noise: float = 0.15) -> torch.Tensor:
-    """Draw from `gen` (on the images' device) and apply."""
-    return apply(images_u8, draw(images_u8.shape, gen, p_color, p_noise,
-                                 images_u8.device))
+                        p_color: float = 0.4, p_noise: float = 0.15,
+                        rows: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
+    """Draw from `gen` (on the images' device) and apply. With `rows` =
+    (global batch, this process's slice of it), the draws are those of the
+    whole batch and these images take their rows', so a data-parallel step
+    augments exactly as one process does the whole batch."""
+    if rows is None:
+        return apply(images_u8, draw(images_u8.shape, gen, p_color, p_noise,
+                                     images_u8.device))
+    global_b, sl = rows
+    p = draw((global_b,) + tuple(images_u8.shape[1:]), gen, p_color, p_noise,
+             images_u8.device)
+    return apply(images_u8, {k: v[sl] for k, v in p.items()})

@@ -16,13 +16,25 @@ batch RNG (deterministic under concurrency). The shuffle is
 `drop_last=True` keeps training steps one shape, and eval pads the final
 partial batch with `image_id = -1` images and reports `nvalid`. A worker's
 exception is re-raised in the consumer.
+
+`rows` (data-parallel training, `parallel.DataParallel.batch_rows`) makes
+the loader yield only those rows of each batch: the shuffle and the
+per-sample seeds are drawn for the whole batch, and only this process's
+samples are fetched and decoded (mosaic and cutmix partners come from the
+sample's own RNG), so the rows equal the single-process batch's. The
+per-sample seeding is the `num_workers > 1` scheme, used here whatever
+`num_workers` is: with 0 or 1 workers a single process chains one RNG
+through the batch, which a process could only replay by decoding every
+other row. A padded final batch pads the rows past the last image (an
+all-padding share copies the shapes of the batch's first sample), and
+`nvalid` stays the whole batch's.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -37,6 +49,14 @@ def collate(samples) -> Dict[str, np.ndarray]:
         out["gt_rles"] = [s["gt_rles"] for s in samples]
     out["image_id"] = np.asarray([s["image_id"] for s in samples], np.int64)
     return out
+
+
+def _pad_like(sample):
+    """A padding sample: zeros of `sample`'s shapes, image_id -1."""
+    pad = {k: ([] if isinstance(v, list) else np.zeros_like(v))
+           for k, v in sample.items()}
+    pad["image_id"] = np.int64(-1)
+    return pad
 
 
 class _WorkerError:
@@ -54,7 +74,7 @@ class DataLoader:
 
     def __init__(self, dataset: YoloDataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 3,
-                 num_workers: int = 0):
+                 num_workers: int = 0, rows: Optional[slice] = None):
         self.ds = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -62,6 +82,7 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.num_workers = int(num_workers)
+        self.rows = rows
         self.epoch = 0
 
     def __len__(self):
@@ -89,15 +110,25 @@ class DataLoader:
             from concurrent.futures import ThreadPoolExecutor
             pool = ThreadPoolExecutor(max_workers=self.num_workers)
 
-        def fetch_batch(chunk, rng):
+        def fetch(pairs):
             if pool is None:
+                return [self.ds.get(int(i), r) for i, r in pairs]
+            return list(pool.map(lambda a: self.ds.get(int(a[0]), a[1]), pairs))
+
+        def fetch_batch(chunk, rng):
+            if pool is None and self.rows is None:
                 return [self.ds.get(int(i), rng) for i in chunk]
             # one independent RNG per sample: deterministic under concurrency
             base = int(rng.randint(0, 2**31 - 1))
             rngs = [np.random.RandomState((base + 31 * k) % (2**31 - 1))
                     for k in range(len(chunk))]
-            return list(pool.map(lambda a: self.ds.get(int(a[0]), a[1]),
-                                 zip(chunk, rngs)))
+            if self.rows is None:
+                return fetch(zip(chunk, rngs))
+            mine = range(*self.rows.indices(self.batch_size))
+            samples = fetch([(chunk[k], rngs[k]) for k in mine if k < len(chunk)])
+            if not samples:         # padding only: the shapes of the first sample
+                samples = [_pad_like(self.ds.get(int(chunk[0]), rngs[0]))]
+            return samples
 
         def worker():
             rng = np.random.RandomState((self.seed + self.epoch) * 7919 + 13)
@@ -106,12 +137,11 @@ class DataLoader:
                     if stop.is_set():
                         return
                     samples = fetch_batch(chunk, rng)
-                    nvalid = len(samples)
-                    while len(samples) < self.batch_size:  # pad final batch (eval)
-                        pad = {k: ([] if isinstance(v, list) else np.zeros_like(v))
-                               for k, v in samples[0].items()}
-                        pad["image_id"] = np.int64(-1)
-                        samples.append(pad)
+                    nvalid = len(chunk)
+                    want = (self.batch_size if self.rows is None else
+                            len(range(*self.rows.indices(self.batch_size))))
+                    while len(samples) < want:  # pad final batch (eval)
+                        samples.append(_pad_like(samples[0]))
                     batch = collate(samples)
                     batch["nvalid"] = np.int32(nvalid)
                     q.put(batch)

@@ -11,6 +11,15 @@ GT masks are the dataset's full-resolution RLEs (or the bit-packed
 prototype-resolution masks), and `coco_segm` holds the mask-IoU stats.
 `evaluate_checkpoint` runs it on a loaded checkpoint and an images/labels
 folder pair (`YoloLite.val` and the evaluate CLI).
+
+Data-parallel (the Trainer's `parallel`, the loader's `rows`): each process
+runs its rows of every val batch and turns them into COCO images,
+annotations and detections (RLEs included) under their global image ids;
+`collect_coco` gathers them on rank 0 in the single-process order and
+renumbers the annotations; rank 0 computes COCO, P/R/F1, the confusion
+matrix and the latency, writes every file, and broadcasts the results, so
+every process returns the same numbers as one process validating the same
+weights.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from yololite_tpu_torch.eval.coco import COCOEvaluator, coco_eval_from_lists
 from yololite_tpu_torch.eval.confusion import create_confusion_matrix
 from yololite_tpu_torch.eval.prf1 import build_curves_from_coco
 from yololite_tpu_torch.ops.masks import rle_area, rle_encode_np
+from yololite_tpu_torch.parallel import dist as pdist
 
 
 def dets_to_coco(det_batch: Dict[str, np.ndarray], first_img_id: int,
@@ -177,28 +187,73 @@ def make_summary_image(stats: Dict[str, float], curves: Dict, ms_per_img: float,
     plt.close(fig)
 
 
+def collect_coco(trainer, variables, loader, img_size: int, conf_th: float,
+                 iou_th: float, max_det: int = 300, masks: bool = True):
+    """Validate `variables` over `loader` -> (coco images, annotations,
+    detections, mean over batches of the val loss per valid image). With
+    `masks`, a segmentation model's detections carry RLEs at `img_size`;
+    without, the masks stay on the device. Data-parallel: the lists are
+    rank 0's gather (None elsewhere); the loss is the global one on every
+    process."""
+    parts = []                      # per batch: this process's rows as COCO
+    img_id, v_running, n_batches = 1, 0.0, 0
+    for batch in loader:
+        nvalid = int(batch.get("nvalid", len(batch["image"])))
+        metrics, dets = trainer.eval_step(variables, trainer.put_batch(batch),
+                                          conf_th=conf_th, iou_th=iou_th, max_det=max_det)
+        v_running += float(metrics.get("total", 0.0)) / max(1, nvalid)
+        n_batches += 1
+        # this process's rows: their first global image id and how many are real
+        rows = getattr(loader, "rows", None)
+        start = 0 if rows is None else rows.start
+        mine = min(max(nvalid - start, 0), len(batch["image"]))
+        imgs, anns, _ = gts_to_coco(batch, img_id + start, mine, img_size, 1)
+        host = {k: v.cpu().numpy() for k, v in dets.items() if masks or k != "masks"}
+        parts.append((imgs, anns, dets_to_coco(host, img_id + start, mine,
+                                               mask_size=img_size if masks else None)))
+        img_id += nvalid
+    avg_loss = v_running / max(1, n_batches)
+    parallel = getattr(trainer, "parallel", None)
+    if parallel is not None:
+        gathered = pdist.gather_objects(parts)
+        if gathered is None:
+            return None, None, None, avg_loss
+        parts = [p for batch in zip(*gathered) for p in batch]   # batch by batch, rank order
+    images, anns, det_list = [], [], []
+    for imgs, a, d in parts:
+        images += imgs
+        anns += a
+        det_list += d
+    for k, a in enumerate(anns, 1):         # the single-process numbering
+        a["id"] = k
+    return images, anns, det_list, avg_loss
+
+
 def evaluate_model(trainer, variables, val_loader, log_dir: str, num_classes: int,
                    img_size: int, class_names: Optional[Sequence[str]] = None,
                    conf_th: float = 0.001, iou_th: float = 0.65,
                    max_det: int = 300, run_bench: bool = True) -> Dict[str, Any]:
     """`variables` is the model to evaluate (a `YOLOLiteMS` on the trainer's
-    device)."""
-    os.makedirs(log_dir, exist_ok=True)
-    coco_images: List[dict] = []
-    coco_anns: List[dict] = []
-    coco_dets: List[dict] = []
-    ann_id, img_id = 1, 1
-    for batch in val_loader:
-        nvalid = int(batch.get("nvalid", len(batch["image"])))
-        _, dets = trainer.eval_step(variables, trainer.put_batch(batch), conf_th=conf_th,
-                                    iou_th=iou_th, max_det=max_det)
-        imgs, anns, ann_id = gts_to_coco(batch, img_id, nvalid, img_size, ann_id)
-        coco_images += imgs
-        coco_anns += anns
-        coco_dets += dets_to_coco({k: v.cpu().numpy() for k, v in dets.items()},
-                                  img_id, nvalid, mask_size=img_size)
-        img_id += nvalid
+    device). Data-parallel: every process calls it on its rows (the val
+    loader's `rows`); rank 0 writes the files."""
+    coco_images, coco_anns, coco_dets, _ = collect_coco(
+        trainer, variables, val_loader, img_size, conf_th, iou_th, max_det)
+    parallel = getattr(trainer, "parallel", None)
+    if parallel is None:
+        return _evaluate_lists(trainer, variables, val_loader, log_dir, num_classes,
+                               img_size, class_names, run_bench, coco_images, coco_anns,
+                               coco_dets)
+    results = None
+    if parallel.is_main:
+        results = _evaluate_lists(trainer, variables, val_loader, log_dir, num_classes,
+                                  img_size, class_names, run_bench, coco_images, coco_anns,
+                                  coco_dets)
+    return pdist.broadcast_object(results)
 
+
+def _evaluate_lists(trainer, variables, val_loader, log_dir, num_classes, img_size,
+                    class_names, run_bench, coco_images, coco_anns, coco_dets):
+    os.makedirs(log_dir, exist_ok=True)
     stats = coco_eval_from_lists(coco_images, coco_anns, coco_dets, num_classes=num_classes)
     # instance-segmentation mAP (mask IoU at image resolution) when both sides
     # carry masks

@@ -310,12 +310,14 @@ class SimOTALoss:
     def __call__(self, preds_levels: Sequence[torch.Tensor],
                  targets: Dict[str, torch.Tensor], protos: Optional[torch.Tensor] = None,
                  img_size: Optional[int] = None, img_valid: Optional[torch.Tensor] = None,
-                 return_assignment: bool = False):
+                 return_assignment: bool = False, global_batch: Optional[int] = None):
         """`img_size` overrides cfg.img_size (multi-scale training: the
         radius/area gates scale with the actual input). `img_valid` [B] bool
         zeroes the padding images of a padded final eval batch. With
         `return_assignment` the metrics also hold `pos_mask` and
-        `matched_gt` [B, N]."""
+        `matched_gt` [B, N]. `global_batch` (a data-parallel process's rows
+        of a larger batch) is the denominator of `pos`, so that the sum of
+        every process's `pos` is the global share."""
         cfg = self.cfg
         if img_size is not None and int(img_size) != cfg.img_size:
             cfg = dataclasses.replace(cfg, img_size=int(img_size))
@@ -343,7 +345,8 @@ class SimOTALoss:
         loss_cls = cfg.lambda_cls * lc.sum()
         total = loss_box + loss_obj + loss_cls
         metrics = {"box": loss_box, "obj": loss_obj, "cls": loss_cls,
-                   "pos": has_pos.sum() / max(B, 1),   # reference quirk: images w/ pos
+                   # reference quirk: the share of images with positives
+                   "pos": has_pos.sum() / max(global_batch or B, 1),
                    "npos": npos.sum()}
         if protos is not None and "masks" in targets:
             lm = mask_losses(cfg, decoded["coef"], protos, gt_boxes, targets["masks"],

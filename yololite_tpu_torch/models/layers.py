@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yololite_tpu_torch.parallel import dist as pdist
+
 ACTS = {
     "silu": F.silu,
     "relu": F.relu,
@@ -46,7 +48,16 @@ class BatchNorm(nn.Module):
     `running = 0.9 * running + 0.1 * batch` with the biased variance too, as
     flax does. `F.batch_norm` would fold the *unbiased* variance into
     `running_var`, so it gets no running buffers here; the statistics for
-    the update are taken apart, in fp32 also under bf16 autocast."""
+    the update are taken apart, in fp32 also under bf16 autocast.
+
+    Inside a data-parallel forward (`parallel.active`, world size > 1) the
+    batch statistics are the global batch's, as flax's are under the JAX
+    mesh: the per-channel sum and sum of squares (shifted by the running
+    mean, which every process holds alike, against cancellation) go through
+    one differentiable all-reduce in fp32 (fp64 for an fp64 model), so the
+    backward sees the global mean and variance too; the count is the local one times the world size
+    (every process holds as many rows). The output is computed from them in
+    that precision and cast to the input's dtype."""
 
     momentum = 0.9
 
@@ -62,6 +73,9 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
+        dp = pdist.current()
+        if dp is not None:
+            return self._global_forward(x, dp.world)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             m = self.momentum
@@ -69,6 +83,26 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                             eps=self.eps)
+
+    def _global_forward(self, x, world: int):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xf.shape[1]
+        count = xf.numel() // c * world
+        shift = self.running_mean.detach().clone().view(1, c, 1, 1)
+        d = xf - shift
+        sums = pdist.all_reduce_sum(torch.cat([d.sum(dim=(0, 2, 3)),
+                                               (d * d).sum(dim=(0, 2, 3))]))
+        d_mean = sums[:c] / count
+        mean = shift.view(c) + d_mean
+        var = torch.clamp_min(sums[c:] / count - d_mean * d_mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(1, c, 1, 1)) * scale.view(1, c, 1, 1) + \
+            self.bias.to(xf.dtype).view(1, c, 1, 1)
+        return y.to(x.dtype)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,

@@ -24,7 +24,10 @@ detached) with the straight-through estimator x + (q - x).detach(), and
 convolves in fp32 with autocast off, as JAX's `_fake_quant_conv` computes
 in f32 and casts to the module's dtype (bf16 under amp). It is plain
 PyTorch, as JAX's is plain XLA. The scales come from the unfolded training
-weights (the deploy fold changes them; JAX's caveat).
+weights (the deploy fold changes them; JAX's caveat). Inside a
+data-parallel forward (`parallel.active`) the activation scale is the
+all-reduce max over processes, the whole batch's as under the JAX mesh; the
+weight scales are replicated.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yololite_tpu_torch.ops import cuda_int8
+from yololite_tpu_torch.parallel import dist as pdist
 
 
 def should_quantize(x: torch.Tensor) -> bool:
@@ -129,7 +133,10 @@ class FakeQuantConv2d(nn.Conv2d):
             s_w = s_w[:, None, None, None]
             w_fq = _ste(wf, torch.round(wf / s_w).clamp(-127, 127) * s_w)
             xf = x.to(torch.float32)
-            s_x = _div127(xf.abs().amax().reshape(1)).detach().clamp_min(1e-12)
+            amax = xf.abs().amax().reshape(1)
+            if pdist.current() is not None:     # the global batch's, as under the mesh
+                amax = pdist.all_reduce_max(amax)
+            s_x = _div127(amax).detach().clamp_min(1e-12)
             x_fq = _ste(xf, torch.round(xf / s_x).clamp(-127, 127) * s_x)
             out = F.conv2d(x_fq, w_fq, None, self.stride, self.padding, self.dilation,
                            self.groups)

@@ -4,8 +4,11 @@
         --train configs/train/standard_train.yaml --data dataset.yaml \
         [--epochs N --batch_size B --img_size S --save_by AP --device cuda ...]
 
-Runs on `--device` (the card by default). `--data_parallel` or
-`--spatial_parallel` above 1 raise (ROADMAP Queue 1 item 3).
+Runs on `--device` (the card by default). `--data_parallel N` trains on N
+GPUs, one process each (unset: every visible GPU); under
+`torchrun --nproc_per_node N [--nnodes M ...] -m yololite_tpu_torch.tools.train`
+it joins torchrun's processes instead. `--spatial_parallel` above 1 raises
+(ROADMAP Queue 1 item 3b).
 """
 
 from __future__ import annotations

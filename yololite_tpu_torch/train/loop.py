@@ -25,31 +25,48 @@ Segmentation (`model.with_masks`, or `task: segment`) trains the mask loss
 on polygon datasets; per-epoch COCO stays bbox-only (the masks are dropped,
 as the JAX loop drops them), and the final `evaluate_model` adds segm mAP.
 
-Runs on one device (`device`, the card by default). Not ported, each raising
-`NotImplementedError` with its ROADMAP item: the device mesh / multi-host /
-data_parallel > 1 (ROADMAP Queue 1 item 3), the orbax checkpoint backend (8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
+Data parallelism (`data_parallel`, JAX's mesh `data` axis; see
+`parallel/dist.py`): unset, it is every visible card on `cuda` and 1 on the
+CPU. A process group that is already initialized (torchrun, or a caller
+that made one) is joined, and `data_parallel` must then equal its world
+size; otherwise `data_parallel: N > 1` spawns N processes, one a card over
+NCCL (gloo on the CPU), and returns rank 0's results. A batch that does not
+split over the processes runs one process, with JAX's `[dp]` line. Each
+process trains on its rows of every batch (`batch_size` a node, the global
+batch `batch_size` x nodes; with several nodes each ingests its stripe of
+the train set) and validates its rows of every val batch; rank 0 alone
+writes the run directory, checkpoints, metrics, plots and the profile
+trace, and every process takes the same best-checkpoint decisions from the
+broadcast metrics.
+
+Not ported, each raising `NotImplementedError` with its ROADMAP item: the
+`spatial_parallel` axis (Queue 1 item 3b), the orbax checkpoint backend
+(8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
 skipped with a message, as the JAX loop does when drawing fails.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import random
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yololite_tpu_torch.config.config import save_merged_config
 from yololite_tpu_torch.convert import to_flax
 from yololite_tpu_torch.data.dataset import YoloDataset, max_instances_per_image
 from yololite_tpu_torch.data.loader import DataLoader
 from yololite_tpu_torch.eval.coco import coco_eval_from_lists
-from yololite_tpu_torch.eval.evaluate import dets_to_coco, evaluate_model, gts_to_coco
+from yololite_tpu_torch.eval.evaluate import collect_coco, evaluate_model
 from yololite_tpu_torch.eval.plots import plot_metrics
 from yololite_tpu_torch.models.detector import build_model_from_config
+from yololite_tpu_torch.parallel import dist as pdist
 from yololite_tpu_torch.train.checkpoint import build_meta, load_checkpoint, save_checkpoint
 from yololite_tpu_torch.train.schedulers import build_scheduler
 from yololite_tpu_torch.train.steps import Trainer
@@ -108,17 +125,15 @@ def _save_loss_curve(train_losses, val_losses, path):
 
 def _check_supported(config: Dict[str, Any]) -> None:
     tr = config["training"]
-    n_dp = int(tr.get("data_parallel") or 1)
-    n_sp = int(tr.get("spatial_parallel") or 1)
-    if n_dp * n_sp > 1:
-        raise NotImplementedError("multi-device training (mesh, data_parallel, "
-                                  "spatial_parallel, multi-host): ROADMAP Queue 1 item 3")
+    if int(tr.get("spatial_parallel") or 1) > 1:
+        raise NotImplementedError("spatial_parallel (the mesh's image-height axis, halo "
+                                  "exchanges around every conv): ROADMAP Queue 1 item 3b")
     if str(tr.get("checkpoint_backend", "msgpack")) != "msgpack":
         raise NotImplementedError("checkpoint_backend orbax_async (orbax is JAX-only): "
                                   "ROADMAP Queue 1 item 8c")
 
 
-def _max_boxes(config: Dict[str, Any], use_augment: bool) -> int:
+def _max_boxes(config: Dict[str, Any], use_augment: bool, say=print) -> int:
     mb_raw = config["training"].get("max_boxes", 100)
     if not (isinstance(mb_raw, str) and mb_raw.strip().lower() == "auto"):
         return int(mb_raw)
@@ -128,28 +143,88 @@ def _max_boxes(config: Dict[str, Any], use_augment: bool) -> int:
                max_instances_per_image(config["dataset"]["val_labels"]), 1)
     eff = 4 * base + 1 if use_augment else base
     max_boxes = int(min(300, max(16, ((eff + 7) // 8) * 8)))
-    print(f"max_boxes=auto -> {max_boxes} "
-          f"(max {base} GT/image{', mosaic x4+1' if use_augment else ''})")
+    say(f"max_boxes=auto -> {max_boxes} "
+        f"(max {base} GT/image{', mosaic x4+1' if use_augment else ''})")
     return max_boxes
+
+
+def _spawned(rank: int, world: int, port: int, backend: str, config: Dict[str, Any],
+             device: str) -> Optional[Dict[str, Any]]:
+    """One process of a spawned data-parallel run: join the group, train;
+    rank 0 returns its results."""
+    os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = str(rank), str(world)
+    pdist.init_distributed(f"localhost:{port}", world, rank, backend=backend)
+    try:
+        results = train_from_config(config, device)
+    finally:
+        pdist.shutdown()
+    return results if rank == 0 else None
+
+
+def _spawn(config: Dict[str, Any], device: str, n: int) -> Dict[str, Any]:
+    """`n` processes, one a card over NCCL (gloo on the CPU); rank 0's results."""
+    backend = "nccl" if device.startswith("cuda") else "gloo"
+    return pdist.spawn(_spawned, (n, pdist.free_port(), backend, config, device), n)[0]
+
+
+def _data_parallel_size(tr: Dict[str, Any], device: str) -> int:
+    """`data_parallel`, or unset: every visible card on `cuda`, 1 elsewhere."""
+    n = tr.get("data_parallel")
+    if n:
+        return int(n)
+    return max(1, torch.cuda.device_count()) if device == "cuda" else 1
 
 
 def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str, Any]:
     _check_supported(config)
     tr = config["training"]
+    batch_size = int(tr.get("batch_size", 16))
+    if dist.is_initialized():           # torchrun, or a caller's group: join it
+        dp = pdist.DataParallel.from_group()
+        want = tr.get("data_parallel")
+        if want and int(want) != dp.world:
+            raise ValueError(f"data_parallel {want} in a process group of {dp.world}")
+        if batch_size % dp.local_world:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{dp.local_world} processes a node")
+        if device == "cuda":
+            device = f"cuda:{dp.local_rank}"
+        return _train(config, device, dp if dp.world > 1 else None)
+    n_dp = _data_parallel_size(tr, device)
+    if n_dp > 1 and device.startswith("cuda") and n_dp > torch.cuda.device_count():
+        raise ValueError(f"data_parallel {n_dp} needs {n_dp} CUDA devices, "
+                         f"{torch.cuda.device_count()} visible")
+    if n_dp > 1 and batch_size % n_dp:
+        print(f"[dp] batch_size {batch_size} not divisible by {n_dp} "
+              f"devices — running single-device")
+        n_dp = 1
+    if n_dp > 1:
+        return _spawn(config, device, n_dp)
+    return _train(config, device, None)
+
+
+def _train(config: Dict[str, Any], device: str,
+           dp: Optional[pdist.DataParallel]) -> Dict[str, Any]:
+    tr = config["training"]
+    main = dp is None or dp.is_main
+    say = print if main else (lambda *a, **k: None)
     seed = int(tr.get("seed", 1337))
     set_seed(seed)
     log_dir = config.get("logging", {}).get("log_dir", "runs/default")
-    os.makedirs(log_dir, exist_ok=True)
-    save_merged_config(config, log_dir)
-    writers = MetricWriters(log_dir, config.get("logging"))
+    if main:
+        os.makedirs(log_dir, exist_ok=True)
+        save_merged_config(config, log_dir)
+    writers = MetricWriters(log_dir, config.get("logging") if main else None)
 
     num_classes = int(config["model"]["num_classes"])
     img_size = int(tr.get("img_size", 640))
     epochs = int(tr.get("epochs", 100))
     batch_size = int(tr.get("batch_size", 16))
+    nodes = 1 if dp is None else dp.node_count
+    global_batch = batch_size * nodes
     use_augment = bool(tr.get("augment", True))
     use_resize = bool(tr.get("resize", False))
-    max_boxes = _max_boxes(config, use_augment)
+    max_boxes = _max_boxes(config, use_augment, say)
     class_names = config.get("dataset", {}).get("names")
     cache_images = bool(tr.get("cache_images", False))
     cache_budget_mb = tr.get("cache_budget_mb")
@@ -163,21 +238,28 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
                            use_resize=use_resize, task=task, cache_images=cache_images,
                            photometric=not device_augment,
                            aug_preset=str(tr.get("aug_preset", "base")),
-                           cache_budget_mb=cache_budget_mb, want_rles=False)
+                           cache_budget_mb=cache_budget_mb, want_rles=False,
+                           shard_index=0 if dp is None else dp.node_rank,
+                           shard_count=nodes)
     val_ds = YoloDataset(config["dataset"]["val_images"], config["dataset"]["val_labels"],
                          img_size=img_size, is_train=False, augment=False,
                          max_boxes=max_boxes, use_resize=use_resize, task=task,
                          cache_images=cache_images, cache_budget_mb=cache_budget_mb)
     num_workers = int(tr.get("num_workers", 4) or 0)
+    # data-parallel: this process's rows of the node's train batch, and of
+    # the global val batch (every node holds the whole val set)
     train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True,
-                              seed=seed, num_workers=num_workers)
-    val_loader = DataLoader(val_ds, batch_size, shuffle=False, drop_last=False,
-                            num_workers=num_workers)
+                              seed=seed, num_workers=num_workers,
+                              rows=None if dp is None else dp.batch_rows(batch_size))
+    val_loader = DataLoader(val_ds, global_batch, shuffle=False, drop_last=False,
+                            num_workers=num_workers,
+                            rows=None if dp is None else dp.world_rows(global_batch))
     steps_per_epoch = max(1, len(train_loader))
     total_updates = steps_per_epoch * epochs
 
     model = build_model_from_config(config)
-    trainer = Trainer(model, config, total_updates=total_updates, device=device)
+    trainer = Trainer(model, config, total_updates=total_updates, device=device,
+                      parallel=dp)
     state = trainer.init_state(seed=seed)
 
     # pretrained backbone: a backbone checkpoint (weights/, tools/import_backbone.py)
@@ -192,17 +274,19 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
         p["backbone"] = sd["params"].get("backbone", sd["params"])
         bs["backbone"] = sd["batch_stats"].get("backbone", sd["batch_stats"])
         state = trainer.state_from_weights(p, bs)
-        print(f"Initialized backbone from {pre_bb}")
+        say(f"Initialized backbone from {pre_bb}")
 
     resume = tr.get("resume")
     if resume:
+        if dp is not None:
+            pdist.barrier()
         sd, _meta = load_checkpoint(resume)
         if "opt_state" in sd or "ema_params" in sd:
             state = trainer.state_from_full(sd)
-            print(f"Resumed FULL state (EMA/optimizer) from {resume}")
+            say(f"Resumed FULL state (EMA/optimizer) from {resume}")
         else:
             state = trainer.state_from_weights(sd["params"], sd["batch_stats"])
-            print(f"Resumed weights from {resume} (fresh EMA/optimizer)")
+            say(f"Resumed weights from {resume} (fresh EMA/optimizer)")
 
     scheduler = build_scheduler(config, steps_per_epoch)
     base_lr = float(tr.get("lr", 1e-3))
@@ -215,16 +299,21 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
 
     weight_dir = os.path.join(log_dir, "weights")
     profile_dir = os.path.join(log_dir, "profile")
-    os.makedirs(weight_dir, exist_ok=True)
+    if main:
+        os.makedirs(weight_dir, exist_ok=True)
     best_ckpt = os.path.join(weight_dir, "best_model_state.ckpt")
     last_ckpt = os.path.join(weight_dir, "last_model_state.ckpt")
     best_no_aug = os.path.join(weight_dir, "best_no_aug.ckpt")
-    print("[sanity_check] skipped: drawing needs utils/viz.py (ROADMAP Queue 1 item 8d)")
+    say("[sanity_check] skipped: drawing needs utils/viz.py (ROADMAP Queue 1 item 8d)")
 
     best_metric, best_metric_no_aug = -1.0, -1.0
     train_losses, val_losses, step_losses = [], [], []
-    print(f"Training on {trainer.device} | {len(train_ds)} train / {len(val_ds)} val "
-          f"images | img={img_size} batch={batch_size}")
+    say(f"Training on {trainer.device} | {len(train_ds)} train / {len(val_ds)} val "
+        f"images | img={img_size} batch={batch_size} dp={dp is not None}")
+    if dp is not None:
+        say(f"[dp] {dp.world} processes ({dp.node_count} node(s) x {dp.local_world}), "
+            f"{dist.get_backend()}; global batch {global_batch}, "
+            f"{batch_size // dp.local_world} rows a process")
 
     multi_scale = tr.get("multi_scale_sizes") or []
     ms_rng = np.random.RandomState(seed + 99)
@@ -259,14 +348,14 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
         freeze_bb = epoch < freeze_epochs
         # `profile`: a profiler trace of batches 3-7 of epoch 1, stopped at
         # that epoch's end if it has fewer batches (JAX's trace stays open)
-        profiling, prof = bool(tr.get("profile")) and epoch == 1, None
+        profiling, prof = bool(tr.get("profile")) and epoch == 1 and main, None
         for batch in train_loader:
             if profiling and nb == 2:
                 prof = start_trace(profile_dir)
             lr = base_lr * scheduler.lr_factor(epoch, global_step)
             state, metrics = trainer.train_step(state, trainer.put_batch(batch),
                                                 trainer.lr_vector(lr, freeze_bb))
-            b = len(batch["image"])
+            b = global_batch          # the metrics are the global batch's sums
             vals = torch.stack([metrics[k] for k in ("total", "box", "obj", "cls")])
             vals = vals.double().cpu().numpy()
             step_losses.append(float(vals[0]))
@@ -286,27 +375,18 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
                    or (epoch + 1) == epochs or not use_augment)
         variables = trainer.ema_variables(state)
         if do_eval:
-            coco_images, coco_anns, coco_dets = [], [], []
-            ann_id, img_id = 1, 1
-            v_running, vb_count = 0.0, 0
-            for batch in val_loader:
-                nvalid = int(batch.get("nvalid", len(batch["image"])))
-                vmetrics, dets = trainer.eval_step(variables, trainer.put_batch(batch),
-                                                   conf_th=0.1, iou_th=0.65)
-                v_running += float(vmetrics["total"]) / max(1, nvalid)
-                vb_count += 1
-                imgs, anns, ann_id = gts_to_coco(batch, img_id, nvalid, img_size, ann_id)
-                coco_images += imgs
-                coco_anns += anns
-                # per-epoch COCO is bbox-only (segm mAP runs in the final
-                # evaluate_model): the masks stay on the device
-                coco_dets += dets_to_coco({k: v.cpu().numpy() for k, v in dets.items()
-                                           if k != "masks"}, img_id, nvalid)
-                img_id += nvalid
-            avg_val = v_running / max(1, vb_count)
+            # per-epoch COCO is bbox-only (segm mAP runs in the final
+            # evaluate_model): the masks stay on the device
+            coco_images, coco_anns, coco_dets, avg_val = collect_coco(
+                trainer, variables, val_loader, img_size, conf_th=0.1, iou_th=0.65,
+                masks=False)
             scheduler.observe(avg_val)
-            coco_stats = coco_eval_from_lists(coco_images, coco_anns, coco_dets,
-                                              num_classes=num_classes)
+            coco_stats = None
+            if main:
+                coco_stats = coco_eval_from_lists(coco_images, coco_anns, coco_dets,
+                                                  num_classes=num_classes)
+            if dp is not None:      # every process takes rank 0's decisions
+                coco_stats = pdist.broadcast_object(coco_stats)
         else:
             avg_val = float("nan")
             coco_stats = {k: float("nan") for k in COCO_KEYS}
@@ -315,6 +395,13 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
 
         lr_now = base_lr * scheduler.lr_factor(epoch + 1, global_step)
         hyper = trainer.hyper
+        current = coco_stats.get(save_by, 0.0)
+        new_best = current > best_metric and use_augment
+        new_best_no_aug = current > best_metric_no_aug and not use_augment
+        if not main:            # rank 0 writes; the others follow its best metrics
+            best_metric = current if new_best else best_metric
+            best_metric_no_aug = current if new_best_no_aug else best_metric_no_aug
+            continue
         if do_eval:
             _write_json_atomic(os.path.join(log_dir, "last_metrics.json"),
                                {"epoch": epoch + 1, **coco_stats,
@@ -336,12 +423,11 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
         # checkpoints: the deployed weights are the EMA copy
         meta = build_meta(config, coco_stats, save_by, class_names, num_anchors)
         params, batch_stats = to_flax(variables)
-        current = coco_stats.get(save_by, 0.0)
-        if current > best_metric and use_augment:
+        if new_best:
             best_metric = current
             save_checkpoint(best_ckpt, params, batch_stats, meta)
             print(f"New best {save_by}={best_metric:.4f} saved to {best_ckpt}")
-        if current > best_metric_no_aug and not use_augment:
+        if new_best_no_aug:
             best_metric_no_aug = current
             save_checkpoint(best_no_aug, params, batch_stats, meta)
             print(f"New best (no-aug) {save_by}={best_metric_no_aug:.4f}")
@@ -357,15 +443,25 @@ def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str,
               f"took {elapsed:.1f}s")
 
     writers.close()
-    # final plots + full evaluation on the best checkpoint
-    plot_metrics(os.path.join(log_dir, "metrics.csv"), os.path.join(log_dir, "plots"),
-                 smooth=0.2, style="dark")
-    load_path = best_ckpt if os.path.exists(best_ckpt) else (
-        best_no_aug if os.path.exists(best_no_aug) else last_ckpt)
+    # final plots + full evaluation on the best checkpoint, read back by rank 0
+    # and broadcast
+    load_path = None
+    if main:
+        plot_metrics(os.path.join(log_dir, "metrics.csv"), os.path.join(log_dir, "plots"),
+                     smooth=0.2, style="dark")
+        load_path = next((p for p in (best_ckpt, best_no_aug, last_ckpt)
+                          if os.path.exists(p)), None)
+    if dp is not None:
+        load_path = pdist.broadcast_object(load_path)
     results: Dict[str, Any] = {}
-    if os.path.exists(load_path):
-        sd, _ = load_checkpoint(load_path)
-        variables = trainer.variables_from_flax(sd["params"], sd["batch_stats"])
+    if load_path is not None:
+        if main:
+            sd, _ = load_checkpoint(load_path)
+            variables = trainer.variables_from_flax(sd["params"], sd["batch_stats"])
+        else:
+            variables = copy.deepcopy(trainer.model).eval()
+        if dp is not None:
+            pdist.broadcast_state([variables])
         results = evaluate_model(trainer, variables, val_loader, log_dir, num_classes,
                                  img_size, class_names)
     results["best_metric"] = max(best_metric, best_metric_no_aug)

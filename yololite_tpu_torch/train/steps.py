@@ -26,6 +26,17 @@ device (`gt_masks_from_batch`), and `detect` assembles the masks of the
 
 The state lives in torch modules and tensors on `device`; counters are host
 integers, so nothing waits for the device but reading the metrics.
+
+With `parallel` (a `parallel.DataParallel` of more than one process) the
+Trainer is one replica of a data-parallel run, as JAX's `Trainer(mesh=)`:
+each process steps on its rows of the global batch, the forwards run inside
+`parallel.active` (BatchNorm's batch statistics and the fake-quant scale
+are the global batch's), the device augmentation draws for the global batch
+and keeps its rows, the gradients are summed over processes once an update
+(the accumulated sum with `accumulate > 1`), so clipping and the optimizer
+see the global gradient, and the metrics are summed (`pos` over the global
+batch). The state is rank 0's from the start (`broadcast_state`); every
+replica then applies the same update and stays equal to it.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from yololite_tpu_torch.ops.decode import decode_anchorfree
 from yololite_tpu_torch.ops.masks import assemble_masks_batch
 from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
 from yololite_tpu_torch.ops.quant import fake_quant
+from yololite_tpu_torch.parallel import dist as pdist
 from yololite_tpu_torch.train.ema import ema_update, ema_warmup_limit
 from yololite_tpu_torch.train.optim import GroupedOptimizer
 
@@ -109,8 +121,10 @@ class Trainer:
     """Owns the model, loss, optimizer settings and the step functions."""
 
     def __init__(self, model: nn.Module, config: Dict[str, Any],
-                 total_updates: int = 10000, device: str = "cuda"):
+                 total_updates: int = 10000, device: str = "cuda",
+                 parallel: Optional[pdist.DataParallel] = None):
         tr = config.get("training", {})
+        self.parallel = parallel if pdist.is_multiprocess(parallel) else None
         self.qat = bool(tr.get("qat", False))
         if self.qat:        # fake-quant convs in the train and eval steps
             fake_quant(model)
@@ -141,6 +155,8 @@ class Trainer:
 
     def _make_state(self) -> TrainState:
         opt = GroupedOptimizer(self.config, list(self.model.named_parameters()))
+        if self.parallel is not None:       # every replica starts as rank 0's
+            pdist.broadcast_state([self.model])
         ema = copy.deepcopy(self.model)
         accum = ([torch.zeros_like(p) for p in opt.params]
                  if self.accumulate > 1 else None)
@@ -177,7 +193,19 @@ class Trainer:
                 st.opt.load_state_dict(self._opt_from_flax(opt))
             except (KeyError, ValueError) as e:   # optimizer layout changed
                 print(f"[resume] optimizer state not restored ({e}); fresh moments")
+        if self.parallel is not None:
+            self._broadcast(st)
         return st
+
+    def _broadcast(self, state: TrainState) -> None:
+        """Make `state` rank 0's: weights, EMA, optimizer moments,
+        accumulator and counters."""
+        opt = state.opt
+        moments = [t for ts in (opt.mu, opt.nu, opt.trace) if ts is not None for t in ts]
+        pdist.broadcast_state([state.model, state.ema],
+                              moments + list(state.grad_accum or []))
+        state.updates, state.micro, opt.count = pdist.broadcast_object(
+            (state.updates, state.micro, opt.count))
 
     def _opt_from_flax(self, opt: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
@@ -235,15 +263,34 @@ class Trainer:
         state.model.train()
         images = batch["image"]
         if self.device_augment:
-            images = photometric_augment(images, self.aug_generator(state.micro))
-        x = normalize_images(images)
+            gb = self._global_batch(images.shape[0])
+            rows = None if gb is None else (gb, self.parallel.world_rows(gb))
+            images = photometric_augment(images, self.aug_generator(state.micro), rows=rows)
+        x = normalize_images(images, next(state.model.parameters()).dtype)
         targets = self._targets(batch)
-        with self._autocast():
+        with self._autocast(), pdist.active(self.parallel):
             outs, protos = split_outputs(state.model(x), self.with_masks)
         return self.loss([o.float() for o in outs], targets,
                          None if protos is None else protos.float(),
                          img_size=int(batch["image"].shape[1]),
-                         return_assignment=return_assignment)
+                         return_assignment=return_assignment,
+                         global_batch=self._global_batch(images.shape[0]))
+
+    def _global_batch(self, rows: int) -> Optional[int]:
+        """The global batch of a data-parallel step on `rows` rows, or None."""
+        return None if self.parallel is None else rows * self.parallel.world
+
+    def _reduce_grads(self, grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+        """The sum over processes (in place), or `grads` in one process."""
+        return grads if self.parallel is None else pdist.all_reduce_grads(grads)
+
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Scalar metrics summed over processes, in one all-reduce."""
+        if self.parallel is None:
+            return metrics
+        keys = sorted(k for k, v in metrics.items() if v.dim() == 0)
+        summed = pdist.all_reduce_(torch.stack([metrics[k].float() for k in keys]))
+        return dict(metrics, **{k: summed[i].to(metrics[k].dtype) for i, k in enumerate(keys)})
 
     @staticmethod
     def _targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -266,14 +313,16 @@ class Trainer:
 
     def apply(self, state: TrainState, grads: Sequence[torch.Tensor],
               lr_vec: Sequence[float]) -> None:
-        """Optimizer (+ EMA) on summed or single-step gradients."""
+        """Optimizer (+ EMA) on summed or single-step gradients (summed over
+        processes first, once an update)."""
         if self.accumulate == 1:
             state.updates += 1
-            self._apply_grads(state, grads, lr_vec)
+            self._apply_grads(state, self._reduce_grads(grads), lr_vec)
         else:
             torch._foreach_add_(state.grad_accum, list(grads))
             if (state.micro + 1) % self.accumulate == 0:
                 state.updates += 1
+                self._reduce_grads(state.grad_accum)
                 mean_g = torch._foreach_div(state.grad_accum, float(self.accumulate))
                 self._apply_grads(state, mean_g, lr_vec)
                 torch._foreach_zero_(state.grad_accum)
@@ -293,7 +342,7 @@ class Trainer:
         self.apply(state, grads, lr_vec)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total"] = total.detach()
-        return state, metrics
+        return state, self._reduce_metrics(metrics)
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -328,15 +377,19 @@ class Trainer:
     def eval_step(self, variables: nn.Module, batch: Dict[str, torch.Tensor],
                   conf_th: float = 0.001, iou_th: float = 0.65, max_det: int = 300):
         """EMA-model forward -> val loss + decoded, NMS'd detections (and
-        masks for a segmentation model)."""
-        outs, protos = self.eval_forward(variables, batch["image"])
+        masks for a segmentation model). Data-parallel: `batch` is this
+        process's rows; the metrics are summed over processes, the
+        detections are this process's."""
+        with pdist.active(self.parallel):
+            outs, protos = self.eval_forward(variables, batch["image"])
         img_size = int(batch["image"].shape[1])
         total, metrics = self.loss(outs, self._targets(batch), protos, img_size=img_size,
-                                   img_valid=batch.get("img_valid"))
+                                   img_valid=batch.get("img_valid"),
+                                   global_batch=self._global_batch(batch["image"].shape[0]))
         dets = self.detect(outs, conf_th, iou_th, max_det, img_size, protos)
         metrics = dict(metrics)
         metrics["total"] = total
-        return metrics, dets
+        return self._reduce_metrics(metrics), dets
 
     # ------------------------------------------------------------------ #
     def ema_variables(self, state: TrainState) -> nn.Module:
