@@ -161,6 +161,22 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               final COCO equal to one process's evaluate_model of the best
               checkpoint); with 2 cards the same over NCCL, else a world-1
               NCCL group
+ 18. spatial  spatial parallelism (the image height split over ranks),
+              yololite_l + P6 @1280 at full width and depth on a 1280x1280
+              PNG set, seeded weights with calibrated BatchNorm statistics:
+              n_data 1 x n_spatial 2 ranks on this card over gloo against
+              one process, a b2 step in fp32 (TF32 off) and bf16 (against
+              one process on the ranks' BatchNorm path; SP_FP32 / SP_BF16),
+              each reduced gradient bit for bit the sum of the local ones,
+              the ranks' state bitwise equal after 3 steps, the halo and
+              gather collectives a step with their bytes, each rank's peak
+              memory; the eval step's detections equal to one process's
+              (nms_suppress launched by each rank); then train_from_config
+              with spatial_parallel 2 joined to the ranks' group for 1
+              epoch, its final COCO equal to one process's evaluate_model of
+              its best checkpoint and its AP within SP_AP_TOL of one
+              process's run; with 2 or more cards the step over NCCL, a rank
+              a card (2 x 2 on 4)
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 chiprun_out/chip_smoke.json.
@@ -3808,21 +3824,27 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _ddp_step_run(cfg, params, stats, batch, dp, device: str, timed: bool):
-    """One Trainer step of edge_n from (params, stats) on `batch` (this
-    rank's rows of it with `dp`): metrics, the gradients handed to the
-    optimizer, BatchNorm running statistics, the collectives it called;
-    after DDP_STEPS steps the state's digests; with `timed`, ms a step by
-    CUDA events over DDP_TIME_STEPS more."""
-    trainer = Trainer(build_model_from_config(cfg), cfg, total_updates=100, device=device,
-                      parallel=dp)
+def _ddp_step_run(cfg, params, stats, batch, dp, device: str, timed: bool,
+                  steps: int = DDP_STEPS, time_steps: int = DDP_TIME_STEPS, dtype=None):
+    """One Trainer step of the config's model from (params, stats) on
+    `batch` (this rank's rows of it with `dp`): metrics, the gradients
+    handed to the optimizer (and the local ones before the reduction),
+    BatchNorm running statistics, the collectives it called, the step's peak
+    device bytes; after `steps` steps the state's digests; with `timed`, ms a
+    step by CUDA events over `time_steps` more. `dtype`: the model's (fp32
+    by default); gradients and statistics are kept in at least fp32."""
+    model = build_model_from_config(cfg)
+    trainer = Trainer(model if dtype is None else model.to(dtype), cfg, total_updates=100,
+                      device=device, parallel=dp)
     state = trainer.state_from_weights(params, stats)
+    wide = lambda ts: torch.cat([t.reshape(-1).to(torch.promote_types(t.dtype, torch.float32))
+                                 for t in ts]).cpu().numpy()
     seen = []
     real = trainer._apply_grads
 
     def keep(st, grads, lr_vec):
         if not seen:
-            seen.append(torch.cat([g.reshape(-1).float() for g in grads]).cpu().numpy())
+            seen.append(wide(grads))
         return real(st, grads, lr_vec)
 
     trainer._apply_grads = keep
@@ -3831,7 +3853,7 @@ def _ddp_step_run(cfg, params, stats, batch, dp, device: str, timed: bool):
 
     def keep_local(grads):
         if not local:
-            local.append(torch.cat([g.reshape(-1).float() for g in grads]).cpu().numpy())
+            local.append(wide(grads))
         return reduce_grads(grads)
 
     trainer._reduce_grads = keep_local
@@ -3839,14 +3861,15 @@ def _ddp_step_run(cfg, params, stats, batch, dp, device: str, timed: bool):
     b = trainer.put_batch(rows)
     lr = trainer.lr_vector(1e-3)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     pdist.reset_calls()
     state, m = trainer.train_step(state, b, lr)
     torch.cuda.synchronize()
     out = {"metrics": {k: float(v) for k, v in m.items()}, "grads": seen[0],
            "local_grads": local[0] if dp is not None else None, "calls": dict(pdist.CALLS),
-           "bn": torch.cat([v.reshape(-1).float() for k, v in state.model.state_dict().items()
-                            if "running" in k]).cpu().numpy()}
-    for _ in range(DDP_STEPS - 1):
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "bn": wide(v for k, v in state.model.state_dict().items() if "running" in k)}
+    for _ in range(steps - 1):
         trainer.train_step(state, b, lr)
     opt = state.opt
     out["digest"] = {"model": _digest(state.model.state_dict().values()),
@@ -3858,11 +3881,11 @@ def _ddp_step_run(cfg, params, stats, batch, dp, device: str, timed: bool):
         s, e = _events(2)
         torch.cuda.synchronize()
         s.record()
-        for _ in range(DDP_TIME_STEPS):
+        for _ in range(time_steps):
             trainer.train_step(state, b, lr)
         e.record()
         e.synchronize()
-        out["step_ms"] = s.elapsed_time(e) / DDP_TIME_STEPS
+        out["step_ms"] = s.elapsed_time(e) / time_steps
     return out
 
 
@@ -3872,16 +3895,16 @@ def _world_one_global_batchnorm():
     statistics from the sums, normalized in fp32) in one process, where the
     sums' all-reduce is the identity: a world-1 step that differs from the
     ranks' only by the reduction."""
-    forward, reduce_sum = BatchNorm.forward, pdist.all_reduce_sum
+    forward = BatchNorm.forward
 
     def global_forward(self, x):
-        return self._global_forward(x, 1) if self.training else forward(self, x)
+        return self._global_forward(x, 1, lambda t: t) if self.training else forward(self, x)
 
-    BatchNorm.forward, pdist.all_reduce_sum = global_forward, (lambda x: x)
+    BatchNorm.forward = global_forward
     try:
         yield
     finally:
-        BatchNorm.forward, pdist.all_reduce_sum = forward, reduce_sum
+        BatchNorm.forward = forward
 
 
 def _ddp_collective_ms(dp, grads: np.ndarray, device: str) -> dict:
@@ -4169,6 +4192,376 @@ def phase_ddp(card: str, data: str, tmp: str):
     return out
 
 
+SP_WORLD = 2                     # n_data 1 x n_spatial 2
+SP_IMG = 1280
+SP_BATCH = 2
+SP_STEPS = 3                     # steps before the ranks' state checksums
+SP_TIME_STEPS = 2
+SP_TRAIN_N, SP_VAL_N = 4, 2      # the 1280 x 1280 PNG set (the data is cut, not the width)
+SP_TIMEOUT_S = 600
+SP_MODEL = "configs/models/yololite_l.yaml"
+SP_TRAIN = dict(epochs=1, batch_size=SP_BATCH, img_size=SP_IMG, augment=True, amp=True,
+                use_p6=True, save_optimizer=False, num_workers=2, data_parallel=1)
+# The mesh's ranks vs one process, each limit relative (BatchNorm running
+# statistics: the largest difference over the largest value). fp32 (TF32
+# off): the ddp phase's limits, the loss and metrics 1e-5, gradients 5e-4
+# rel L2, BatchNorm 1e-5. This step's fp32 gradient is ill-conditioned: one
+# process against itself on the batch with its two images swapped (the same
+# sums in another order) moves it by 1.47e-2, and by 1.58e-2 on the ranks'
+# BatchNorm formula, the assignment unchanged (NVIDIA H100 80GB HBM3 at 700
+# W, PERF.md section 6); so a gradient limit is the larger of the fixed one
+# and 2x that floor, measured in the same run, and fp64 holds the sharding
+# itself strictly: the same step in fp64 (the loss stays fp32) to 1e-8 in
+# the gradients (BatchNorm's running statistics to 1e-6: one process takes
+# them in fp32). bf16 against one process on the ranks' BatchNorm path
+# (`_world_one_global_batchnorm`): DDP_BF16's limits or 2x bf16's own floor
+# (that process on the swapped batch), whichever is larger, for each
+# quantity. Stated in PERF.md before the run that first held them.
+SP_FP32 = {"loss": 1e-5, "metrics": 1e-5, "grads": 5e-4, "bn": 1e-5}
+SP_FP64 = {"loss": 1e-6, "metrics": 1e-6, "grads": 1e-8, "bn": 1e-6}
+SP_BF16 = {"loss": 5e-4, "metrics": 5e-3, "grads": 0.2, "bn": 5e-3}
+SP_FLOOR_X = 2.0
+SP_PRECISIONS = (("fp32", False, None), ("fp64", False, torch.float64), ("bf16", True, None))
+SP_EVAL_BOX_TOL, SP_EVAL_SCORE_TOL = 1e-2, 1e-5   # phase_fp32's _match tolerances
+SP_AP_TOL = 0.05                 # the 1-epoch runs' final AP, 1 x 2 vs one process
+SP_EVAL_TOL = 1e-12              # the run's final COCO vs one process's evaluate_model
+
+
+def _spatial_config(data: str, amp: bool, **training):
+    cfg = load_configs(os.path.join(ROOT, SP_MODEL),
+                       os.path.join(ROOT, "configs", "train", "standard_train.yaml"),
+                       data, make_run_dir=False)
+    cfg["training"].update(SP_TRAIN, amp=amp, **training)
+    return cfg
+
+
+def _spatial_batch(cfg, swapped: bool = False) -> dict:
+    ds = YoloDataset(cfg["dataset"]["train_images"], cfg["dataset"]["train_labels"],
+                     img_size=SP_IMG, is_train=True, augment=False,
+                     max_boxes=int(cfg["training"]["max_boxes"]))
+    idx = list(range(SP_BATCH))
+    return collate([ds.get(i) for i in (idx[::-1] if swapped else idx)])
+
+
+def _spatial_eval(cfg, params, stats, batch, dp, device: str) -> dict:
+    """eval_step (decode, scores, batched_nms) of the weights on `batch`,
+    fp32 (TF32 off): the detections and this process's nms_suppress
+    launches."""
+    trainer = Trainer(build_model_from_config(cfg), cfg, device=device, parallel=dp)
+    variables = trainer.variables_from_flax(params, stats)
+    rows = slice(None) if dp is None else dp.batch_rows(len(batch["image"]))
+    b = trainer.put_batch({k: v[rows] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    pdist.reset_calls()
+    metrics, dets = trainer.eval_step(variables, b)
+    torch.cuda.synchronize()
+    host = {k: v.cpu().numpy() for k, v in dets.items()}
+    return {"launches": cuda_nms.LAUNCHES, "calls": dict(pdist.CALLS),
+            "total": float(metrics["total"]), "first": rows.start or 0,
+            "dets": [(host["boxes"][i][host["valid"][i]], host["scores"][i][host["valid"][i]],
+                      host["classes"][i][host["valid"][i]]) for i in range(len(host["boxes"]))]}
+
+
+def _spatial_rank(rank: int, port: int, backend: str, devices, n_spatial: int, job) -> dict:
+    """One rank of the spatial phase: the steps, the eval step, then (with
+    gloo) train_from_config joined to this group."""
+    world = len(devices)
+    os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = str(rank), str(world)
+    device = devices[rank]
+    torch.cuda.set_device(device)
+    pdist.init_distributed(f"localhost:{port}", world, rank, backend=backend)
+    try:
+        dp = pdist.DataParallel.from_group(n_spatial)
+        res = {"backend": backend}
+        for name, amp, dtype in SP_PRECISIONS:
+            torch.backends.cudnn.allow_tf32 = amp
+            torch.backends.cuda.matmul.allow_tf32 = amp
+            res[name] = _ddp_step_run(job["cfgs"][name], *job["weights"], job["batch"], dp,
+                                      device, timed=amp, steps=SP_STEPS,
+                                      time_steps=SP_TIME_STEPS, dtype=dtype)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        res["eval"] = _spatial_eval(job["cfgs"]["fp32"], *job["weights"], job["batch"], dp,
+                                    device)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        if job.get("train_cfgs"):
+            cuda_nms.LAUNCHES = 0
+            pdist.reset_calls()
+            t0 = time.perf_counter()
+            train = train_loop.train_from_config(job["train_cfgs"][rank], device=device)
+            torch.cuda.synchronize()
+            res["train"] = {"launches": cuda_nms.LAUNCHES,
+                            "seconds": time.perf_counter() - t0, "coco": train.get("coco"),
+                            "history": train.get("history"), "log_dir": train.get("log_dir"),
+                            "calls": dict(pdist.CALLS)}
+    finally:
+        pdist.shutdown()
+    return res
+
+
+def _spatial_one_process(data: str) -> dict:
+    """One process's b2 steps from the seeded, calibrated weights, which the
+    ranks are held against: fp32 (the batch, and its two images swapped),
+    fp64; bf16 on the ranks' BatchNorm path (the batch, its images swapped)
+    and plain; the eval step."""
+    cfgs = {"fp32": _spatial_config(data, amp=False), "fp64": _spatial_config(data, amp=False),
+            "bf16": _spatial_config(data, amp=True)}
+    batch = _spatial_batch(cfgs["fp32"])
+    swapped = _spatial_batch(cfgs["fp32"], True)
+    t0 = time.perf_counter()
+    model = init_weights(build_model_from_config(cfgs["fp32"]), seed=0).cuda().eval()
+    images = torch.from_numpy(batch["image"]).cuda()
+    calibrate_batchnorm(model, normalize_images(images.permute(0, 3, 1, 2)))
+    weights = to_flax(model.cpu())
+    log(f"spatial: {SP_MODEL} use_p6 @{SP_IMG}, {count_params(model)} params, seeded "
+        f"with BatchNorm statistics from one forward of the b{SP_BATCH} batch in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = {}
+    for name, amp, dtype in SP_PRECISIONS:
+        torch.backends.cudnn.allow_tf32 = amp
+        torch.backends.cuda.matmul.allow_tf32 = amp
+        want[name] = _ddp_step_run(cfgs[name], *weights, batch, None, "cuda", timed=amp,
+                                   steps=SP_STEPS, time_steps=SP_TIME_STEPS, dtype=dtype)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want["fp32_swapped"] = _ddp_step_run(cfgs["fp32"], *weights, swapped, None, "cuda",
+                                         timed=False, steps=1)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with _world_one_global_batchnorm():
+        for key, b in (("bf16_global_bn", batch), ("bf16_global_bn_swapped", swapped)):
+            want[key] = _ddp_step_run(cfgs["bf16"], *weights, b, None, "cuda",
+                                      timed=key == "bf16_global_bn", steps=SP_STEPS,
+                                      time_steps=SP_TIME_STEPS)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want["eval"] = _spatial_eval(cfgs["fp32"], *weights, batch, None, "cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return {"cfgs": cfgs, "weights": weights, "batch": batch, "want": want}
+
+
+def _step_gaps(got: dict, want: dict) -> dict:
+    """Relative distances of a step from another: loss, the other metrics
+    (the largest), gradients (rel L2), BN running stats (over their max)."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    return {"loss": rel(got["metrics"]["total"], want["metrics"]["total"]),
+            "metrics": max(rel(got["metrics"][k], v) for k, v in want["metrics"].items()
+                           if k != "total"),
+            "grads": _grad_rel(got["grads"], want["grads"]),
+            "bn": float(np.abs(got["bn"].astype(np.float64) - want["bn"]).max()
+                        / np.abs(want["bn"]).max())}
+
+
+def _spatial_compare(name: str, want: dict, got: dict, tol: dict, card: str,
+                     floor: dict = None, witness: str = "") -> dict:
+    """A rank's step against one process's; with `floor` (that process on
+    the batch with its images swapped) each limit is the larger of `tol`'s
+    and SP_FLOOR_X times the floor's distance."""
+    gaps = _step_gaps(got, want)
+    floors = _step_gaps(floor, want) if floor is not None else {}
+    limits = {k: max(tol[k], SP_FLOOR_X * floors.get(k, 0.0)) for k in gaps}
+    note = ""
+    if floor is not None:
+        note = ("; one process with the batch's two images swapped (the floor): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in floors.items()))
+    log(f"spatial {name} step, the mesh's ranks (each its share of the image height) vs "
+        f"one process{witness}, b{SP_BATCH} @{SP_IMG}: loss rel {gaps['loss']:.3e} (limit "
+        f"{limits['loss']:.3g}), other metrics rel {gaps['metrics']:.3e} "
+        f"({limits['metrics']:.3g}), reduced gradients rel L2 {gaps['grads']:.3e} "
+        f"({limits['grads']:.3g}), BN running stats max diff / max {gaps['bn']:.3e} "
+        f"({limits['bn']:.3g}){note} [{card}]")
+    if any(gaps[k] > limits[k] for k in gaps):
+        raise AssertionError(f"spatial {name}: the mesh's step differs from one process's")
+    return {"gaps": gaps, "floor": floors, "limits": limits}
+
+
+def _spatial_dets_equal(label: str, want: dict, got: dict, card: str) -> dict:
+    """The mesh's eval_step detections (of its data index's images) against
+    one process's: both ways matched within the _match tolerances, the kept
+    counts equal."""
+    mine = want["dets"][got["first"]:got["first"] + len(got["dets"])]
+    fwd, n_got = _match(got["dets"], mine, SP_EVAL_BOX_TOL, SP_EVAL_SCORE_TOL)
+    back, n_want = _match(mine, got["dets"], SP_EVAL_BOX_TOL, SP_EVAL_SCORE_TOL)
+    counts = ([len(d[0]) for d in got["dets"]], [len(d[0]) for d in mine])
+    log(f"spatial {label} eval_step (decode, batched_nms), fp32: {n_got} / {n_want} kept "
+        f"detections a rank / one process ({counts[0]} / {counts[1]} an image), matched "
+        f"{fwd:.4f} and {back:.4f} both ways (boxes {SP_EVAL_BOX_TOL:g} px, scores "
+        f"{SP_EVAL_SCORE_TOL:g}); val loss rel "
+        f"{abs(got['total'] - want['total']) / abs(want['total']):.3e}; nms_suppress "
+        f"launches {got['launches']} a rank, {want['launches']} in one process [{card}]")
+    if n_got == 0 or counts[0] != counts[1] or fwd < 1.0 or back < 1.0:
+        raise AssertionError(f"spatial {label}: the eval step's kept detections differ")
+    if got["launches"] < 1:
+        raise AssertionError(f"spatial {label}: eval_step did not launch nms_suppress")
+    return {"kept": n_got, "matched": [fwd, back], "launches": got["launches"]}
+
+
+def _spatial_checks(card: str, label: str, devices, n_spatial: int, ranks, one: dict,
+                    tmp: str) -> dict:
+    """The step, eval and state checks of one backend's ranks; with gloo the
+    1-epoch run against one process's."""
+    want = one["want"]
+    out = {"fp32": _spatial_compare(f"{label} fp32", want["fp32"], ranks[0]["fp32"],
+                                    SP_FP32, card, want["fp32_swapped"]),
+           "fp64": _spatial_compare(f"{label} fp64", want["fp64"], ranks[0]["fp64"],
+                                    SP_FP64, card),
+           "bf16": _spatial_compare(f"{label} bf16", want["bf16_global_bn"],
+                                    ranks[0]["bf16"], SP_BF16, card,
+                                    want["bf16_global_bn_swapped"],
+                                    " on the ranks' BatchNorm path")}
+    bn_path = _step_gaps(want["bf16"], want["bf16_global_bn"])
+    log(f"spatial {label} bf16: one process's plain step (bf16 batch_norm, unchecked) "
+        f"against its step on the ranks' BatchNorm path: " +
+        ", ".join(f"{k} {v:.3e}" for k, v in bn_path.items()))
+    out["bf16"]["plain_vs_witness"] = bn_path
+    digests = [r["fp64"]["digest"] for r in ranks]
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"spatial {label} fp64: the ranks' states differ")
+    for name in ("fp32", "bf16"):
+        # two ranks: the reduced gradient is a + b bit for bit; more: the
+        # collective's own order of the sum, so within fp32 rounding of it
+        local = [r[name]["local_grads"] for r in ranks]
+        if len(ranks) == 2:
+            total, how = local[0] + local[1], "bit for bit"
+            summed = all(np.array_equal(total, r[name]["grads"]) for r in ranks)
+        else:
+            total, how = np.sum(np.stack(local).astype(np.float64), 0), "to 1e-6 relative"
+            summed = all(np.allclose(r[name]["grads"], total, rtol=1e-6,
+                                     atol=1e-6 * np.abs(total).max()) for r in ranks)
+        digests = [r[name]["digest"] for r in ranks]
+        same = all(d == digests[0] for d in digests)
+        log(f"spatial {label} {name}: each rank's reduced gradient ({total.size} fp32) "
+            f"{'equals' if summed else 'DIFFERS FROM'} the sum of the ranks' local gradients "
+            f"{how}; after {SP_STEPS} steps the ranks' parameters, EMA and optimizer "
+            f"state are {'bitwise equal' if same else 'DIFFERENT'} (sha256 "
+            f"{digests[0]['model'][:12]}.., counters {digests[0]['counters']})")
+        if not summed or not same:
+            raise AssertionError(f"spatial {label} {name}: reduction or ranks' states differ")
+        out[name]["reduced_is_sum"], out[name]["ranks_equal"] = summed, same
+    calls = ranks[0]["bf16"]["calls"]
+    peaks = [r["bf16"]["peak_bytes"] for r in ranks]
+    out.update(calls_per_step=calls, peak_bytes=peaks,
+               peak_bytes_world1=want["bf16"]["peak_bytes"],
+               peak_bytes_world1_ranks_batchnorm=want["bf16_global_bn"]["peak_bytes"],
+               step_ms=[r["bf16"]["step_ms"] for r in ranks],
+               step_ms_world1=want["bf16"]["step_ms"],
+               step_ms_world1_ranks_batchnorm=want["bf16_global_bn"]["step_ms"])
+    cards = (f"all ranks on {devices[0]}" if len(set(devices)) == 1
+             else f"on {', '.join(devices)}")
+    log(f"spatial {label}: one bf16 step makes {calls['halo']} halo all-gathers "
+        f"({calls['halo_bytes'] / 1e6:.2f} MB received a rank), {calls['gather']} output "
+        f"gathers ({calls['gather_bytes'] / 1e6:.2f} MB), {calls['all_reduce']} all-reduces; "
+        f"peak {', '.join(f'{p / 2**30:.2f}' for p in peaks)} GiB a rank against "
+        f"{want['bf16']['peak_bytes'] / 2**30:.2f} GiB in one process "
+        f"({want['bf16_global_bn']['peak_bytes'] / 2**30:.2f} on the ranks' BatchNorm path); "
+        f"step b{SP_BATCH} "
+        f"bf16 {want['bf16']['step_ms']:.1f} ms in one process, "
+        f"{want['bf16_global_bn']['step_ms']:.1f} ms on the ranks' BatchNorm path, "
+        f"{', '.join('%.1f' % r['bf16']['step_ms'] for r in ranks)} ms a rank "
+        f"({cards}) [{card}]")
+    out["eval"] = [_spatial_dets_equal(f"{label} rank {i}", want["eval"], r["eval"], card)
+                   for i, r in enumerate(ranks)]
+    if "train" not in ranks[0]:
+        return out
+    tr0 = ranks[0]["train"]
+    launches = [r["train"]["launches"] for r in ranks]
+    val_batches = -(-SP_VAL_N // SP_BATCH)
+    want_launches = (SP_TRAIN["epochs"] + 1) * val_batches
+    cfg = one["train_single"]["cfg"]
+    sd, _ = load_checkpoint(os.path.join(tr0["log_dir"], "weights", "best_model_state.ckpt"))
+    trainer = Trainer(build_model_from_config(cfg), cfg, device="cuda")
+    variables = trainer.variables_from_flax(sd["params"], sd["batch_stats"])
+    val_ds = YoloDataset(cfg["dataset"]["val_images"], cfg["dataset"]["val_labels"],
+                         img_size=SP_IMG, is_train=False, augment=False,
+                         max_boxes=int(cfg["training"]["max_boxes"]))
+    same = evaluate_model(trainer, variables, DataLoader(val_ds, SP_BATCH, shuffle=False,
+                                                         drop_last=False),
+                          os.path.join(tmp, f"spatial_eval_{label}"), 3, SP_IMG,
+                          run_bench=False)
+    diff = max(abs(tr0["coco"][k] - v) for k, v in same["coco"].items())
+    single = one["train_single"]["results"]
+    ap_diff = abs(tr0["coco"]["AP"] - single["coco"]["AP"])
+    hist = tr0["history"]
+    log(f"spatial {label} train_from_config spatial_parallel {SP_WORLD}, 1 epoch "
+        f"{SP_MODEL} use_p6 @{SP_IMG} b{SP_BATCH} bf16 on {SP_TRAIN_N} + {SP_VAL_N} PNGs at "
+        f"{SP_IMG}x{SP_IMG} in {tr0['seconds']:.1f} s (one process "
+        f"{one['train_single']['seconds']:.1f} s): step losses "
+        f"{', '.join(f'{v:.4f}' for v in hist['step_loss'])} (one process "
+        f"{', '.join(f'{v:.4f}' for v in single['history']['step_loss'])}), val loss "
+        f"{hist['val_loss'][0]:.4f} ({single['history']['val_loss'][0]:.4f}); final AP "
+        f"{tr0['coco']['AP']:.6f} AP50 {tr0['coco']['AP50']:.6f}, one process's run AP "
+        f"{single['coco']['AP']:.6f} AP50 {single['coco']['AP50']:.6f} (|diff| {ap_diff:.3e}, "
+        f"bound {SP_AP_TOL:g}); one process's evaluate_model of the run's best checkpoint "
+        f"max diff {diff:.3e} (tolerance {SP_EVAL_TOL:g}); nms_suppress launched {launches} "
+        f"times by the ranks (expected {want_launches} each) [{card}]")
+    if launches != [want_launches] * len(ranks):
+        raise AssertionError("spatial: validation did not go through the kernel on each rank")
+    if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])):
+        raise AssertionError(f"spatial: non-finite loss {hist}")
+    if any(r["train"]["coco"] != tr0["coco"] for r in ranks) or diff > SP_EVAL_TOL:
+        raise AssertionError("spatial: the run's final COCO is not one process's evaluation")
+    if ap_diff > SP_AP_TOL:
+        raise AssertionError("spatial: the run's final AP is off one process's run")
+    _check_run_dir(tr0["log_dir"])
+    out["train"] = {"launches": launches, "seconds": tr0["seconds"], "coco": tr0["coco"],
+                    "single_coco": single["coco"], "history": hist, "calls": tr0["calls"],
+                    "single_seconds": one["train_single"]["seconds"]}
+    return out
+
+
+def _spatial_backend(card: str, backend: str, devices, n_spatial: int, one: dict,
+                     data: str, tmp: str) -> dict:
+    job = {"cfgs": one["cfgs"], "weights": one["weights"], "batch": one["batch"]}
+    if backend == "gloo":
+        job["train_cfgs"] = []
+        for r in range(len(devices)):
+            c = _spatial_config(data, amp=True, spatial_parallel=n_spatial)
+            c["logging"] = {"log_dir": os.path.join(tmp, f"spatial_rank{r}")}
+            job["train_cfgs"].append(c)
+    t0 = time.perf_counter()
+    ranks = pdist.spawn(_spatial_rank, (pdist.free_port(), backend, devices, n_spatial, job),
+                        len(devices), timeout=SP_TIMEOUT_S)
+    n_data = len(devices) // n_spatial
+    log(f"spatial {backend}: mesh {n_data} x {n_spatial} on {', '.join(devices)} ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return _spatial_checks(card, backend, devices, n_spatial, ranks, one, tmp)
+
+
+def phase_spatial(card: str, tmp: str):
+    """Spatial parallelism at yololite_l + P6 @1280's full width and depth:
+    2 ranks on this card over gloo, each half the image height, against one
+    process (a b2 step in fp32 and bf16, the ranks' state after 3 steps,
+    the eval step's detections), then a 1-epoch train_from_config with
+    spatial_parallel 2 joined to the ranks' group against one process's run;
+    over NCCL, a rank a card, when there are 2 or more cards (2 x 2 on 4)."""
+    t0 = time.perf_counter()
+    data = make_synth_set(os.path.join(tmp, "synth1280"), SP_TRAIN_N, SP_VAL_N, w=SP_IMG,
+                          h=SP_IMG)
+    log(f"spatial: wrote {SP_TRAIN_N} + {SP_VAL_N} PNG images at {SP_IMG}x{SP_IMG} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    one = _spatial_one_process(data)
+    cfg = _spatial_config(data, amp=True)
+    cfg["logging"] = {"log_dir": os.path.join(tmp, "spatial_single")}
+    t0 = time.perf_counter()
+    res = train_loop.train_from_config(cfg, device="cuda")
+    torch.cuda.synchronize()
+    one["train_single"] = {"cfg": cfg, "results": res, "seconds": time.perf_counter() - t0}
+    out = {"gloo": _spatial_backend(card, "gloo", ["cuda:0"] * SP_WORLD, SP_WORLD, one, data,
+                                    tmp)}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        devices = [f"cuda:{i}" for i in range(4 if n_cards >= 4 else 2)]
+        out["nccl"] = _spatial_backend(card, "nccl", devices, 2, one, data, tmp)
+    else:
+        log(f"spatial: NCCL was not run ({n_cards} card; NCCL refuses two ranks on one card)")
+    out["launches"] = (sum(out["gloo"]["train"]["launches"])
+                       + sum(e["launches"] for e in out["gloo"]["eval"]))
+    return out
+
+
 def _decode_scores(outs):
     d = decode_anchorfree([o.float() for o in outs], IMG)
     scores, classes = yolo_scores(d["obj"][..., 0], d["cls"])
@@ -4200,7 +4593,8 @@ def main():
                          ("quant", lambda: phase_quant(card, data, tmp)),
                          ("cli", lambda: phase_cli(card, data, tmp)),
                          ("tools", lambda: phase_tools(card, data, tmp, serve)),
-                         ("ddp", lambda: phase_ddp(card, data, tmp))):
+                         ("ddp", lambda: phase_ddp(card, data, tmp)),
+                         ("spatial", lambda: phase_spatial(card, tmp))):
             t0 = time.perf_counter()
             phases[name] = fn()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
@@ -4223,7 +4617,8 @@ def main():
                     launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],
                     launches_cli=phases["cli"]["launches"],
                     launches_tools=phases["tools"]["launches"],
-                    launches_ddp=phases["ddp"]["launches"])]
+                    launches_ddp=phases["ddp"]["launches"],
+                    launches_spatial=phases["spatial"]["launches"])]
     q = phases["quant"]["int8"]
     for k in KERNELS[1:]:
         t = q["totals"][k["name"]]

@@ -214,16 +214,18 @@ def test_train_cli_one_epoch(world, tmp_path, monkeypatch):
 
 
 def test_train_cli_rejects_data_parallel(world, tmp_path, monkeypatch):
-    """More GPUs than are visible raise; so does the spatial axis, which is
-    not ported (data_parallel itself trains: test_torch_port_ddp_loop.py)."""
+    """More GPUs than are visible raise, for the data axis and for a data x
+    spatial mesh, as JAX's make_mesh refuses one (both axes train:
+    test_torch_port_ddp_loop.py, test_torch_port_spatial.py)."""
     data, _ = world
     monkeypatch.chdir(tmp_path)
     with pytest.raises(ValueError, match="CUDA devices"):
         train_tool.main(["--model", MODEL, "--data", data, "--data_parallel",
                          str(torch.cuda.device_count() + 2), "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        train_tool.main(["--model", MODEL, "--data", data, "--data_parallel", "2",
-                         "--spatial_parallel", "2", "--device", "cpu"])
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match=f"mesh 1x{n} needs {n} devices.*CUDA devices"):
+        train_tool.main(["--model", MODEL, "--data", data, "--spatial_parallel", str(n),
+                         "--device", "cuda"])
 
 
 def test_clis_fail_without_a_card(world, tmp_path, monkeypatch):

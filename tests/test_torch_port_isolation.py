@@ -130,5 +130,5 @@ def test_user_tools_default_to_cuda():
 
 def test_parallel_modules_are_covered():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
-    for rel in ("parallel/__init__.py", "parallel/dist.py"):
+    for rel in ("parallel/__init__.py", "parallel/dist.py", "parallel/spatial.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files

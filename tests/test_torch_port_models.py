@@ -163,11 +163,15 @@ def test_unported_options_raise():
     for overrides in ({"with_masks": True}, {"task": "segment"}):
         seg = build_model_from_config(edge_cfg(64, **overrides))
         assert seg.with_masks and hasattr(seg, "protonet") and hasattr(seg.head3, "mcoef")
-    # training, its augmentation and data parallelism are ported; the
-    # spatial axis and the orbax backend still raise
+    # training, its augmentation, data and spatial parallelism are ported
+    # (a spatial mesh on cuda needs a card a rank, as JAX's make_mesh a
+    # device); the orbax backend still raises
     from yololite_tpu_torch.train.loop import train_from_config
-    for training, item in (({"augment": True, "spatial_parallel": 2}, "item 3b"),
-                           ({"augment": False, "checkpoint_backend": "orbax_async"},
-                            "item 8c")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_from_config({"model": {}, "training": training}, device="cpu")
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match=f"mesh 1x{n} needs {n} devices"):
+        train_from_config({"model": {}, "training": {"augment": True, "spatial_parallel": n}},
+                          device="cuda")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        train_from_config({"model": {}, "training": {"augment": False,
+                                                     "checkpoint_backend": "orbax_async"}},
+                          device="cpu")

@@ -82,7 +82,7 @@ def test_batch_and_stream_agree_with_single(ckpt):
     assert "total_ms" in batched[0]["speed"]
 
 
-def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
+def test_api_predict_and_unported_entry_points(ckpt, tmp_path, monkeypatch):
     model = YoloLite(ckpt, device="cpu")
     frames = _frames(2, seed=2)
     res = model.predict(frames, conf=0.01)
@@ -97,15 +97,27 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path):
     from yololite_tpu_torch.deploy.export import export_tflite
     with pytest.raises(NotImplementedError, match="TFLite"):
         export_tflite(ckpt)
-    # training and validation are ported; what they still refuse raises
-    # naming its ROADMAP item: the spatial axis (with or without the
-    # recipe's augmentation, which is ported; data parallelism is ported)
+    # training, validation and both mesh axes are ported: train(spatial_parallel=2)
+    # (with or without the recipe's augmentation) spawns a 1 x 2 mesh, rank r
+    # at (data index, spatial index) = divmod(r, 2); the spawn is recorded
+    # here, not run (test_torch_port_spatial.py trains one)
     from chip_smoke import make_synth_set
+    from yololite_tpu_torch.parallel.dist import DataParallel
+    from yololite_tpu_torch.train import loop
     data = make_synth_set(str(tmp_path / "set"), n_train=2, n_val=1, w=32, h=24)
-    for overrides, item in (({"augment": True, "spatial_parallel": 2}, "item 3b"),
-                            ({"augment": False, "spatial_parallel": 2}, "item 3b")):
-        with pytest.raises(NotImplementedError, match=item):
-            model.train(data=data, epochs=1, run_dir=str(tmp_path / "runs"), **overrides)
+    spawned = []
+
+    def record(config, device, n):
+        sp = int(config["training"]["spatial_parallel"])
+        spawned.append((device, n, [(d.data_index, d.spatial_index) for d in
+                                    (DataParallel(n, r, r, n, sp) for r in range(n))]))
+        return {}
+
+    monkeypatch.setattr(loop, "_spawn", record)
+    for augment in (True, False):
+        model.train(data=data, epochs=1, batch_size=2, run_dir=str(tmp_path / "runs"),
+                    augment=augment, spatial_parallel=2)
+        assert spawned.pop() == ("cpu", 2, [(0, 0), (0, 1)])
 
 
 def _fp32(model, ckpt):

@@ -137,9 +137,19 @@ def test_exact_resume_equals_uninterrupted(data, tmp_path):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("training,want", [
+    ({"data_parallel": 2, "spatial_parallel": 2}, "mesh 2x2 needs 4 devices"),
+    ({"spatial_parallel": 2}, "mesh 1x2 needs 2 devices"),
+])
+def test_spatial_mesh_needs_a_card_a_rank(data, tmp_path, training, want):
+    """The spatial axis is ported (test_torch_port_spatial.py); on cuda a
+    data x spatial mesh needs as many cards as ranks, as JAX's make_mesh
+    needs devices (the CPU tests run with no card)."""
+    with pytest.raises(ValueError, match=want):
+        train_from_config(_config(data, tmp_path / "x", **training), device="cuda")
+
+
 @pytest.mark.parametrize("training,model,item", [
-    ({"data_parallel": 2, "spatial_parallel": 2}, {}, "item 3"),    # item 3b
-    ({"spatial_parallel": 2}, {}, "item 3"),
     ({"checkpoint_backend": "orbax_async"}, {}, "item 8c"),
     ({"dataset": "tiff"}, {}, "TIFF"),
 ])

@@ -113,8 +113,9 @@ class YoloLite:
               **overrides) -> Dict[str, Any]:
         """Train on `data` (a data.yaml) with configs/train/standard_train.yaml
         (or `train_yaml`) and `overrides` of its `training` block
-        (`data_parallel=N` trains on N GPUs, one process each); afterwards
-        this object serves the best checkpoint."""
+        (`data_parallel=N` trains on N GPUs, one process each;
+        `spatial_parallel=S` splits each image's height over S of them);
+        afterwards this object serves the best checkpoint."""
         from yololite_tpu_torch.config.config import (REPO_ROOT, load_configs, next_run_dir,
                                                       update_latest_pointer)
         from yololite_tpu_torch.train.checkpoint import load_checkpoint

@@ -491,10 +491,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--anchors_per_level", type=int, default=None)
     ap.add_argument("--data_parallel", type=int, default=None,
                     help="Number of GPUs for data-parallel training, one process "
-                         "each (default: every visible GPU on cuda, 1 on the CPU)")
+                         "each (default: every visible GPU on cuda, divided by "
+                         "--spatial_parallel; 1 on the CPU)")
     ap.add_argument("--spatial_parallel", type=int, default=None,
-                    help="Shard image height over this many devices "
-                         "(above 1: ROADMAP Queue 1 item 3b)")
+                    help="Shard image height over this many devices, one process "
+                         "each; the run is data_parallel x spatial_parallel "
+                         "processes (default: 1)")
     ap.add_argument("--pretrained_backbone", type=str, default=None,
                     help="Backbone checkpoint from the import_backbone tool")
     return ap

@@ -19,7 +19,8 @@ annotations and detections (RLEs included) under their global image ids;
 renumbers the annotations; rank 0 computes COCO, P/R/F1, the confusion
 matrix and the latency, writes every file, and broadcasts the results, so
 every process returns the same numbers as one process validating the same
-weights.
+weights. Under a spatial mesh the ranks of a data index validate the same
+rows: the gather keeps each data index's first rank's.
 """
 
 from __future__ import annotations
@@ -218,6 +219,7 @@ def collect_coco(trainer, variables, loader, img_size: int, conf_th: float,
         gathered = pdist.gather_objects(parts)
         if gathered is None:
             return None, None, None, avg_loss
+        gathered = gathered[::parallel.n_spatial]   # one rank a data index
         parts = [p for batch in zip(*gathered) for p in batch]   # batch by batch, rank order
     images, anns, det_list = [], [], []
     for imgs, a, d in parts:

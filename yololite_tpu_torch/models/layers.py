@@ -8,6 +8,12 @@ ConvNeXtV2Block with GRN, CSPBottleneck/CS3Stage, Focus, HGBlock).
 Submodules carry the names flax gives their counterparts (`Conv_0`,
 `BatchNorm_0`, `ConvBNAct_2`, ...), so a flax parameter path maps onto a torch
 `state_dict` key by a plain rename (see `yololite_tpu_torch/convert.py`).
+
+Under a spatial forward (`parallel/spatial.py`, the image height split over
+ranks) the layers that read rows they do not own fetch them: every conv
+(through the spatial context), Focus, the nearest upsample; BatchNorm's
+statistics, SqueezeExcite's mean and GRN's norm are taken over the whole
+image. Outside one they compute what they always did.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yololite_tpu_torch.parallel import dist as pdist
+from yololite_tpu_torch.parallel import spatial as pspatial
 
 ACTS = {
     "silu": F.silu,
@@ -52,12 +59,15 @@ class BatchNorm(nn.Module):
 
     Inside a data-parallel forward (`parallel.active`, world size > 1) the
     batch statistics are the global batch's, as flax's are under the JAX
-    mesh: the per-channel sum and sum of squares (shifted by the running
-    mean, which every process holds alike, against cancellation) go through
-    one differentiable all-reduce in fp32 (fp64 for an fp64 model), so the
-    backward sees the global mean and variance too; the count is the local one times the world size
-    (every process holds as many rows). The output is computed from them in
-    that precision and cast to the input's dtype."""
+    mesh (`_GlobalNorm`): the per-channel sum and sum of squares (shifted by
+    the running mean, which every process holds alike, against
+    cancellation) are all-reduced in fp32 (fp64 for an fp64 model), and the
+    backward all-reduces those sums' gradients; the count is the global one
+    (every data index holds as many images; under a spatial forward the
+    global height is the plan's, whatever this rank's rows). In a spatial
+    forward without a data-parallel context the sums span the spatial axis.
+    The output is computed from them in that precision and cast to the
+    input's dtype."""
 
     momentum = 0.9
 
@@ -73,9 +83,14 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
-        dp = pdist.current()
+        h = pspatial.height("bn", x)
+        if pspatial.recording():        # the plan's meta pass: shapes only
+            return x
+        dp, sp = pdist.current(), pspatial.sharding()
         if dp is not None:
-            return self._global_forward(x, dp.world)
+            return self._global_forward(x, dp.n_data, pdist.all_reduce_, h)
+        if sp is not None:
+            return self._global_forward(x, 1, lambda t: pspatial.spatial_sum_(t, sp), h)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             m = self.momentum
@@ -84,25 +99,71 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                             eps=self.eps)
 
-    def _global_forward(self, x, world: int):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        c = xf.shape[1]
-        count = xf.numel() // c * world
-        shift = self.running_mean.detach().clone().view(1, c, 1, 1)
-        d = xf - shift
-        sums = pdist.all_reduce_sum(torch.cat([d.sum(dim=(0, 2, 3)),
-                                               (d * d).sum(dim=(0, 2, 3))]))
-        d_mean = sums[:c] / count
-        mean = shift.view(c) + d_mean
-        var = torch.clamp_min(sums[c:] / count - d_mean * d_mean, 0.0)
+    def _global_forward(self, x, n_data: int, reduce=pdist.all_reduce_,
+                        height: Optional[int] = None):
+        """Statistics of `n_data` times this rank's images at the global
+        `height` (x's own by default), their sums summed in place by
+        `reduce`."""
+        count = x.shape[0] * n_data * (x.shape[2] if height is None else height) * x.shape[3]
+        y, mean, var = _GlobalNorm.apply(x, self.weight, self.bias,
+                                         self.running_mean.detach().clone(), count, reduce,
+                                         self.eps)
         with torch.no_grad():
             m = self.momentum
-            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
-        scale = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
-        y = (xf - mean.view(1, c, 1, 1)) * scale.view(1, c, 1, 1) + \
-            self.bias.to(xf.dtype).view(1, c, 1, 1)
-        return y.to(x.dtype)
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return y
+
+
+class _GlobalNorm(torch.autograd.Function):
+    """y = (x - mean) * rsqrt(var + eps) * weight + bias with the mean and
+    (biased) variance of `count` values, from the sums of x - shift and of
+    its square that `reduce` completes over processes; also returns (mean,
+    var). It computes what autograd through those formulas computes, bit
+    for bit, but saves x and a few vectors, not autograd's fp32 copies of
+    x: the backward recomputes them and reduces the gradients of the two
+    sums the same way. The weight and bias gradients are this rank's share
+    (summed with the other gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shift, count: int, reduce, eps: float):
+        dt = torch.promote_types(x.dtype, torch.float32)
+        c = x.shape[1]
+        xf = x.to(dt)
+        d = xf - shift.view(1, c, 1, 1)
+        sums = reduce(torch.cat([d.sum(dim=(0, 2, 3)), (d * d).sum(dim=(0, 2, 3))]))
+        d_mean = sums[:c] / count
+        mean = shift + d_mean
+        raw = sums[c:] / count - d_mean * d_mean
+        var = torch.clamp_min(raw, 0.0)
+        r = torch.rsqrt(var + eps)
+        scale = r * weight.to(dt)
+        y = (xf - mean.view(1, c, 1, 1)) * scale.view(1, c, 1, 1) + bias.to(dt).view(1, c, 1, 1)
+        ctx.save_for_backward(x, weight, shift, d_mean, mean, raw, r)
+        ctx.count, ctx.reduce = count, reduce
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, shift, d_mean, mean, raw, r = ctx.saved_tensors
+        dt, c, count = mean.dtype, x.shape[1], ctx.count
+        v = lambda t: t.view(1, c, 1, 1)
+        xf, g = x.to(dt), gy.to(dt)
+        # autograd's order: the output's affine, rsqrt, clamp, the two sums
+        grad_b = g.sum(dim=(0, 2, 3), keepdim=True).view(c)
+        g_z = g * v(r * weight.to(dt))
+        g_scale = (g * (xf - v(mean))).sum(dim=(0, 2, 3), keepdim=True).view(c)
+        g_mean = (-g_z).sum(dim=(0, 2, 3), keepdim=True).view(c)
+        grad_w = g_scale * r
+        g_var = -0.5 * (g_scale * weight.to(dt)) * r.pow(3)
+        g_var = torch.where(raw >= 0, g_var, torch.zeros((), dtype=dt, device=g_var.device))
+        m = -g_var * d_mean
+        tot = ctx.reduce(torch.cat([(m + m + g_mean) / count, g_var / count]))
+        t = v(tot[c:]) * (xf - v(shift))
+        gx = g_z + (t + t + v(tot[:c]).expand_as(t))
+        return (gx.to(x.dtype), grad_w.to(weight.dtype), grad_b.to(weight.dtype),
+                None, None, None, None)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
@@ -199,7 +260,9 @@ class UIB(nn.Module):
 
 class SqueezeExcite(nn.Module):
     """Global mean -> biased 1x1 -> act -> biased 1x1 -> sigmoid gate (the JAX
-    block's gate, not timm's hard sigmoid)."""
+    block's gate, not timm's hard sigmoid). Under a spatial forward the mean
+    is the whole image's (a sum over the axis, in at least fp32) and the
+    gate, whole on every rank, scales this rank's rows."""
 
     def __init__(self, channels: int, se_features: int, act: str = "silu"):
         super().__init__()
@@ -208,8 +271,17 @@ class SqueezeExcite(nn.Module):
         self.act = ACTS[act]
 
     def forward(self, x):
-        s = x.mean((2, 3), keepdim=True)
-        return x * torch.sigmoid(self.Conv_1(self.act(self.Conv_0(s))))
+        h = pspatial.height("se", x)
+        sp = pspatial.sharding()
+        if sp is None:
+            s = x.mean((2, 3), keepdim=True)
+        else:
+            dt = torch.promote_types(x.dtype, torch.float32)
+            s = pspatial.spatial_sum(x.to(dt).sum((2, 3), keepdim=True), sp)
+            s = (s / (h * x.shape[3])).to(x.dtype)
+        with pspatial.replicated():
+            gate = torch.sigmoid(self.Conv_1(self.act(self.Conv_0(s))))
+        return x * gate
 
 
 class MBConv(nn.Module):
@@ -287,7 +359,8 @@ class BasicBlock(nn.Module):
 
 class GRN(nn.Module):
     """Global Response Normalization (ConvNeXtV2) on an NHWC tensor: L2 norm
-    over H, W in fp32, divided by its mean over channels."""
+    over H, W in (at least) fp32, divided by its mean over channels; under a
+    spatial forward the sum of squares spans the axis."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -295,9 +368,14 @@ class GRN(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        gx = (x.float().square().sum((1, 2), keepdim=True) + 1e-12).sqrt()
+        xf = x if x.dtype == torch.float64 else x.float()
+        ss = xf.square().sum((1, 2), keepdim=True)
+        sp = pspatial.sharding()
+        if sp is not None:
+            ss = pspatial.spatial_sum(ss, sp)
+        gx = (ss + 1e-12).sqrt()
         nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
-        return (self.gamma * (x * nx.to(x.dtype)) + self.beta + x.float()).to(x.dtype)
+        return (self.gamma * (x * nx.to(x.dtype)) + self.beta + xf).to(x.dtype)
 
 
 class ConvNeXtV2Block(nn.Module):
@@ -356,13 +434,16 @@ class CS3Stage(nn.Module):
 
 
 class Focus(nn.Module):
-    """Space-to-depth 2x2 (JAX's channel order, H indexed first) + conv."""
+    """Space-to-depth 2x2 (JAX's channel order, H indexed first) + conv; under
+    a spatial forward on the rows of this rank's output rows, so the row
+    phase is the global row's parity."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3):
         super().__init__()
         self.ConvBNAct_0 = ConvBNAct(4 * cin, features, kernel, 1, act="silu")
 
     def forward(self, x):
+        x = pspatial.pair_rows(x)
         x = torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
                        x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]], 1)
         return self.ConvBNAct_0(x)
@@ -400,5 +481,8 @@ def upsample_nearest_to(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Te
     The JAX version repeats for exact x2 and otherwise calls
     `jax.image.resize(..., "nearest")`, which samples at pixel centres: that
     is torch's `nearest-exact`, not its legacy `nearest`. At exact x2
-    `nearest-exact` is the repeat, so one call covers both cases."""
+    `nearest-exact` is the repeat, so one call covers both cases. Under a
+    spatial forward the target height is the plan's global one."""
+    if pspatial.current() is not None:
+        return pspatial.upsample_nearest(x, target_hw)
     return F.interpolate(x, size=tuple(target_hw), mode="nearest-exact")

@@ -26,11 +26,14 @@ in f32 and casts to the module's dtype (bf16 under amp). It is plain
 PyTorch, as JAX's is plain XLA. The scales come from the unfolded training
 weights (the deploy fold changes them; JAX's caveat). Inside a
 data-parallel forward (`parallel.active`) the activation scale is the
-all-reduce max over processes, the whole batch's as under the JAX mesh; the
-weight scales are replicated.
+all-reduce max over processes, the whole batch's as under the JAX mesh (in
+a spatial forward, the whole image's: every rank holds some of its rows);
+the weight scales are replicated.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,13 +41,16 @@ from torch import nn
 
 from yololite_tpu_torch.ops import cuda_int8
 from yololite_tpu_torch.parallel import dist as pdist
+from yololite_tpu_torch.parallel import spatial as pspatial
 
 
-def should_quantize(x: torch.Tensor) -> bool:
-    """JAX's `_should_quantize` on an NCHW input."""
+def should_quantize(x: torch.Tensor, height: Optional[int] = None) -> bool:
+    """JAX's `_should_quantize` on an NCHW input (of global `height`, by
+    default its own)."""
     if x.shape[1] <= 4:
         return False
-    return not (x.ndim == 4 and x.shape[2] == 1 and x.shape[3] == 1)
+    h = x.shape[2] if height is None else height
+    return not (x.ndim == 4 and h == 1 and x.shape[3] == 1)
 
 
 def _div127(t: torch.Tensor) -> torch.Tensor:
@@ -123,7 +129,7 @@ class FakeQuantConv2d(nn.Conv2d):
     """QAT conv: fake-quantized input and weights (`fake_quant` makes them)."""
 
     def forward(self, x):
-        if not should_quantize(x):
+        if pspatial.recording() or not should_quantize(x, pspatial.conv_input_height(x)):
             return super().forward(x)
         dev = x.device.type
         dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
@@ -133,9 +139,11 @@ class FakeQuantConv2d(nn.Conv2d):
             s_w = s_w[:, None, None, None]
             w_fq = _ste(wf, torch.round(wf / s_w).clamp(-127, 127) * s_w)
             xf = x.to(torch.float32)
-            amax = xf.abs().amax().reshape(1)
+            amax = (xf.abs().amax() if xf.numel() else xf.new_zeros(())).reshape(1)
             if pdist.current() is not None:     # the global batch's, as under the mesh
                 amax = pdist.all_reduce_max(amax)
+            elif pspatial.sharding() is not None:   # the whole image's
+                amax = pspatial.spatial_max(amax, pspatial.sharding())
             s_x = _div127(amax).detach().clamp_min(1e-12)
             x_fq = _ste(xf, torch.round(xf / s_x).clamp(-127, 127) * s_x)
             out = F.conv2d(x_fq, w_fq, None, self.stride, self.padding, self.dilation,

@@ -1,2 +1,3 @@
-"""Data-parallel training over processes (port of `parallel/`): `dist.py` is
-the counterpart of `mesh.py`'s `data` axis."""
+"""Data- and spatial-parallel training over processes (port of `parallel/`):
+`dist.py` is the counterpart of `mesh.py`'s mesh and its `data` axis,
+`spatial.py` of its `spatial` axis."""

@@ -1,5 +1,5 @@
-"""Data parallelism over processes, one per GPU (port of
-`parallel/mesh.py`'s `data` axis).
+"""Data and spatial parallelism over processes, one per GPU (port of
+`parallel/mesh.py`'s `data` and `spatial` axes).
 
 The JAX package shards the batch dim over a mesh axis "data", replicates
 parameters and optimizer state, and lets XLA insert the gradient
@@ -14,9 +14,11 @@ a replica and its rows of the batch, and the library collectives of
   - `DataParallel` says which rows of a batch are this process's:
     `batch_rows` of the node's batch (the train loader's), `world_rows` of
     a batch spread over every process (validation, device augmentation);
-  - `all_reduce_sum` is an autograd function whose backward all-reduces the
-    gradient, so a batch statistic taken through it is the global one in
-    the forward and in the backward (`models/layers.BatchNorm`);
+  - `all_reduce_` sums in place: BatchNorm's statistics in its forward and
+    the sums its input gradient needs in its backward
+    (`models/layers.BatchNorm`); `all_reduce_sum` is an autograd function
+    whose backward all-reduces the gradient (the spatial axis's global
+    pools);
   - `all_reduce_grads` sums the parameter gradients in a few fp32 buckets,
     `all_reduce_max` gives the global fake-quant scale, `broadcast_state`
     makes every replica rank 0's, and `gather_objects` /
@@ -28,10 +30,18 @@ a replica and its rows of the batch, and the library collectives of
 `active(dp)` marks the forwards whose batch reductions must be global (the
 Trainer's train and eval forwards); outside it, and at world size 1, the
 layers compute what they always did. Every collective call is counted in
-`CALLS`.
+`CALLS` (the halo and gather all-gathers of `parallel/spatial.py` with the
+bytes each rank received).
 
-The `spatial` axis (`mesh.py`'s image-height sharding) is not ported
-(ROADMAP Queue 1 item 3b).
+The mesh: `world = n_data x n_spatial` processes, rank r at
+`(d, s) = divmod(r, n_spatial)`, as `make_mesh` lays devices out by
+`reshape(n_data, n_spatial)`. The `n_spatial` ranks of one data index hold
+the same batch rows (`batch_rows`, `world_rows` are the data index's) and
+split the image height (`parallel/spatial.py`); `mesh_groups` gives this
+rank's spatial group (its data index's ranks) and data group (its spatial
+index's ranks). The collectives take a group: BatchNorm's statistics, the
+fake-quant scale and the gradients span every rank (the default group),
+global pools the spatial group, the logged metrics the data group.
 """
 
 from __future__ import annotations
@@ -49,23 +59,28 @@ import torch
 import torch.distributed as dist
 
 # collective calls by kind since the last reset (what one step makes)
-CALLS: Dict[str, int] = {"all_reduce": 0, "broadcast": 0, "gather_object": 0}
+CALLS: Dict[str, int] = {"all_reduce": 0, "broadcast": 0, "gather_object": 0,
+                         "halo": 0, "halo_bytes": 0, "gather": 0, "gather_bytes": 0}
 # gradient bucket size (one all-reduce each)
 BUCKET_BYTES = 25 * 2**20
 
 _ACTIVE: Optional["DataParallel"] = None
 _OBJECT_GROUP = None
+# n_spatial -> (spatial group of each data index, data group of each spatial index)
+_MESH_GROUPS: Dict[int, tuple] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
     """This process's place: `world` processes, `local_world` of them on each
-    node (host), JAX's `process_index`/`process_count` being the node's."""
+    node (host), JAX's `process_index`/`process_count` being the node's;
+    `n_spatial` consecutive ranks (on one node) split each image's height."""
 
     world: int
     rank: int
     local_rank: int
     local_world: int
+    n_spatial: int = 1
 
     @property
     def node_rank(self) -> int:
@@ -79,17 +94,31 @@ class DataParallel:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.n_spatial
+
     def batch_rows(self, global_b: int) -> slice:
-        """This rank's rows of a node's batch of `global_b` images."""
-        return _rows(global_b, self.local_rank, self.local_world)
+        """This rank's rows of a node's batch of `global_b` images (its data
+        index's on the node)."""
+        return _rows(global_b, self.local_rank // self.n_spatial,
+                     self.local_world // self.n_spatial)
 
     def world_rows(self, global_b: int) -> slice:
         """This rank's rows of a batch of `global_b` images spread over every
-        process (node after node)."""
-        return _rows(global_b, self.rank, self.world)
+        data index (node after node)."""
+        return _rows(global_b, self.data_index, self.n_data)
 
     @classmethod
-    def from_group(cls) -> "DataParallel":
+    def from_group(cls, n_spatial: int = 1) -> "DataParallel":
         """The initialized default group; the local size from torchrun's
         LOCAL_WORLD_SIZE, else every process is on this node."""
         world, rank = dist.get_world_size(), dist.get_rank()
@@ -97,8 +126,26 @@ class DataParallel:
         if world % local_world:
             raise ValueError(f"world size {world} is not a multiple of "
                              f"LOCAL_WORLD_SIZE {local_world}")
+        if local_world % n_spatial:
+            raise ValueError(f"spatial_parallel {n_spatial} does not divide the "
+                             f"{local_world} processes of a node")
         local_rank = int(os.environ.get("LOCAL_RANK", rank % local_world))
-        return cls(world, rank, local_rank, local_world)
+        return cls(world, rank, local_rank, local_world, n_spatial)
+
+
+def mesh_groups(dp: DataParallel) -> tuple:
+    """(spatial group, data group) of this rank: the processes of its data
+    index, and of its spatial index (None: the default group, which the data
+    axis spans alone at n_spatial 1). Every rank makes every group of its
+    layout on the first call, in one order, as `new_group` requires."""
+    if dp.n_spatial == 1:
+        return None, None
+    n, n_data = dp.n_spatial, dp.n_data
+    if n not in _MESH_GROUPS:
+        _MESH_GROUPS[n] = ([dist.new_group([d * n + s for s in range(n)]) for d in range(n_data)],
+                           [dist.new_group([d * n + s for d in range(n_data)]) for s in range(n)])
+    spatial, data = _MESH_GROUPS[n]
+    return spatial[dp.data_index], data[dp.spatial_index]
 
 
 def _rows(n: int, index: int, count: int) -> slice:
@@ -143,6 +190,7 @@ def shutdown() -> None:
     """Leave the process group (and drop the object group made over it)."""
     global _OBJECT_GROUP
     _OBJECT_GROUP = None
+    _MESH_GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -168,39 +216,59 @@ def active(dp: Optional[DataParallel]) -> Iterator[None]:
         _ACTIVE = prev
 
 
-def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
     CALLS["all_reduce"] += 1
-    dist.all_reduce(t, op=op)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = sum over processes of x; the backward sums the gradient of y over
-    processes too (each process's loss depends on every process's x)."""
+    """y = sum over the group's processes of x; the backward sums the
+    gradient of y over them too (each process's loss depends on every
+    process's x)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(), group=group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad.contiguous().clone())
+        return _all_reduce(grad.contiguous().clone(), group=ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum over processes."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum over the processes of `group` (None: all)."""
+    return _AllReduceSum.apply(x, group)
 
 
 @torch.no_grad()
-def all_reduce_(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over processes, in place (no gradient)."""
-    return _all_reduce(x)
+    return _all_reduce(x, group=group)
 
 
-def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
     """Elementwise max over processes (a new tensor; no gradient)."""
-    return _all_reduce(x.detach().clone(), dist.ReduceOp.MAX)
+    return _all_reduce(x.detach().clone(), dist.ReduceOp.MAX, group)
+
+
+@torch.no_grad()
+def all_gather(t: torch.Tensor, group, kind: str) -> List[torch.Tensor]:
+    """Every process's `t` (one shape on all), in the group's rank order; a
+    CUDA tensor on a gloo group travels through host memory. Counted in
+    `CALLS[kind]`, and the bytes received from the others in
+    `CALLS[kind + "_bytes"]`."""
+    n = dist.get_world_size(group)
+    src = t.contiguous()
+    staged = src.is_cuda and dist.get_backend(group) == "gloo"
+    if staged:
+        src = src.cpu()
+    out = [torch.empty_like(src) for _ in range(n)]
+    CALLS[kind] += 1
+    CALLS[kind + "_bytes"] += (n - 1) * src.numel() * src.element_size()
+    dist.all_gather(out, src, group=group)
+    return [o.to(t.device) for o in out] if staged else out
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> Iterator[List[int]]:

@@ -5,10 +5,11 @@
         [--epochs N --batch_size B --img_size S --save_by AP --device cuda ...]
 
 Runs on `--device` (the card by default). `--data_parallel N` trains on N
-GPUs, one process each (unset: every visible GPU); under
+GPUs, one process each (unset: every visible GPU); `--spatial_parallel S`
+splits each image's height over S of them, a mesh of N x S processes
+(unset N: the visible GPUs divided by S). Under
 `torchrun --nproc_per_node N [--nnodes M ...] -m yololite_tpu_torch.tools.train`
-it joins torchrun's processes instead. `--spatial_parallel` above 1 raises
-(ROADMAP Queue 1 item 3b).
+it joins torchrun's processes instead (N x S of them with `--spatial_parallel`).
 """
 
 from __future__ import annotations

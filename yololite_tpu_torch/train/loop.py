@@ -39,10 +39,20 @@ writes the run directory, checkpoints, metrics, plots and the profile
 trace, and every process takes the same best-checkpoint decisions from the
 broadcast metrics.
 
-Not ported, each raising `NotImplementedError` with its ROADMAP item: the
-`spatial_parallel` axis (Queue 1 item 3b), the orbax checkpoint backend
-(8c); the sanity and val-debug images need `utils/viz.py` (8d) and are
-skipped with a message, as the JAX loop does when drawing fails.
+Spatial parallelism (`spatial_parallel: S`, JAX's mesh `spatial` axis; see
+`parallel/spatial.py`): the run is a mesh of `data_parallel` x S
+processes, rank r at (data index, spatial index) = divmod(r, S); the S
+ranks of a data index read the same rows and split each image's height.
+Unset, `data_parallel` is the visible cards divided by S on `cuda` (1 on the
+CPU); on `cuda` the mesh needs as many cards as ranks (`make_mesh`'s
+refusal), and a joined group must hold `data_parallel` x S processes. The
+batch must split over the data indices, else one process trains, as JAX
+drops its mesh.
+
+Not ported, raising `NotImplementedError` with its ROADMAP item: the orbax
+checkpoint backend (8c); the sanity and val-debug images need
+`utils/viz.py` (8d) and are skipped with a message, as the JAX loop does
+when drawing fails.
 """
 
 from __future__ import annotations
@@ -125,9 +135,6 @@ def _save_loss_curve(train_losses, val_losses, path):
 
 def _check_supported(config: Dict[str, Any]) -> None:
     tr = config["training"]
-    if int(tr.get("spatial_parallel") or 1) > 1:
-        raise NotImplementedError("spatial_parallel (the mesh's image-height axis, halo "
-                                  "exchanges around every conv): ROADMAP Queue 1 item 3b")
     if str(tr.get("checkpoint_backend", "msgpack")) != "msgpack":
         raise NotImplementedError("checkpoint_backend orbax_async (orbax is JAX-only): "
                                   "ROADMAP Queue 1 item 8c")
@@ -167,39 +174,46 @@ def _spawn(config: Dict[str, Any], device: str, n: int) -> Dict[str, Any]:
     return pdist.spawn(_spawned, (n, pdist.free_port(), backend, config, device), n)[0]
 
 
-def _data_parallel_size(tr: Dict[str, Any], device: str) -> int:
-    """`data_parallel`, or unset: every visible card on `cuda`, 1 elsewhere."""
+def _mesh_size(tr: Dict[str, Any], device: str) -> tuple:
+    """(data_parallel, spatial_parallel): `data_parallel` unset is the
+    visible cards over `spatial_parallel` on `cuda` (at least 1), 1
+    elsewhere, as JAX's loop divides its devices."""
+    n_sp = max(1, int(tr.get("spatial_parallel") or 1))
     n = tr.get("data_parallel")
     if n:
-        return int(n)
-    return max(1, torch.cuda.device_count()) if device == "cuda" else 1
+        return int(n), n_sp
+    return (max(1, torch.cuda.device_count() // n_sp) if device == "cuda" else 1), n_sp
 
 
 def train_from_config(config: Dict[str, Any], device: str = "cuda") -> Dict[str, Any]:
     _check_supported(config)
     tr = config["training"]
     batch_size = int(tr.get("batch_size", 16))
+    n_dp, n_sp = _mesh_size(tr, device)
     if dist.is_initialized():           # torchrun, or a caller's group: join it
-        dp = pdist.DataParallel.from_group()
+        dp = pdist.DataParallel.from_group(n_sp)
         want = tr.get("data_parallel")
-        if want and int(want) != dp.world:
-            raise ValueError(f"data_parallel {want} in a process group of {dp.world}")
-        if batch_size % dp.local_world:
+        if want and int(want) * n_sp != dp.world:
+            raise ValueError(f"data_parallel {want} x spatial_parallel {n_sp} in a process "
+                             f"group of {dp.world}")
+        if batch_size % (dp.local_world // n_sp):
             raise ValueError(f"batch_size {batch_size} does not split over "
-                             f"{dp.local_world} processes a node")
+                             f"{dp.local_world // n_sp} data indices a node")
         if device == "cuda":
             device = f"cuda:{dp.local_rank}"
         return _train(config, device, dp if dp.world > 1 else None)
-    n_dp = _data_parallel_size(tr, device)
-    if n_dp > 1 and device.startswith("cuda") and n_dp > torch.cuda.device_count():
-        raise ValueError(f"data_parallel {n_dp} needs {n_dp} CUDA devices, "
-                         f"{torch.cuda.device_count()} visible")
-    if n_dp > 1 and batch_size % n_dp:
+    need, cards = n_dp * n_sp, torch.cuda.device_count()
+    if need > 1 and device.startswith("cuda") and need > cards:
+        if n_sp > 1:        # make_mesh's refusal
+            raise ValueError(f"mesh {n_dp}x{n_sp} needs {need} devices, have {cards} "
+                             f"CUDA devices")
+        raise ValueError(f"data_parallel {n_dp} needs {n_dp} CUDA devices, {cards} visible")
+    if need > 1 and batch_size % n_dp:
         print(f"[dp] batch_size {batch_size} not divisible by {n_dp} "
               f"devices — running single-device")
-        n_dp = 1
-    if n_dp > 1:
-        return _spawn(config, device, n_dp)
+        need = 1
+    if need > 1:
+        return _spawn(config, device, need)
     return _train(config, device, None)
 
 
@@ -247,7 +261,8 @@ def _train(config: Dict[str, Any], device: str,
                          cache_images=cache_images, cache_budget_mb=cache_budget_mb)
     num_workers = int(tr.get("num_workers", 4) or 0)
     # data-parallel: this process's rows of the node's train batch, and of
-    # the global val batch (every node holds the whole val set)
+    # the global val batch (every node holds the whole val set); the ranks
+    # of one data index read the same rows
     train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True,
                               seed=seed, num_workers=num_workers,
                               rows=None if dp is None else dp.batch_rows(batch_size))
@@ -312,8 +327,9 @@ def _train(config: Dict[str, Any], device: str,
         f"images | img={img_size} batch={batch_size} dp={dp is not None}")
     if dp is not None:
         say(f"[dp] {dp.world} processes ({dp.node_count} node(s) x {dp.local_world}), "
-            f"{dist.get_backend()}; global batch {global_batch}, "
-            f"{batch_size // dp.local_world} rows a process")
+            f"mesh {dp.n_data}x{dp.n_spatial} (data x spatial), {dist.get_backend()}; "
+            f"global batch {global_batch}, "
+            f"{batch_size * dp.n_spatial // dp.local_world} rows a data index")
 
     multi_scale = tr.get("multi_scale_sizes") or []
     ms_rng = np.random.RandomState(seed + 99)

@@ -37,6 +37,18 @@ and keeps its rows, the gradients are summed over processes once an update
 see the global gradient, and the metrics are summed (`pos` over the global
 batch). The state is rank 0's from the start (`broadcast_state`); every
 replica then applies the same update and stays equal to it.
+
+With a spatial axis in that mesh (`parallel.n_spatial > 1`, JAX's
+`spatial` mesh axis) the `n_spatial` ranks of a data index hold the same
+images: each normalizes (and device-augments, with the data index's draws)
+the whole image, then runs the model on its rows of it
+(`parallel/spatial.py`); each level's outputs, and a segmentation model's
+prototypes, are gathered over the spatial ranks, so the loss, SimOTA and
+decode see whole maps, and every rank of a data index computes the same
+loss. The gradients are summed over every rank, the metrics over the data
+ranks only (a sum over every rank would count each image `n_spatial`
+times). The eval step decodes and suppresses on every rank; the
+validation takes the detections of each data index's first rank.
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from yololite_tpu_torch.ops.masks import assemble_masks_batch
 from yololite_tpu_torch.ops.nms import batched_nms, yolo_scores
 from yololite_tpu_torch.ops.quant import fake_quant
 from yololite_tpu_torch.parallel import dist as pdist
+from yololite_tpu_torch.parallel import spatial as pspatial
 from yololite_tpu_torch.train.ema import ema_update, ema_warmup_limit
 from yololite_tpu_torch.train.optim import GroupedOptimizer
 
@@ -125,6 +138,8 @@ class Trainer:
                  parallel: Optional[pdist.DataParallel] = None):
         tr = config.get("training", {})
         self.parallel = parallel if pdist.is_multiprocess(parallel) else None
+        self.spatial = pspatial.Spatial.of(self.parallel)
+        self._data_group = None if self.parallel is None else pdist.mesh_groups(self.parallel)[1]
         self.qat = bool(tr.get("qat", False))
         if self.qat:        # fake-quant convs in the train and eval steps
             fake_quant(model)
@@ -269,27 +284,42 @@ class Trainer:
         x = normalize_images(images, next(state.model.parameters()).dtype)
         targets = self._targets(batch)
         with self._autocast(), pdist.active(self.parallel):
-            outs, protos = split_outputs(state.model(x), self.with_masks)
+            outs, protos = self._run_model(state.model, x)
         return self.loss([o.float() for o in outs], targets,
                          None if protos is None else protos.float(),
                          img_size=int(batch["image"].shape[1]),
                          return_assignment=return_assignment,
                          global_batch=self._global_batch(images.shape[0]))
 
+    def _run_model(self, model: nn.Module, x: torch.Tensor):
+        """(per-level maps, prototypes or None) of the whole images `x`: under
+        a spatial mesh (inside `pdist.active`) from this rank's rows,
+        gathered over the spatial ranks."""
+        if self.spatial is None or pdist.current() is None:
+            return split_outputs(model(x), self.with_masks)
+        out, full = pspatial.forward(model, x, self.spatial)
+        (outs, protos), (f_outs, f_protos) = (split_outputs(o, self.with_masks)
+                                              for o in (out, full))
+        outs = [pspatial.gather(o, f.shape[2], 2, self.spatial) for o, f in zip(outs, f_outs)]
+        if protos is not None:      # NHWC
+            protos = pspatial.gather(protos, f_protos.shape[1], 1, self.spatial)
+        return outs, protos
+
     def _global_batch(self, rows: int) -> Optional[int]:
         """The global batch of a data-parallel step on `rows` rows, or None."""
-        return None if self.parallel is None else rows * self.parallel.world
+        return None if self.parallel is None else rows * self.parallel.n_data
 
     def _reduce_grads(self, grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
         """The sum over processes (in place), or `grads` in one process."""
         return grads if self.parallel is None else pdist.all_reduce_grads(grads)
 
     def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Scalar metrics summed over processes, in one all-reduce."""
-        if self.parallel is None:
+        """Scalar metrics summed over the data ranks, in one all-reduce."""
+        if self.parallel is None or self.parallel.n_data == 1:
             return metrics
         keys = sorted(k for k, v in metrics.items() if v.dim() == 0)
-        summed = pdist.all_reduce_(torch.stack([metrics[k].float() for k in keys]))
+        summed = pdist.all_reduce_(torch.stack([metrics[k].float() for k in keys]),
+                                   self._data_group)
         return dict(metrics, **{k: summed[i].to(metrics[k].dtype) for i, k in enumerate(keys)})
 
     @staticmethod
@@ -354,7 +384,7 @@ class Trainer:
         variables.eval()
         x = normalize_images(images_u8, next(variables.parameters()).dtype)
         with self._autocast():
-            outs, protos = split_outputs(variables(x), self.with_masks)
+            outs, protos = self._run_model(variables, x)
         return [o.float() for o in outs], None if protos is None else protos.float()
 
     def detect(self, outs, conf_th: float, iou_th: float, max_det: int,
@@ -378,8 +408,9 @@ class Trainer:
                   conf_th: float = 0.001, iou_th: float = 0.65, max_det: int = 300):
         """EMA-model forward -> val loss + decoded, NMS'd detections (and
         masks for a segmentation model). Data-parallel: `batch` is this
-        process's rows; the metrics are summed over processes, the
-        detections are this process's."""
+        process's rows; the metrics are summed over the data ranks, the
+        detections are this process's (under a spatial mesh, of its data
+        index's rows, decoded from the gathered maps on every rank)."""
         with pdist.active(self.parallel):
             outs, protos = self.eval_forward(variables, batch["image"])
         img_size = int(batch["image"].shape[1])
