@@ -130,7 +130,22 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               sequence (tracks equal to KalmanSortTracker over infer_image);
               each tool's wall seconds and launches. import_backbone is held
               on the CPU only (the card's machine has neither JAX nor timm)
- 16. tools    the remaining user tools through their entry points, on the
+ 16. draw     drawing and the offline weather tool (host numpy; the card's
+              machine has no cv2), edge_n @640 with the cli phase's sharpened
+              checkpoint: host ms of draw_detections, the JPEG q95 and PNG
+              encoders on a 640x480 frame and of each weather effect;
+              YoloLite.predict(draw=True, save_dir=) on a PNG folder, a JPEG
+              folder and an array; infer's *_pred.jpg; infer_exported --out on
+              the "nms" .pt2; tracker over the stream phase's 240-frame clip
+              (a BMP sequence) without --out, to a Motion-JPEG .avi and to a
+              JPEG sequence (frames/s of each); a 6-epoch run on 8 + 8 images
+              (sanity_check.jpg, last_b0/1.jpg of epoch 6); augment_weather over
+              the training images in YOLO and COCO layout and one epoch on the
+              YOLO copy's JPEGs. Every file written decodes with the port's
+              codecs to the canvas drawn (JPEG byte for byte the encoder's
+              output, re-encoded for 1 in DRAW_REENCODE_EVERY, and at least
+              DRAW_PSNR_DB of it), nms_suppress launched as each step implies
+ 17. tools    the remaining user tools through their entry points, on the
               same PNG set: model_info --all (12 configs @640) on the card,
               its table logged, parameters and FLOPs equal to the CPU's;
               pretrain_backbone (MobileNetV4-Conv-S-050, 25 epochs b32 @224)
@@ -144,7 +159,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               predicted; its batched img/s beside serve's); the loop's
               profile flag on a 2-epoch run (one trace, holding CUDA kernel
               events)
- 17. ddp      data-parallel training, edge_n @640 at full width: two ranks
+ 18. ddp      data-parallel training, edge_n @640 at full width: two ranks
               spawned on this one card over gloo (NCCL refuses two ranks on
               one device) against one process at the same global batch and
               weights: a b16 step (8 a rank) in fp32 (TF32 off) and bf16,
@@ -161,7 +176,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               final COCO equal to one process's evaluate_model of the best
               checkpoint); with 2 cards the same over NCCL, else a world-1
               NCCL group
- 18. spatial  spatial parallelism (the image height split over ranks),
+ 19. spatial  spatial parallelism (the image height split over ranks),
               yololite_l + P6 @1280 at full width and depth on a 1280x1280
               PNG set, seeded weights with calibrated BatchNorm statistics:
               n_data 1 x n_spatial 2 ranks on this card over gloo against
@@ -198,7 +213,6 @@ import sys
 import tempfile
 import threading
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -215,6 +229,10 @@ from yololite_tpu_torch.data import augment as host_aug  # noqa: E402
 from yololite_tpu_torch.data import codecs as host_codecs  # noqa: E402
 from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
+from yololite_tpu_torch.data import weather  # noqa: E402
+from yololite_tpu_torch.data.imwrite import (  # noqa: E402
+    encode_jpeg, write_bmp, write_jpeg, write_png,
+)
 from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
 from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
 from yololite_tpu_torch import native  # noqa: E402
@@ -252,6 +270,8 @@ from yololite_tpu_torch.tools import train as cli_train  # noqa: E402
 from yololite_tpu_torch.tools import benchmark as cli_benchmark  # noqa: E402
 from yololite_tpu_torch.tools import model_info as cli_model_info  # noqa: E402
 from yololite_tpu_torch.tools import pretrain_backbone as cli_pretrain  # noqa: E402
+from yololite_tpu_torch.tools import augment_weather as cli_augment  # noqa: E402
+from yololite_tpu_torch.utils.viz import draw_detections  # noqa: E402
 
 IMG = 640
 BATCH = 128
@@ -900,189 +920,6 @@ def phase_zoo(card: str):
         del model
         torch.cuda.empty_cache()
     return rows
-
-
-def _png_chunk(kind: bytes, body: bytes) -> bytes:
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """8-bit RGB PNG, each row's filter chosen as libpng's heuristic does (the
-    least sum of |filtered byte| as signed), so all five filters occur."""
-    h, w, _ = rgb.shape
-    x = rgb.astype(np.int16)
-    up = np.concatenate([np.zeros((1, w, 3), np.int16), x[:-1]], 0)
-    left = np.concatenate([np.zeros((h, 1, 3), np.int16), x[:, :-1]], 1)
-    upleft = np.concatenate([np.zeros((h, 1, 3), np.int16), up[:, :-1]], 1)
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    cands = np.stack([x, x - left, x - up, x - ((left + up) >> 1), x - paeth]) & 0xFF
-    cost = np.abs(cands.astype(np.int8).astype(np.int16)).sum((2, 3))      # [5, h]
-    best = cost.argmin(0)
-    rows = np.concatenate([best[:, None].astype(np.uint8),
-                           cands[best, np.arange(h)].reshape(h, -1).astype(np.uint8)], 1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _png_chunk(b"IEND", b""))
-
-
-# Baseline JPEG encoder (test scaffolding: the codec phase and the tests need
-# JPEG files on a machine without cv2). The IJG quality-scaled standard
-# quantization tables and the standard Huffman tables of JPEG Annex K,
-# 4:2:0 sampling, an orthonormal float DCT.
-_JPEG_ZIGZAG = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
-    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
-    51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
-_JPEG_QBASE = (
-    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24,
-              40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103,
-              77, 24, 35, 55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72,
-              92, 95, 98, 112, 100, 103, 99]),
-    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99,
-              99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32))
-_JPEG_HUFF = {   # (class, id): (counts of lengths 1-16, symbols)
-    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
-    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
-    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d], [
-        1, 2, 3, 0, 4, 17, 5, 18, 33, 49, 65, 6, 19, 81, 97, 7, 34, 113, 20, 50, 129, 145,
-        161, 8, 35, 66, 177, 193, 21, 82, 209, 240, 36, 51, 98, 114, 130, 9, 10, 22, 23, 24,
-        25, 26, 37, 38, 39, 40, 41, 42, 52, 53, 54, 55, 56, 57, 58, 67, 68, 69, 70, 71, 72,
-        73, 74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102, 103, 104, 105, 106, 115,
-        116, 117, 118, 119, 120, 121, 122, 131, 132, 133, 134, 135, 136, 137, 138, 146, 147,
-        148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169, 170, 178,
-        179, 180, 181, 182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200, 201, 202,
-        210, 211, 212, 213, 214, 215, 216, 217, 218, 225, 226, 227, 228, 229, 230, 231, 232,
-        233, 234, 241, 242, 243, 244, 245, 246, 247, 248, 249, 250]),
-    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
-        0, 1, 2, 3, 17, 4, 5, 33, 49, 6, 18, 65, 81, 7, 97, 113, 19, 34, 50, 129, 8, 20, 66,
-        145, 161, 177, 193, 9, 35, 51, 82, 240, 21, 98, 114, 209, 10, 22, 36, 52, 225, 37,
-        241, 23, 24, 25, 26, 38, 39, 40, 41, 42, 53, 54, 55, 56, 57, 58, 67, 68, 69, 70, 71,
-        72, 73, 74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102, 103, 104, 105, 106,
-        115, 116, 117, 118, 119, 120, 121, 122, 130, 131, 132, 133, 134, 135, 136, 137, 138,
-        146, 147, 148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169,
-        170, 178, 179, 180, 181, 182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200,
-        201, 202, 210, 211, 212, 213, 214, 215, 216, 217, 218, 226, 227, 228, 229, 230, 231,
-        232, 233, 234, 242, 243, 244, 245, 246, 247, 248, 249, 250]),
-}
-
-
-def _jpeg_codes(counts, symbols):
-    """Canonical Huffman codes: symbol -> (code, length)."""
-    codes, code, k = {}, 0, 0
-    for length, n in enumerate(counts, 1):
-        for _ in range(n):
-            codes[symbols[k]] = (code, length)
-            code, k = code + 1, k + 1
-        code <<= 1
-    return codes
-
-
-def _jpeg_blocks(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """[H, W] samples (multiples of 8) -> quantized coefficients [N, 64] in
-    zigzag order, blocks in raster order."""
-    n = np.arange(8)
-    c = np.sqrt(np.where(n == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
-        (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
-    h, w = plane.shape
-    blk = (plane.astype(np.float64) - 128).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
-    coef = np.einsum("ux,abxy,vy->abuv", c, blk, c).reshape(-1, 64)
-    return np.round(coef / q.reshape(1, 64)).astype(np.int32)[:, _JPEG_ZIGZAG]
-
-
-def write_jpeg(path: str, rgb: np.ndarray, quality: int = 90) -> None:
-    """A baseline 4:2:0 JPEG of an RGB uint8 [H, W, 3] image."""
-    h, w, _ = rgb.shape
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    qt = [np.clip((b * scale + 50) // 100, 1, 255) for b in _JPEG_QBASE]
-    x = rgb.astype(np.float64)
-    ycc = np.stack([0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
-                    -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 128,
-                    0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 128], -1)
-    H, W = -(-h // 16) * 16, -(-w // 16) * 16
-    ycc = np.pad(ycc, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
-    luma = _jpeg_blocks(np.clip(np.round(ycc[..., 0]), 0, 255), qt[0])
-    chroma = [_jpeg_blocks(np.clip(np.round(ycc[..., k].reshape(H // 2, 2, W // 2, 2)
-                                            .mean((1, 3))), 0, 255), qt[1]) for k in (1, 2)]
-    # MCU order: four luma blocks (2x2), then Cb, then Cr
-    my, mx = H // 16, W // 16
-    luma = luma.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
-    blocks = np.concatenate([luma, chroma[0][:, None], chroma[1][:, None]], 1)   # [MCUs, 6, 64]
-    comp = np.array([0, 0, 0, 0, 1, 2])
-    dc = blocks[..., 0]
-    prev = np.zeros_like(dc)
-    for k in range(3):                  # DC differences within each component
-        seq = dc[:, comp == k].reshape(-1)
-        prev[:, comp == k] = np.concatenate([[0], seq[:-1]]).reshape(-1, int((comp == k).sum()))
-    diff = (dc - prev).reshape(-1)
-    # every symbol as (code with its value bits, length, sort key): the DC
-    # first, then each nonzero AC after its ZRLs, then EOB, block by block
-    tab = {}
-    for key, v in _JPEG_HUFF.items():
-        codes_of = _jpeg_codes(*v)
-        tab[key] = (np.array([codes_of.get(i, (0, 0))[0] for i in range(256)], np.int64),
-                    np.array([codes_of.get(i, (0, 0))[1] for i in range(256)], np.int64))
-    flat = blocks.reshape(-1, 64).astype(np.int64)
-    tid = (comp[np.arange(len(flat)) % 6] != 0).astype(np.int64)
-
-    def size_of(v):
-        return (np.abs(v)[:, None] >= (1 << np.arange(16))[None, :]).sum(1)
-
-    def symbols(cls, t, sym, value, size):
-        code = np.where(t == 0, tab[(cls, 0)][0][sym], tab[(cls, 1)][0][sym])
-        length = np.where(t == 0, tab[(cls, 0)][1][sym], tab[(cls, 1)][1][sym])
-        bits = np.where(value >= 0, value, value + (1 << size) - 1)
-        return (code << size) | bits, length + size
-
-    parts = []
-    d = diff.astype(np.int64)
-    sz = size_of(d)
-    parts.append((*symbols(0, tid, sz, d, sz), np.arange(len(flat)) * 300))
-    b, k = np.nonzero(flat[:, 1:])
-    k = k + 1
-    prevk = np.where(np.r_[False, b[1:] == b[:-1]], np.r_[0, k[:-1]], 0)
-    run = k - prevk - 1
-    v = flat[b, k]
-    sz = size_of(v)
-    parts.append((*symbols(1, tid[b], ((run % 16) << 4) | sz, v, sz), b * 300 + 4 * k))
-    z = run // 16
-    owner = np.repeat(np.arange(len(z)), z)
-    j = np.arange(len(owner)) - np.repeat(np.cumsum(z) - z, z) + 1
-    zero = np.zeros(len(owner), np.int64)
-    parts.append((*symbols(1, tid[b[owner]], zero + 0xF0, zero, zero),
-                  b[owner] * 300 + 4 * k[owner] - j))
-    lastk = np.zeros(len(flat), np.int64)
-    lastk[b] = k
-    eob = np.nonzero(lastk < 63)[0]
-    zero = np.zeros(len(eob), np.int64)
-    parts.append((*symbols(1, tid[eob], zero, zero, zero), eob * 300 + 256))
-    order = np.argsort(np.concatenate([p[2] for p in parts]), kind="stable")
-    codes = np.concatenate([p[0] for p in parts])[order]
-    lens = np.concatenate([p[1] for p in parts])[order]
-    ends = np.cumsum(lens)
-    owner = np.repeat(np.arange(len(lens)), lens)
-    shift = ends[owner] - 1 - np.arange(int(ends[-1]))
-    bits = ((codes[owner] >> shift) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
-    data = np.packbits(bits)
-    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).astype(np.uint8).tobytes()
-
-    def seg(marker, body):
-        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
-    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for i, t in enumerate(qt):
-        out.append(seg(0xDB, bytes([i]) + t.astype(np.uint8)[_JPEG_ZIGZAG].tobytes()))
-    out.append(seg(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1,
-                                                                    3, 0x11, 1])))
-    for (cls, tid), (counts, symbols) in _JPEG_HUFF.items():
-        out.append(seg(0xC4, bytes([cls << 4 | tid] + counts + symbols)))
-    out.append(seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
-    with open(path, "wb") as f:
-        f.write(b"".join(out) + data + b"\xff\xd9")
 
 
 def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
@@ -3510,7 +3347,7 @@ def _cli_export(card: str, best: str, frame_path: str, work: str, secs: dict,
             share = min(share, back)
             ok = share >= EXPORT_BF16_MATCH and total > 0
             out[name] = {"matched": share, "detections": total,
-                         "launches": launches[f"infer_exported_{name}"]}
+                         "launches": launches[f"infer_exported_{name}"], "path": path}
             log(f"cli export {name}: {secs[f'export_{name}']:.1f} s; infer_exported "
                 f"{len(got['boxes'])} detections, {100 * share:.2f}% of the Predictor's "
                 f"matched, {out[name]['launches']} nms_suppress launches, "
@@ -3574,9 +3411,434 @@ def phase_cli(card: str, data: str, tmp: str):
         out["tracker"] = _cli_tracker(card, best, work, secs, launches)
     finally:
         os.chdir(cwd)
+    # for the draw phase: the sharpened checkpoint that evaluate wrote
+    out["sharpened"] = os.path.join(work, "sharpened.ckpt")
     out["seconds"], out["launches"] = secs, launches
     log(f"cli: wall seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}; "
         f"nms_suppress launches {json.dumps(launches)} [{card}]")
+    return out
+
+
+# draw phase: every entry point that draws or writes images, and the
+# offline weather tool, edge_n @640 with the cli phase's checkpoint and
+# "nms" artifact; all drawing and encoding is host numpy
+DRAW_DETS = 10                   # the drawing conf keeps about this many boxes a frame
+DRAW_MAX_DET = 20                # predict's and infer's cap
+DRAW_EPOCHS = 6                  # the val-debug images start at epoch 6
+DRAW_TRAIN_N, DRAW_VAL_N = 8, 8  # the 6-epoch run's set
+DRAW_PSNR_DB = 20.0              # floor of a JPEG file against its canvas (q95, 4:2:0)
+DRAW_REENCODE_EVERY = 24         # JPEG files re-encoded for the byte check: 1 in this
+DRAW_REPS = 5                    # host timings: median of this many
+
+
+@contextlib.contextmanager
+def _captured_writes():
+    """{absolute path: BGR canvas} of every image the port writes through
+    `imwrite_bgr` while the block runs (the files are written too)."""
+    from yololite_tpu_torch.data import imwrite as imwrite_mod
+    from yololite_tpu_torch.data import weather as weather_mod
+    from yololite_tpu_torch.utils import viz as viz_mod
+    seen = {}
+    write = imwrite_mod.imwrite_bgr
+
+    def capture(path, img):
+        seen[os.path.abspath(path)] = np.array(img, copy=True)
+        write(path, img)
+    mods = (imwrite_mod, viz_mod, weather_mod, cli_infer, cli_infer_exported, cli_tracker)
+    for m in mods:
+        m.imwrite_bgr = capture
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.imwrite_bgr = write
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _check_jpeg(data: bytes, canvas: np.ndarray, reencode: bool, what: str) -> float:
+    """A JPEG of `canvas` (BGR): decoded by the port's codec within
+    DRAW_PSNR_DB of it and, with `reencode`, byte for byte `encode_jpeg`'s."""
+    got = host_codecs.decode_jpeg(data)
+    psnr = _psnr(got, canvas)
+    if got.shape != canvas.shape or psnr < DRAW_PSNR_DB:
+        raise AssertionError(f"draw: {what} decodes {got.shape} at {psnr:.2f} dB of its "
+                             f"canvas {canvas.shape} (floor {DRAW_PSNR_DB})")
+    if reencode and data != encode_jpeg(canvas[..., ::-1]):
+        raise AssertionError(f"draw: {what} is not the JPEG encoder's output of its canvas")
+    return psnr
+
+
+def _check_written(seen: dict, what: str) -> dict:
+    """Every captured file exists and decodes (the port's codecs) to its
+    canvas: PNG and BMP exactly, JPEG as `_check_jpeg` holds it."""
+    psnrs = []
+    for k, (path, canvas) in enumerate(sorted(seen.items())):
+        if path.lower().endswith((".jpg", ".jpeg")):
+            with open(path, "rb") as f:
+                psnrs.append(_check_jpeg(f.read(), canvas, k % DRAW_REENCODE_EVERY == 0,
+                                         path))
+        elif not np.array_equal(host_codecs.imread_bgr(path), canvas):
+            raise AssertionError(f"draw: {path} does not decode to its canvas")
+    if not seen:
+        raise AssertionError(f"draw: {what} wrote no image")
+    return {"files": len(seen), "jpeg_min_psnr_db": min(psnrs) if psnrs else None}
+
+
+def _avi_frames(path: str):
+    """The JPEG of each '00dc' chunk of a Motion-JPEG AVI, checked against
+    its idx1 index."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise AssertionError(f"draw: {path} is not a RIFF AVI")
+    at, frames = data.index(b"movi") + 4, []
+    while data[at:at + 4] == b"00dc":
+        n = struct.unpack("<I", data[at + 4:at + 8])[0]
+        frames.append(data[at + 8:at + 8 + n])
+        at += 8 + n + (n & 1)
+    if data[at:at + 4] != b"idx1" or struct.unpack("<I", data[at + 4:at + 8])[0] != \
+            16 * len(frames):
+        raise AssertionError(f"draw: {path} has no index of its {len(frames)} frames")
+    return frames
+
+
+def _median_ms(fn, reps: int = DRAW_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times) * 1e3)
+
+
+def _draw_conf(pred, frames) -> float:
+    """The score of each frame's DRAW_DETS-th best detection, median over
+    `frames`: the operating point of the drawing runs (the sharpened scores
+    saturate on the clip, so ties at it keep about that many a frame)."""
+    kth = []
+    for f in frames:
+        scores = np.sort(np.asarray(pred.infer_image(f, conf=0.001, iou=0.45)[1]))[::-1]
+        kth.append(float(scores[min(DRAW_DETS, len(scores)) - 1]) if len(scores) else 0.001)
+    return max(float(np.median(kth)), 0.001)
+
+
+def _counted(name: str, expected: int, launches: dict, secs: dict, fn):
+    """Run `fn` with the kernel's launch count from 0; it must reach `expected`."""
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[name], launches[name] = time.perf_counter() - t0, cuda_nms.LAUNCHES
+    if launches[name] != expected:
+        raise AssertionError(f"draw {name}: nms_suppress launched {launches[name]} times, "
+                             f"expected {expected}")
+    return out
+
+
+def _yolo_to_coco(img_dir: str, label_dir: str, path: str) -> str:
+    """A COCO json of a YOLO-txt image folder (its images of one size)."""
+    coco = {"images": [], "annotations": [],
+            "categories": [{"id": i, "name": f"c{i}"} for i in range(3)]}
+    names = sorted(os.listdir(img_dir))
+    h, w = host_codecs.imread_bgr(os.path.join(img_dir, names[0])).shape[:2]
+    for i, name in enumerate(names, 1):
+        coco["images"].append({"id": i, "file_name": name, "width": w, "height": h})
+        with open(os.path.join(label_dir, os.path.splitext(name)[0] + ".txt")) as f:
+            for line in f.read().split("\n"):
+                if line.strip():
+                    c, cx, cy, bw, bh = (float(v) for v in line.split())
+                    box = [(cx - bw / 2) * w, (cy - bh / 2) * h, bw * w, bh * h]
+                    coco["annotations"].append({
+                        "id": len(coco["annotations"]) + 1, "image_id": i,
+                        "category_id": int(c), "bbox": box, "area": box[2] * box[3],
+                        "iscrowd": 0})
+    with open(path, "w") as f:
+        json.dump(coco, f)
+    return path
+
+
+def _draw_timings(card: str, pred, frame: np.ndarray) -> dict:
+    """Host ms of drawing a 640x480 frame's DRAW_DETS best detections and of
+    encoding it, and of each weather effect, medians of DRAW_REPS."""
+    boxes, scores, classes = (np.asarray(v)[:DRAW_DETS] for v in pred.infer_image(
+        frame, conf=0.001, iou=0.45))
+    rgb = np.ascontiguousarray(frame[..., ::-1])
+    out = {"boxes": len(boxes),
+           "draw_ms": _median_ms(lambda: draw_detections(rgb, boxes, scores, classes,
+                                                         pred.names)),
+           "jpeg_ms": _median_ms(lambda: encode_jpeg(rgb)),
+           "png_ms": _median_ms(lambda: write_png(os.devnull, rgb)),
+           "weather_ms": {e: _median_ms(lambda e=e: weather.apply_weather(
+               frame, e, np.random.RandomState(0))) for e in weather.EFFECTS}}
+    log(f"draw: host ms for a {frame.shape[1]}x{frame.shape[0]} frame: draw_detections "
+        f"{out['draw_ms']:.2f} ({len(boxes)} boxes), JPEG q95 encode {out['jpeg_ms']:.2f}, "
+        f"PNG encode {out['png_ms']:.2f}; weather effects "
+        f"{json.dumps({k: round(v, 2) for k, v in out['weather_ms'].items()})} "
+        f"[{_cpu_name()}; {card}]")
+    return out
+
+
+def _draw_predict(card: str, api, conf: float, folders: dict, frame, work: str,
+                  launches: dict, secs: dict) -> dict:
+    """YoloLite.predict(draw=True, save_dir=) on a PNG folder, a JPEG folder
+    (one batched call each) and an array (pred_0.jpg); each plot is the
+    file's canvas and the port's drawing of its detections."""
+    out = {}
+    for name, source in (*folders.items(), ("array", frame)):
+        save = os.path.join(work, "predict", name)
+        with _captured_writes() as seen:
+            res = _counted(f"predict_{name}", 1, launches, secs,
+                           lambda: api.predict(source, conf=conf, max_det=DRAW_MAX_DET,
+                                               draw=True, save_dir=save))
+        want = ([os.path.join(save, os.path.basename(r["source"])) for r in res]
+                if name != "array" else [os.path.join(save, "pred_0.jpg")])
+        if sorted(seen) != sorted(want):
+            raise AssertionError(f"draw predict {name}: wrote {sorted(seen)}")
+        for r, path in zip(res, want):
+            src = (host_codecs.imread_bgr(r["source"]) if r["source"] else frame)[..., ::-1]
+            drawn = draw_detections(src, r["boxes"], r["scores"], r["classes"],
+                                    api.predictor.names)
+            if not (np.array_equal(r["plot"], drawn) and np.array_equal(seen[path],
+                                                                        drawn[..., ::-1])):
+                raise AssertionError(f"draw predict {name}: {path} is not its drawing")
+        out[name] = dict(_check_written(seen, f"predict {name}"),
+                         boxes=[len(r["boxes"]) for r in res])
+    if sum(sum(v["boxes"]) for v in out.values()) == 0:
+        raise AssertionError("draw predict: no detection was drawn")
+    log(f"draw predict: draw=True, save_dir= on {len(folders)} folders and an array in "
+        f"{sum(secs[f'predict_{k}'] for k in out):.2f} s; boxes "
+        f"{json.dumps({k: v['boxes'] for k, v in out.items()})}, files decode to their "
+        f"canvases (JPEG >= {min(v['jpeg_min_psnr_db'] or 99 for v in out.values()):.2f} dB) "
+        f"[{card}]")
+    return out
+
+
+def _draw_tools(card: str, ckpt: str, pt2: str, conf: float, val_dir: str, work: str,
+                launches: dict, secs: dict) -> dict:
+    """infer's `*_pred.jpg` and infer_exported --out (at CLI_CONF: the
+    artifact is the unsharpened checkpoint's), each file the port's drawing
+    of the tool's own detections."""
+    out = {}
+    infer_dir = os.path.join(work, "infer")
+    with _captured_writes() as seen:
+        got = _counted("infer", VAL_N, launches, secs, lambda: cli_infer.main(
+            ["--weights", ckpt, "--img", val_dir, "--conf", str(conf), "--max_det",
+             str(DRAW_MAX_DET), "--out_dir", infer_dir]))
+    names = Predictor(ckpt, device="cuda").names
+    for path, r in got.items():
+        stem = os.path.splitext(os.path.basename(path))[0]
+        drawn = draw_detections(host_codecs.imread_bgr(path)[..., ::-1], r["boxes"],
+                                r["scores"], r["classes"], names)
+        if not np.array_equal(seen[os.path.join(infer_dir, f"{stem}_pred.jpg")],
+                              drawn[..., ::-1]):
+            raise AssertionError(f"draw infer: {stem}_pred.jpg is not its drawing")
+    out["infer"] = _check_written(seen, "infer")
+    target = os.path.join(work, "exported.jpg")
+    frame_path = os.path.join(val_dir, "0000.png")
+    with _captured_writes() as seen:
+        r = _counted("infer_exported", 1, launches, secs, lambda: cli_infer_exported.main(
+            ["--artifact", pt2, "--img", frame_path, "--conf", str(CLI_CONF), "--out",
+             target]))
+    drawn = draw_detections(host_codecs.imread_bgr(frame_path)[..., ::-1], r["boxes"],
+                            r["scores"], r["classes"], names)
+    if not np.array_equal(seen[target], drawn[..., ::-1]) or not len(r["boxes"]):
+        raise AssertionError(f"draw infer_exported: --out is not its drawing of "
+                             f"{len(r['boxes'])} boxes")
+    out["infer_exported"] = dict(_check_written(seen, "infer_exported"),
+                                 boxes=len(r["boxes"]))
+    log(f"draw infer: {VAL_N} *_pred.jpg in {secs['infer']:.2f} s; infer_exported --out "
+        f"({len(r['boxes'])} boxes, the 'nms' .pt2) in {secs['infer_exported']:.2f} s; "
+        f"{launches['infer']} + {launches['infer_exported']} nms_suppress launches [{card}]")
+    return out
+
+
+def _draw_tracker(card: str, ckpt: str, conf: float, frames, work: str, launches: dict,
+                  secs: dict) -> dict:
+    """tracker over the stream phase's clip (a BMP sequence): without --out,
+    to a Motion-JPEG .avi and to a JPEG sequence; frames/s of each, every
+    written frame its drawn canvas."""
+    seq = os.path.join(work, "seq")
+    os.makedirs(seq)
+    for i, f in enumerate(frames):
+        write_bmp(os.path.join(seq, "%04d.bmp" % i), f[..., ::-1])
+    base = ["--weights", ckpt, "--video", os.path.join(seq, "%04d.bmp"), "--conf", str(conf)]
+    out, n = {}, len(frames)
+    draw = cli_tracker.draw_tracks
+    for name, extra in (("none", []), ("avi", ["--out", os.path.join(work, "track.avi")]),
+                        ("pattern", ["--out", os.path.join(work, "track", "%04d.jpg")])):
+        drawn = []
+
+        def record(frame, tracks, fps):
+            draw(frame, tracks, fps)
+            drawn.append((frame.copy(), len(tracks)))
+        cli_tracker.draw_tracks = record
+        text = io.StringIO()
+        try:
+            with _captured_writes() as seen, contextlib.redirect_stdout(text):
+                tracks = _counted(f"tracker_{name}", n + 1, launches, secs,
+                                  lambda: cli_tracker.main(base + extra))
+        finally:
+            cli_tracker.draw_tracks = draw
+        line = text.getvalue().strip().splitlines()[-1]
+        tool_fps = float(line.split(" @ ")[1].split(" FPS")[0])
+        out[name] = {"frames_per_s": n / secs[f"tracker_{name}"], "tool_fps": tool_fps,
+                     "tracks": sum(map(len, tracks))}
+        if len(tracks) != n or len(drawn) != (n if extra else 0):
+            raise AssertionError(f"draw tracker {name}: {len(tracks)} frames, "
+                                 f"{len(drawn)} drawn")
+        if name == "avi":
+            chunks = _avi_frames(extra[1])
+            if len(chunks) != n:
+                raise AssertionError(f"draw tracker: {len(chunks)} AVI frames of {n}")
+            psnr = [_check_jpeg(c, d[0], k % DRAW_REENCODE_EVERY == 0, f"AVI frame {k}")
+                    for k, (c, d) in enumerate(zip(chunks, drawn))]
+            out[name]["jpeg_min_psnr_db"] = min(psnr)
+        elif name == "pattern":
+            want = [os.path.join(work, "track", "%04d.jpg" % k) for k in range(1, n + 1)]
+            if sorted(seen) != want or any(not np.array_equal(seen[p], d[0])
+                                           for p, d in zip(want, drawn)):
+                raise AssertionError("draw tracker: the sequence is not the drawn frames")
+            out[name].update(_check_written(seen, "tracker pattern"))
+        if extra and not any(k for _, k in drawn):
+            raise AssertionError(f"draw tracker {name}: no track was drawn")
+        log(f"draw tracker ({name if extra else 'no --out'}): {n} frames 480x640 in "
+            f"{secs[f'tracker_{name}']:.2f} s, {out[name]['frames_per_s']:.1f} frames/s "
+            f"(the tool's FPS {tool_fps:.1f}), {out[name]['tracks']} tracks reported, "
+            f"{launches[f'tracker_{name}']} nms_suppress launches [{_cpu_name()}; {card}]")
+    return out
+
+
+def _draw_loop(card: str, work: str, launches: dict, secs: dict) -> dict:
+    """A DRAW_EPOCHS-epoch run on a tiny set: sanity_check.jpg at the start,
+    last_b0/1.jpg at the last epoch (val-debug starts at epoch 6)."""
+    data = make_synth_set(os.path.join(work, "set"), DRAW_TRAIN_N, DRAW_VAL_N)
+    calls = []
+    debug = train_loop.save_val_debug
+
+    def counted_debug(*a, **k):
+        calls.append(k)
+        debug(*a, **k)
+    train_loop.save_val_debug = counted_debug
+    val_batches = -(-DRAW_VAL_N // TRAIN_OVERRIDES["batch_size"])
+    try:
+        with _captured_writes() as seen:
+            res = _counted("loop", (DRAW_EPOCHS + 1) * val_batches, launches, secs,
+                           lambda: YoloLite("edge_n", device="cuda").train(
+                               data=data, workers=8, run_dir=os.path.join(work, "runs"),
+                               **dict(TRAIN_OVERRIDES, epochs=DRAW_EPOCHS,
+                                      save_optimizer=False)))
+    finally:
+        train_loop.save_val_debug = debug
+    log_dir = os.path.abspath(res["log_dir"])
+    want = sorted(os.path.join(log_dir, f) for f in ("sanity_check.jpg", "last_b0.jpg",
+                                                     "last_b1.jpg"))
+    if sorted(seen) != want or len(calls) != 1:
+        raise AssertionError(f"draw loop: wrote {sorted(seen)}, {len(calls)} val-debug calls")
+    sanity = seen[want[2]]
+    if sanity.shape != (2 * IMG, 4 * IMG, 3):
+        raise AssertionError(f"draw loop: sanity canvas {sanity.shape}")
+    out = dict(_check_written(seen, "loop"), train_s=secs["loop"],
+               val_loss=res["history"]["val_loss"])
+    log(f"draw loop: edge_n {DRAW_EPOCHS} epochs @{IMG} b8 on {DRAW_TRAIN_N} + "
+        f"{DRAW_VAL_N} images in {secs['loop']:.1f} s: sanity_check.jpg "
+        f"{sanity.shape[1]}x{sanity.shape[0]}, last_b0/1.jpg of epoch {DRAW_EPOCHS}; "
+        f"{launches['loop']} nms_suppress launches [{card}]")
+    return out
+
+
+def _draw_weather(card: str, data: str, work: str, launches: dict, secs: dict) -> dict:
+    """augment_weather over the training images in YOLO and COCO layout,
+    then one epoch on the YOLO copy (its JPEGs read by the port's codec)."""
+    root = os.path.dirname(data)
+    images, labels = (os.path.join(root, "train", d) for d in ("images", "labels"))
+    ann = _yolo_to_coco(images, labels, os.path.join(work, "train_coco.json"))
+    out = {}
+    for seed, (layout, extra) in enumerate((("yolo", ["--labels", labels]),
+                                            ("coco", ["--coco_json", ann]))):
+        dest = os.path.join(work, f"weather_{layout}")
+        with _captured_writes() as seen, contextlib.redirect_stdout(io.StringIO()):
+            n = _counted(f"weather_{layout}", 0, launches, secs, lambda: cli_augment.main(
+                ["--images", images, "--out", dest, "--seed", str(seed)] + extra))
+        names = sorted(os.listdir(os.path.join(dest, "images")))
+        effects = [name.rsplit("_", 1)[1][:-5] for name in names]
+        if n != TRAIN_N or len(names) != n:
+            raise AssertionError(f"draw weather {layout}: {n} images, {len(names)} files")
+        if layout == "yolo" and len(os.listdir(os.path.join(dest, "labels"))) != n:
+            raise AssertionError("draw weather: labels were not copied")
+        if layout == "coco":
+            with open(os.path.join(dest, "annotations.json")) as f:
+                coco = json.load(f)
+            if len(coco["images"]) != 2 * TRAIN_N:
+                raise AssertionError("draw weather: the COCO json lacks the new images")
+        out[layout] = dict(_check_written(seen, f"weather {layout}"), seconds=secs[
+            f"weather_{layout}"], effects={e: effects.count(e) for e in sorted(set(effects))})
+        log(f"draw augment_weather ({layout}): {n} images in {secs[f'weather_{layout}']:.1f} s, "
+            f"effects {json.dumps(out[layout]['effects'])} [{_cpu_name()}]")
+    data_yaml = os.path.join(work, "weather.yaml")
+    with open(data_yaml, "w") as f:
+        f.write(f"train: {os.path.join(work, 'weather_yolo', 'images')}\n"
+                f"val: {os.path.join(root, 'valid', 'images')}\nnc: 3\n"
+                f"names: [c0, c1, c2]\n")
+    val_batches = -(-VAL_N // TRAIN_OVERRIDES["batch_size"])
+    res = _counted("weather_train", 2 * val_batches, launches, secs,
+                   lambda: YoloLite("edge_n", device="cuda").train(
+                       data=data_yaml, workers=8, run_dir=os.path.join(work, "runs_weather"),
+                       **dict(TRAIN_OVERRIDES, epochs=1, save_optimizer=False)))
+    hist = res["history"]
+    if not np.isfinite(hist["step_loss"] + hist["val_loss"]).all():
+        raise AssertionError(f"draw weather: non-finite loss {hist}")
+    out["train"] = {"step_loss": hist["step_loss"], "val_loss": hist["val_loss"],
+                    "seconds": secs["weather_train"]}
+    log(f"draw weather train: 1 epoch @{IMG} b8 on the {TRAIN_N} weather JPEGs in "
+        f"{secs['weather_train']:.1f} s, step losses "
+        f"{', '.join(f'{v:.3f}' for v in hist['step_loss'])}; {launches['weather_train']} "
+        f"nms_suppress launches [{card}]")
+    return out
+
+
+def phase_draw(card: str, data: str, tmp: str, cli: dict):
+    """Drawing and the offline weather tool through the user entry points,
+    edge_n @640 with the cli phase's sharpened checkpoint and "nms" .pt2:
+    YoloLite.predict(draw=, save_dir=), infer, infer_exported --out, tracker
+    --out (.avi and a sequence) over the 240-frame clip, a 6-epoch run's
+    sanity and val-debug images, and augment_weather (YOLO and COCO) with
+    an epoch on its JPEGs. Every written file decodes with the port's codecs
+    to the canvas drawn; nms_suppress launches as each step implies."""
+    work = os.path.join(tmp, "draw")
+    os.makedirs(work)
+    ckpt, pt2 = cli["sharpened"], cli["export"]["nms_pt2"]["path"]
+    launches, secs = {}, {}
+    frames = make_clip(STREAM_FRAMES)
+    pred = Predictor(ckpt, device="cuda")
+    conf = _draw_conf(pred, frames[:8])
+    log(f"draw: conf {conf:.4f} (the {DRAW_DETS}th best score, median over 8 frames)")
+    out = {"conf": conf, "timings": _draw_timings(card, pred, frames[0])}
+    val_dir = os.path.join(os.path.dirname(data), "valid", "images")
+    jpg_dir = os.path.join(work, "val_jpg")
+    os.makedirs(jpg_dir)
+    for name in sorted(os.listdir(val_dir)):
+        write_jpeg(os.path.join(jpg_dir, os.path.splitext(name)[0] + ".jpg"),
+                   host_codecs.imread_bgr(os.path.join(val_dir, name))[..., ::-1], 90)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        out["predict"] = _draw_predict(card, YoloLite(ckpt, device="cuda"), conf,
+                                       {"png": val_dir, "jpg": jpg_dir}, frames[0], work,
+                                       launches, secs)
+        out.update(_draw_tools(card, ckpt, pt2, conf, val_dir, work, launches, secs))
+        out["tracker"] = _draw_tracker(card, ckpt, conf, frames, work, launches, secs)
+        out["loop"] = _draw_loop(card, work, launches, secs)
+        out["weather"] = _draw_weather(card, data, work, launches, secs)
+    finally:
+        os.chdir(cwd)
+    out["seconds"], out["launches"] = secs, launches
+    log(f"draw: nms_suppress launches {json.dumps(launches)}, each as predicted; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in secs.items()})} [{card}]")
     return out
 
 
@@ -4592,6 +4854,7 @@ def main():
                          ("export", lambda: phase_export(card, tmp)),
                          ("quant", lambda: phase_quant(card, data, tmp)),
                          ("cli", lambda: phase_cli(card, data, tmp)),
+                         ("draw", lambda: phase_draw(card, data, tmp, phases["cli"])),
                          ("tools", lambda: phase_tools(card, data, tmp, serve)),
                          ("ddp", lambda: phase_ddp(card, data, tmp)),
                          ("spatial", lambda: phase_spatial(card, tmp))):
@@ -4616,6 +4879,7 @@ def main():
                     launches_export=phases["export"]["launches"],
                     launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],
                     launches_cli=phases["cli"]["launches"],
+                    launches_draw=phases["draw"]["launches"],
                     launches_tools=phases["tools"]["launches"],
                     launches_ddp=phases["ddp"]["launches"],
                     launches_spatial=phases["spatial"]["launches"])]

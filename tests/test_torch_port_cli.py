@@ -51,6 +51,7 @@ from yololite_tpu.deploy import predictor as jax_predictor
 from yololite_tpu.eval import evaluate as jax_evaluate
 from yololite_tpu.track import KalmanSortTracker as JaxTracker
 from yololite_tpu.train.checkpoint import build_meta, save_checkpoint
+from yololite_tpu.utils.viz import draw_detections
 
 import chip_smoke
 from tests.test_torch_port_export import one_torch_thread  # noqa: F401 fixture
@@ -368,7 +369,11 @@ def test_infer_matches_jax(world, tmp_path, monkeypatch, capsys):
         n += len(order)
     assert n > 0
     out = capsys.readouterr().out
-    assert "Saved to" in out and "[draw]" in out
+    assert "Saved to" in out
+    # the drawings: JAX's files of JAX's boxes, the port's of its own
+    for stem in want_files:
+        for side in ("jax", "port"):
+            assert (tmp_path / side / f"{stem}_pred.jpg").exists()
 
 
 def test_infer_skips_what_cv2_cannot_read(world, tmp_path, monkeypatch, capsys):
@@ -439,8 +444,14 @@ def test_pt2_nms_through_infer_exported(world, tmp_path, capsys):
     assert len(got["boxes"]) == len(want["boxes"]) > 0
     np.testing.assert_array_equal(got["classes"], want["classes"])
     np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=1e-3, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="8d"):
-        infer_exported_tool.main(["--artifact", path, "--img", frame_path, "--out", "x.jpg"])
+    out_path = str(tmp_path / "drawn.png")
+    drawn = infer_exported_tool.main(["--artifact", path, "--img", frame_path,
+                                      "--conf", "0.05", "--out", out_path])
+    assert f"saved {out_path}" in capsys.readouterr().out
+    frame = cv2.imread(frame_path)
+    want_plot = draw_detections(frame[..., ::-1], drawn["boxes"], drawn["scores"],
+                                drawn["classes"], NAMES)
+    np.testing.assert_array_equal(cv2.imread(out_path), want_plot[..., ::-1])
     with pytest.raises(NotImplementedError, match="TFLite"):
         export_tool.main(["--weights", ckpt, "--runtime", "tflite"])
 
@@ -514,5 +525,5 @@ def test_tracker_matches_jax(world, tmp_path, monkeypatch, capsys):
             [(t["track_id"], t["cls"]) for t in w_frame]
         for g, w in zip(g_frame, w_frame):
             np.testing.assert_allclose(g["bbox"], w["bbox"], atol=1e-2)
-    with pytest.raises(NotImplementedError, match="8d"):
+    with pytest.raises(NotImplementedError, match="video files for the tracker"):
         tracker_tool.main(["--weights", ckpt, "--video", pattern, "--out", "o.mp4"])

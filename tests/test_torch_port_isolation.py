@@ -132,3 +132,14 @@ def test_parallel_modules_are_covered():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     for rel in ("parallel/__init__.py", "parallel/dist.py", "parallel/spatial.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files
+
+
+def test_drawing_and_weather_modules_are_covered():
+    """Drawing, the writers and the weather tool are host work: the tool
+    takes no --device."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("utils/viz.py", "data/imwrite.py", "data/font_simplex.py",
+                "tools/augment_weather.py"):
+        assert os.path.join("yololite_tpu_torch", rel) in files
+    from yololite_tpu_torch.tools import augment_weather
+    assert "--device" not in augment_weather.build_parser()._option_string_actions

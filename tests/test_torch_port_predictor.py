@@ -20,6 +20,7 @@ from yololite_tpu.api import YoloLite as JaxYoloLite
 from yololite_tpu.deploy.predictor import Predictor as JaxPredictor
 from yololite_tpu.train.checkpoint import build_meta, save_checkpoint
 
+from tests.test_torch_port_imwrite import assert_jpeg_like_cv2
 from tests.test_torch_port_models import edge_cfg, jax_edge
 from yololite_tpu_torch.api import YoloLite
 from yololite_tpu_torch.data.png import UnsupportedImage
@@ -192,6 +193,21 @@ def test_predict_on_a_damaged_file_raises_file_not_found_like_jax(ckpt, tmp_path
 
 
 @pytest.mark.parametrize("kw", [{"draw": True}, {"save_dir": "out"}], ids=["draw", "save_dir"])
-def test_predict_drawing_raises_naming_its_item(ckpt, kw):
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        YoloLite(ckpt, device="cpu").predict(_frames(1)[0], **kw)
+def test_predict_drawing_raises_naming_its_item(ckpt, kw, tmp_path):
+    """draw= and save_dir= draw the port's detections as JAX's
+    draw_detections draws them (the "plot", RGB; save_dir writes
+    pred_0.jpg for an array); a source whose extension has no writer
+    raises naming the extension."""
+    from yololite_tpu.utils.viz import draw_detections as jax_draw
+    if "save_dir" in kw:
+        kw = {"save_dir": str(tmp_path / kw["save_dir"])}
+    frame = _frames(1)[0]
+    r = YoloLite(ckpt, device="cpu").predict(frame, conf=0.001, **kw)[0]
+    want = jax_draw(frame[..., ::-1], r["boxes"], r["scores"], r["classes"], ["a", "b", "c"])
+    np.testing.assert_array_equal(r["plot"], want)
+    if "save_dir" in kw:
+        assert_jpeg_like_cv2(str(tmp_path / "out" / "pred_0.jpg"), want[..., ::-1], tmp_path)
+        npy = tmp_path / "frame.npy"
+        np.save(npy, frame)
+        with pytest.raises(ValueError, match=".npy"):
+            YoloLite(ckpt, device="cpu").predict(str(npy), **kw)

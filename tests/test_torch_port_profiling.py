@@ -32,7 +32,11 @@ def one_torch_thread():
 
 
 def test_utils_exports_only_the_profiling_names():
-    assert port_utils.__all__ == ["trace", "StageTimer"]
+    """The package exports what JAX's `utils` exports: the profiling names
+    and, since utils/viz.py was ported, the drawing helpers."""
+    import yololite_tpu.utils as jax_utils
+    assert port_utils.__all__ == jax_utils.__all__
+    assert {"trace", "StageTimer"} <= set(port_utils.__all__)
 
 
 def test_stage_timer_report_equals_jax():

@@ -260,7 +260,10 @@ def test_taper_schedule_and_chunked_resume(tmp_path, monkeypatch):
             history[name] = train_from_config(cfg, device="cpu")["history"]["step_loss"]
         except _ChunkEnd:
             history[name] = [float(r["train_loss"]) for r in _rows(tmp_path / name)]
-        per_epoch = _SpyDataset.seen[::4]              # 4 samples per epoch
+        # the first batch is the sanity image's, drawn before any epoch's
+        # taper under the recipe's settings; then 4 samples per epoch
+        sanity, per_epoch = _SpyDataset.seen[:4], _SpyDataset.seen[4::4]
+        assert sanity == [_taper_states(12, 0)[0]] * 4
         want = _taper_states(12, extra.get("start_epoch", 0))
         assert per_epoch == want[:len(per_epoch)] and len(per_epoch) == (stop or len(want))
     straight = history["straight"]

@@ -13,8 +13,9 @@ port's host codecs as `cv2.imread` reads them, `data/codecs.py`), `.npy`
 files of BGR arrays, or a folder of them; datasets take the same files
 (`data/dataset.py`). A file that cannot be decoded raises
 `FileNotFoundError` naming it, as in the JAX API; a TIFF raises
-`UnsupportedImage`. Drawing (`draw=`, `save_dir=`) is ROADMAP Queue 1 item
-8d and raises.
+`UnsupportedImage`. `draw=True` adds the drawn detections as an RGB
+"plot"; `save_dir=` also writes it under the source's basename (an array
+as `pred_{n}.jpg`), encoded by the extension (`data/imwrite.py`).
 A model name or yaml resolves as in the JAX API (configs/models, then
 v2_models, then custom); predicting needs a checkpoint, as there. Everything
 runs on `device` (the card by default; tests pass "cpu"). `export` writes a
@@ -64,9 +65,6 @@ class YoloLite:
         frame's shape under "masks") for BGR arrays, JPEG, PNG, BMP or `.npy`
         files, or a folder of them. A file that does not decode raises
         `FileNotFoundError(path)`, as JAX's does where cv2.imread gives None."""
-        if draw or save_dir:
-            raise NotImplementedError("drawing detections (draw=, save_dir=) needs "
-                                      "utils/viz.py: ROADMAP Queue 1 item 8d")
         from yololite_tpu_torch.data.dataset import read_image_rgb
         pred = self.predictor
         frames, names = [], []
@@ -87,8 +85,18 @@ class YoloLite:
         else:
             results = [pred.infer_image_profiled(f, img_size, conf, iou, max_det)
                        for f in frames]
-        for r, name in zip(results, names):
+        for i, (r, frame, name) in enumerate(zip(results, frames, names)):
             r["source"] = name
+            if draw or save_dir:
+                from yololite_tpu_torch.utils.viz import draw_detections
+                vis_rgb = draw_detections(frame[..., ::-1], r["boxes"], r["scores"],
+                                          r["classes"], pred.names)
+                r["plot"] = vis_rgb
+                if save_dir:
+                    from yololite_tpu_torch.data.imwrite import imwrite_bgr
+                    os.makedirs(save_dir, exist_ok=True)
+                    base = os.path.basename(name) if name else f"pred_{i}.jpg"
+                    imwrite_bgr(os.path.join(save_dir, base), vis_rgb[..., ::-1])
         return results
 
     @staticmethod

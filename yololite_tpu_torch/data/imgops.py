@@ -11,8 +11,12 @@ which the JAX package's cv2 runs:
     rounding half to even. `remap` takes the float
     source coordinates as given;
   - `resize_f32`: float bilinear, half-pixel centres, edge-clamped;
+    `resize_cubic_f32`: INTER_CUBIC (a = -0.75, taps clamped to the edge),
+    within 2 ulp of cv2 (its sums run in another order);
   - `gaussian_blur_f32` (`getGaussianKernel` weights) and `box_blur_u8`,
-    separable, BORDER_REFLECT_101;
+    separable, BORDER_REFLECT_101; `box_blur2_u8` (the even 2x2 window,
+    anchored at its lower right, OpenCV's 8-bit divide rounding up) and
+    `box_blur_f32` (sums in double, as OpenCV's float path);
   - `line_blur3`: `filter2D` with a 3x3 kernel holding one line of 1/3;
   - pixel arithmetic: `convert_scale_abs` (fma in float32, round half to
     even), saturating `add_scalar` / `add_noise` (noise rounded first), `permute_channels`, `lut`;
@@ -20,16 +24,30 @@ which the JAX package's cv2 runs:
     fma; OpenCV's vector loop truncates while the scalar tail of each row
     (width mod 32 pixels) rounds);
   - `convex_hull`, `fill_convex_poly` (OpenCV's fixed-point scanline fill
-    and its 8-connected outline) and `fill_circle` (OpenCV's midpoint
-    circle, filled);
+    and its 8-connected outline), `line` (`cv2.line`, LINE_8, clipped as
+    `cv2.clipLine` clips) and `fill_circle` (OpenCV's midpoint circle,
+    filled);
   - `fill_poly`: `cv2.fillPoly` of one polygon with integer vertices (any
     shape: non-convex, self-intersecting, partly outside), OpenCV's edge
     collection and even-odd scanline fill in 16.16 fixed point, plus each
-    edge's 8-connected line clipped as `cv2.clipLine` clips it.
+    edge's 8-connected line clipped as `cv2.clipLine` clips it;
+  - `rectangle`: `cv2.rectangle` at any thickness (filled for < 0): each
+    side of a thick outline is `ThickLine`'s quad, which is axis-aligned
+    with integer corners for a rectangle, plus a round cap at each corner;
+  - `text_size` / `put_text`: `cv2.getTextSize` / `cv2.putText` with
+    FONT_HERSHEY_SIMPLEX at scale 0.5 thickness 1 and scale 0.8 thickness 2.
+    OpenCV 5.0 draws the Hershey faces with its TrueType engine: each glyph's
+    anti-aliased coverage is blended in at an integer pen position as
+    round((dst * (255 - a) + color * a) / 255), glyph after glyph; the
+    bitmaps are data (`data/font_simplex.py`, probed from cv2 by
+    `tests/font_probe.py`).
 """
 
 from __future__ import annotations
 
+import base64
+import functools
+import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -196,6 +214,60 @@ def box_blur_u8(src: np.ndarray, k: int) -> np.ndarray:
     return ((2 * s + n) // (2 * n)).astype(np.uint8)
 
 
+def box_blur2_u8(src: np.ndarray) -> np.ndarray:
+    """cv2.blur(src, (2, 2)) of a uint8 [H,W] or [H,W,C] array: each output
+    pixel is the sum of itself and its upper, left and upper-left neighbours
+    (the default anchor of an even kernel), BORDER_REFLECT_101, divided as
+    OpenCV's 8-bit box filter divides by 4: (sum + 3) >> 2."""
+    x = np.asarray(src, np.int32)
+    H, W = x.shape[:2]
+    p = x[_reflect101(H, 1)[:H + 1]][:, _reflect101(W, 1)[:W + 1]]
+    s = p[:-1, :-1] + p[1:, :-1] + p[:-1, 1:] + p[1:, 1:]
+    return ((s + 3) >> 2).astype(np.uint8)
+
+
+def box_blur_f32(src: np.ndarray, k: int) -> np.ndarray:
+    """cv2.blur(src, (k, k)) of a float32 [H,W] array, odd k: the window's
+    sum in double (exact for these inputs, so in any order), times 1/k^2,
+    rounded to float32; BORDER_REFLECT_101."""
+    H, W = src.shape
+    r = k // 2
+    x = np.asarray(src, np.float64)[_reflect101(H, r)][:, _reflect101(W, r)]
+    c = np.cumsum(np.cumsum(np.pad(x, ((1, 0), (1, 0))), 0), 1)
+    s = c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]
+    return (s * (1.0 / (k * k))).astype(F32)
+
+
+def _cubic_taps(n_src: int, n_dst: int):
+    """cv2's INTER_CUBIC source indices [n_dst, 4] (clamped to the edge) and
+    float32 weights (interpolateCubic, A = -0.75)."""
+    f = ((np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5).astype(F32)
+    s = np.floor(f).astype(np.int64)
+    x = (f - s).astype(F32)
+    A, one = F32(-0.75), F32(1)
+    c0 = ((A * (x + one) - 5 * A) * (x + one) + 8 * A) * (x + one) - 4 * A
+    c1 = ((A + 2) * x - (A + 3)) * x * x + one
+    c2 = ((A + 2) * (one - x) - (A + 3)) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(s[:, None] + np.arange(-1, 3)[None, :], 0, n_src - 1)
+    return idx, np.stack([c0, c1, c2, c3], -1).astype(F32)
+
+
+def resize_cubic_f32(src: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv2.resize of a float32 [H,W] array to (w, h), INTER_CUBIC: rows then
+    columns, four taps each, in float32."""
+    src = np.asarray(src, F32)
+    xi, xc = _cubic_taps(src.shape[1], w)
+    yi, yc = _cubic_taps(src.shape[0], h)
+    rows = src[:, xi[:, 0]] * xc[:, 0]
+    for k in range(1, 4):
+        rows = rows + src[:, xi[:, k]] * xc[:, k]
+    out = rows[yi[:, 0]] * yc[:, 0, None]
+    for k in range(1, 4):
+        out = out + rows[yi[:, k]] * yc[:, k, None]
+    return out.astype(F32)
+
+
 def line_blur3(img: np.ndarray, horizontal: bool) -> np.ndarray:
     """cv2.filter2D(img, -1, K) for a 3x3 K holding 1/3 along its middle
     row (horizontal) or column, BORDER_REFLECT_101: round((a+b+c)/3), where
@@ -323,53 +395,63 @@ _XY_ONE = 1 << _XY_SHIFT
 
 
 def fill_convex_poly(mask: np.ndarray, pts: np.ndarray, value) -> np.ndarray:
-    """Fill a convex polygon of integer vertices into `mask` (in place), as
-    cv2.fillConvexPoly's scanline pass: each row from the left edge to the
-    right edge, edges walked in 16.16 fixed point, then the 8-connected
-    outline (`line8`)."""
-    v = np.asarray(pts, np.int64).reshape(-1, 2)
+    """cv2.fillConvexPoly(mask, pts, value) with LINE_8 and integer vertices
+    (in place), as OpenCV's `FillConvexPoly` runs it: the 8-connected
+    outline (`line`), then from the top vertex a left and a right edge walked
+    down in 16.16 fixed point (dx from the rounded division of the edge's
+    run by its rows, taken when the scan reaches the edge's first row), each
+    row filled between their rounded x; the scan stops when either chain runs
+    out of vertices."""
+    v = np.asarray(pts, np.int64).reshape(-1, 2).tolist()
     n = len(v)
     H, W = mask.shape[:2]
+    for i in range(n):
+        line(mask, v[i - 1], v[i], value)
     if n < 3:
         return mask
-    ymin, ymax = int(v[:, 1].min()), int(v[:, 1].max())
-    if v[:, 0].max() < 0 or ymax < 0 or v[:, 0].min() >= W or ymin >= H:
+    xs, ys = [p[0] for p in v], [p[1] for p in v]
+    ymin, ymax = min(ys), max(ys)
+    if max(xs) < 0 or ymax < 0 or min(xs) >= W or ymin >= H:
         return mask
     ymax = min(ymax, H - 1)
-    imin = int(np.argmin(v[:, 1]))
-    # the two chains from the top vertex, as (y_start, y_end, x_start, dx)
-    # segments in fixed point: edge i steps +1 (di=1) or -1 (di=n-1)
-    spans = []
-    for di in (1, n - 1):
-        segs, idx0, y = [], imin, ymin
-        for _ in range(n):
-            idx = (idx0 + di) % n
-            ty = int(v[idx, 1])
-            if ty > y:
-                xs, xe = int(v[idx0, 0]) << _XY_SHIFT, int(v[idx, 0]) << _XY_SHIFT
-                dx = ((xe - xs) * 2 + (ty - y)) // (2 * (ty - y))
-                segs.append((y, ty, xs, dx))
-                y = ty
-            idx0 = idx
-            if y >= ymax:
-                break
-        spans.append(segs)
-    rows = np.arange(ymin, ymax + 1)
-    xe = []
-    for segs in spans:
-        x = np.full(len(rows), np.iinfo(np.int64).min)
-        for y0, y1, xs, dx in segs:
-            sel = (rows >= y0) & (rows <= y1)
-            x[sel] = xs + dx * (rows[sel] - y0)
-        xe.append(x)
-    ok = (xe[0] > np.iinfo(np.int64).min) & (xe[1] > np.iinfo(np.int64).min) & (rows >= 0)
-    left = (np.minimum(xe[0], xe[1]) + (_XY_ONE >> 1)) >> _XY_SHIFT
-    right = (np.maximum(xe[0], xe[1]) + (_XY_ONE >> 1)) >> _XY_SHIFT
-    for r, lo, hi in zip(rows[ok], left[ok], right[ok]):
-        if hi >= 0 and lo < W:
-            mask[r, max(lo, 0):min(hi, W - 1) + 1] = value
-    for i in range(n):
-        line8(mask, v[i - 1], v[i], value)
+    imin = ys.index(ymin)
+    # per chain: [vertex index, step, x, dx, first row past the edge]
+    edge = [[imin, 1, -_XY_ONE, 0, ymin], [imin, n - 1, -_XY_ONE, 0, ymin]]
+    y, left = ymin, n
+    while True:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0, idx = e[0], (e[0] + e[1]) % n
+            while True:
+                more, left = left > 0, left - 1
+                if not more:
+                    break
+                ty = ys[idx]
+                if ty > y:
+                    e[2] = xs[idx0] << _XY_SHIFT
+                    e[3] = _trunc_div(((xs[idx] - xs[idx0]) << (_XY_SHIFT + 1)) + ty - y,
+                                      2 * (ty - y))
+                    e[0], e[4] = idx, ty
+                    break
+                idx0, idx = idx, (idx + e[1]) % n
+        if left < 0:
+            break
+        # rows until the next vertex of either chain: x moves by dx a row
+        stop = min(edge[0][4], edge[1][4], ymax + 1)
+        rows = np.arange(y, stop)
+        xa = edge[0][2] + edge[0][3] * (rows - y)
+        xb = edge[1][2] + edge[1][3] * (rows - y)
+        lo = (np.minimum(xa, xb) + (_XY_ONE >> 1)) >> _XY_SHIFT
+        hi = (np.maximum(xa, xb) + (_XY_ONE >> 1)) >> _XY_SHIFT
+        for r, a, b in zip(rows, lo, hi):
+            if r >= 0 and b >= 0 and a < W:
+                mask[r, max(a, 0):min(b, W - 1) + 1] = value
+        edge[0][2] += edge[0][3] * (stop - y)
+        edge[1][2] += edge[1][3] * (stop - y)
+        y = stop
+        if y > ymax:
+            break
     return mask
 
 
@@ -425,14 +507,15 @@ def clip_line(w: int, h: int, p1, p2):
     return (c1 | c2) == 0, (x1, y1), (x2, y2)
 
 
-def _line8_clipped(img: np.ndarray, p0, p1, value) -> None:
-    """cv2.line (LINE_8): endpoints outside the image are clipped first."""
+def line(img: np.ndarray, p0, p1, value) -> np.ndarray:
+    """cv2.line(img, p0, p1, value) with thickness 1 and LINE_8 (in place):
+    endpoints outside the image are clipped first."""
     H, W = img.shape[:2]
     if not all(0 <= p[0] < W and 0 <= p[1] < H for p in (p0, p1)):
         inside, p0, p1 = clip_line(W, H, p0, p1)
         if not inside:
-            return
-    line8(img, p0, p1, value)
+            return img
+    return line8(img, p0, p1, value)
 
 
 def _trunc_div(a: int, b: int) -> int:
@@ -458,7 +541,7 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, value) -> np.ndarray:
     edges = []
     for i in range(n):
         (x0, y0), (x1, y1) = (int(c) for c in v[i - 1]), (int(c) for c in v[i])
-        _line8_clipped(img, (x0, y0), (x1, y1), value)
+        line(img, (x0, y0), (x1, y1), value)
         # fixed-point end points (pt0c/pt1c in OpenCV)
         ax, ay, bx, by = x0 << _XY_SHIFT, y0, x1 << _XY_SHIFT, y1
         if not (0 <= x0 < W and 0 <= x1 < W and 0 <= y0 < H and 0 <= y1 < H):
@@ -529,4 +612,127 @@ def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int, color) ->
     xs = np.arange(W)
     inside = (hw[:, None] >= 0) & (np.abs(xs[None, :] - cx) <= hw[:, None])
     img[ys[0]:ys[-1] + 1][inside] = color
+    return img
+
+
+def _color(img: np.ndarray, color) -> np.ndarray:
+    """A cv2 colour scalar as a value of `img`'s pixels (its first C
+    components; rounded and saturated for uint8)."""
+    c = np.asarray(color, np.float64).reshape(-1)
+    ch = img.shape[2] if img.ndim == 3 else 1
+    c = np.concatenate([c, np.zeros(max(0, ch - len(c)))])[:ch]
+    if img.dtype == np.uint8:
+        c = np.clip(np.rint(c), 0, 255)
+    return c.astype(img.dtype) if img.ndim == 3 else c[0].astype(img.dtype)
+
+
+def _fill_rect(img: np.ndarray, x0: int, y0: int, x1: int, y1: int, value) -> None:
+    """Fill the pixels of [x0..x1] x [y0..y1] (either order) that lie in `img`."""
+    H, W = img.shape[:2]
+    xa, xb = max(min(x0, x1), 0), min(max(x0, x1), W - 1)
+    ya, yb = max(min(y0, y1), 0), min(max(y0, y1), H - 1)
+    if xa <= xb and ya <= yb:
+        img[ya:yb + 1, xa:xb + 1] = value
+
+
+def rectangle(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
+    """cv2.rectangle(img, p1, p2, color, thickness) with LINE_8 (in place).
+
+    Filled (thickness < 0): every pixel between the corners. Thickness 0 or
+    1: the closed outline of 8-connected lines. Thicker: OpenCV's `ThickLine`
+    for each side, whose quad is the side widened by (t + t % 2) / 2 pixels
+    on each side of it, plus a disc of radius (t + 1) // 2 at the side's end
+    (`fill_circle`); a side of zero length draws only its disc."""
+    value = _color(img, color)
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    if thickness < 0:
+        _fill_rect(img, x1, y1, x2, y2, value)
+        return img
+    pts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    if thickness <= 1:
+        for i in range(4):
+            line(img, pts[i - 1], pts[i], value)
+        return img
+    d, r = (thickness + (thickness & 1)) // 2, (thickness + 1) // 2
+    for i in range(4):
+        (ax, ay), (bx, by) = pts[i - 1], pts[i]
+        if ay == by and ax != bx:
+            _fill_rect(img, ax, ay - d, bx, by + d, value)
+        elif ax == bx and ay != by:
+            _fill_rect(img, ax - d, ay, bx + d, by, value)
+        fill_circle(img, (bx, by), r, value)
+    return img
+
+
+# --------------------------------------------------------------------------- #
+# Text (FONT_HERSHEY_SIMPLEX as OpenCV 5.0 draws it)
+# --------------------------------------------------------------------------- #
+
+_FIRST_CHAR, _LAST_CHAR = 32, 126
+
+
+@functools.lru_cache(maxsize=None)
+def _font(scale: float, thickness: int):
+    """(height, [(dx, dy, advance, coverage uint8 [h, w])] by character code
+    from 32) of one size of the probed table."""
+    from yololite_tpu_torch.data.font_simplex import GLYPHS
+    key = (float(scale), int(thickness))
+    if key not in GLYPHS:
+        raise ValueError(f"text at scale {scale}, thickness {thickness}: the port draws "
+                         f"FONT_HERSHEY_SIMPLEX at {sorted(GLYPHS)} (scale, thickness)")
+    height, chunks = GLYPHS[key]
+    blob = zlib.decompress(base64.b64decode("".join(chunks)))
+    glyphs, at = [], 0
+    for _ in range(_LAST_CHAR - _FIRST_CHAR + 1):
+        dx, dy = np.frombuffer(blob[at:at + 2], np.int8).tolist()
+        h, w, adv = blob[at + 2], blob[at + 3], blob[at + 4]
+        at += 5
+        cov = np.frombuffer(blob[at:at + h * w], np.uint8).reshape(h, w)
+        at += h * w
+        glyphs.append((dx, dy, adv, cov))
+    return height, glyphs
+
+
+def _glyph_codes(text: str):
+    """Character codes into the table; anything outside printable ASCII is
+    drawn as '?'."""
+    return [ord(c) - _FIRST_CHAR if _FIRST_CHAR <= ord(c) <= _LAST_CHAR
+            else ord("?") - _FIRST_CHAR for c in text]
+
+
+def text_size(text: str, scale: float, thickness: int):
+    """cv2.getTextSize(text, FONT_HERSHEY_SIMPLEX, scale, thickness):
+    ((width, height), baseline). The width is the advances' sum plus one,
+    the height the font's, the baseline the deepest row any glyph reaches
+    below the origin; an empty text measures ((0, 0), 0)."""
+    height, glyphs = _font(scale, thickness)
+    if not text:
+        return (0, 0), 0
+    gs = [glyphs[k] for k in _glyph_codes(text)]
+    width = sum(g[2] for g in gs) + 1
+    base = max([g[1] + g[3].shape[0] for g in gs if g[3].size] + [0])
+    return (width, height), base
+
+
+def put_text(img: np.ndarray, text: str, org, scale: float, color,
+             thickness: int) -> np.ndarray:
+    """cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, scale, color,
+    thickness) on a uint8 image (in place): each glyph's coverage a blends
+    the colour in as round((dst * (255 - a) + color * a) / 255), glyph after
+    glyph, clipped to the image."""
+    _, glyphs = _font(scale, thickness)
+    H, W = img.shape[:2]
+    view = img.reshape(H, W, -1)
+    col = np.asarray(_color(img, color), np.int32).reshape(-1)
+    x, y = int(org[0]), int(org[1])
+    for k in _glyph_codes(text):
+        dx, dy, adv, cov = glyphs[k]
+        x0, y0 = x + dx, y + dy
+        xa, ya = max(x0, 0), max(y0, 0)
+        xb, yb = min(x0 + cov.shape[1], W), min(y0 + cov.shape[0], H)
+        if xa < xb and ya < yb:
+            a = cov[ya - y0:yb - y0, xa - x0:xb - x0].astype(np.int32)[..., None]
+            dst = view[ya:yb, xa:xb].astype(np.int32)
+            view[ya:yb, xa:xb] = (dst * (255 - a) + col * a + 127) // 255
+        x += adv
     return img

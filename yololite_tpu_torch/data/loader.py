@@ -101,6 +101,45 @@ class DataLoader:
             chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
             yield chunk
 
+    def _epoch_rng(self) -> np.random.RandomState:
+        return np.random.RandomState((self.seed + self.epoch) * 7919 + 13)
+
+    def _batch(self, chunk, rng: np.random.RandomState, pool=None) -> Dict[str, np.ndarray]:
+        """The collated batch of `chunk`'s samples, drawn from `rng` as the
+        iteration draws them (`pool` only fetches the samples concurrently)."""
+        def fetch(pairs):
+            if pool is None:
+                return [self.ds.get(int(i), r) for i, r in pairs]
+            return list(pool.map(lambda a: self.ds.get(int(a[0]), a[1]), pairs))
+
+        if self.num_workers <= 1 and self.rows is None:
+            samples = [self.ds.get(int(i), rng) for i in chunk]
+        else:
+            # one independent RNG per sample: deterministic under concurrency
+            base = int(rng.randint(0, 2**31 - 1))
+            rngs = [np.random.RandomState((base + 31 * k) % (2**31 - 1))
+                    for k in range(len(chunk))]
+            if self.rows is None:
+                samples = fetch(zip(chunk, rngs))
+            else:
+                mine = range(*self.rows.indices(self.batch_size))
+                samples = fetch([(chunk[k], rngs[k]) for k in mine if k < len(chunk)])
+                if not samples:     # padding only: the shapes of the first sample
+                    samples = [_pad_like(self.ds.get(int(chunk[0]), rngs[0]))]
+        want = (self.batch_size if self.rows is None else
+                len(range(*self.rows.indices(self.batch_size))))
+        while len(samples) < want:  # pad final batch (eval)
+            samples.append(_pad_like(samples[0]))
+        batch = collate(samples)
+        batch["nvalid"] = np.int32(len(chunk))
+        return batch
+
+    def first_batch(self) -> Dict[str, np.ndarray]:
+        """The batch that iterating would yield first, made in this thread
+        (exactly one batch of samples is read, none prefetched); the epoch
+        does not advance. StopIteration when there is no batch."""
+        return self._batch(next(self._index_batches()), self._epoch_rng())
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -110,41 +149,13 @@ class DataLoader:
             from concurrent.futures import ThreadPoolExecutor
             pool = ThreadPoolExecutor(max_workers=self.num_workers)
 
-        def fetch(pairs):
-            if pool is None:
-                return [self.ds.get(int(i), r) for i, r in pairs]
-            return list(pool.map(lambda a: self.ds.get(int(a[0]), a[1]), pairs))
-
-        def fetch_batch(chunk, rng):
-            if pool is None and self.rows is None:
-                return [self.ds.get(int(i), rng) for i in chunk]
-            # one independent RNG per sample: deterministic under concurrency
-            base = int(rng.randint(0, 2**31 - 1))
-            rngs = [np.random.RandomState((base + 31 * k) % (2**31 - 1))
-                    for k in range(len(chunk))]
-            if self.rows is None:
-                return fetch(zip(chunk, rngs))
-            mine = range(*self.rows.indices(self.batch_size))
-            samples = fetch([(chunk[k], rngs[k]) for k in mine if k < len(chunk)])
-            if not samples:         # padding only: the shapes of the first sample
-                samples = [_pad_like(self.ds.get(int(chunk[0]), rngs[0]))]
-            return samples
-
         def worker():
-            rng = np.random.RandomState((self.seed + self.epoch) * 7919 + 13)
+            rng = self._epoch_rng()
             try:
                 for chunk in self._index_batches():
                     if stop.is_set():
                         return
-                    samples = fetch_batch(chunk, rng)
-                    nvalid = len(chunk)
-                    want = (self.batch_size if self.rows is None else
-                            len(range(*self.rows.indices(self.batch_size))))
-                    while len(samples) < want:  # pad final batch (eval)
-                        samples.append(_pad_like(samples[0]))
-                    batch = collate(samples)
-                    batch["nvalid"] = np.int32(nvalid)
-                    q.put(batch)
+                    q.put(self._batch(chunk, rng, pool))
             except BaseException as e:  # propagate to the consumer, don't
                 q.put(_WorkerError(e))  # silently truncate the epoch
             finally:

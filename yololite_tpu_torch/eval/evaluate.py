@@ -29,7 +29,7 @@ import copy
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -189,19 +189,23 @@ def make_summary_image(stats: Dict[str, float], curves: Dict, ms_per_img: float,
 
 
 def collect_coco(trainer, variables, loader, img_size: int, conf_th: float,
-                 iou_th: float, max_det: int = 300, masks: bool = True):
+                 iou_th: float, max_det: int = 300, masks: bool = True,
+                 on_batch: Optional[Callable[[int, Dict, Dict], None]] = None):
     """Validate `variables` over `loader` -> (coco images, annotations,
     detections, mean over batches of the val loss per valid image). With
     `masks`, a segmentation model's detections carry RLEs at `img_size`;
     without, the masks stay on the device. Data-parallel: the lists are
     rank 0's gather (None elsewhere); the loss is the global one on every
-    process."""
+    process. `on_batch(index, batch, dets)` sees each batch and its
+    detections (this process's rows)."""
     parts = []                      # per batch: this process's rows as COCO
     img_id, v_running, n_batches = 1, 0.0, 0
-    for batch in loader:
+    for bi, batch in enumerate(loader):
         nvalid = int(batch.get("nvalid", len(batch["image"])))
         metrics, dets = trainer.eval_step(variables, trainer.put_batch(batch),
                                           conf_th=conf_th, iou_th=iou_th, max_det=max_det)
+        if on_batch is not None:
+            on_batch(bi, batch, dets)
         v_running += float(metrics.get("total", 0.0)) / max(1, nvalid)
         n_batches += 1
         # this process's rows: their first global image id and how many are real

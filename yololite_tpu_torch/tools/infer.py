@@ -5,12 +5,11 @@
 
 Reads each image with the port's codecs (`data/codecs.imread_bgr`, JPEG, PNG
 and BMP as `cv2.imread` reads them), runs `Predictor.infer_image_profiled`
-and writes YOLO-txt labels and JSON per image into runs/infer/<n> (or
---out_dir) in the JAX CLI's formats. A file cv2 could not read is skipped
-with JAX's "[skip] cannot read" line; a format the codecs do not decode
-(TIFF) raises `UnsupportedImage`. The `*_pred.jpg` drawings need
-`utils/viz.py` and a JPEG encoder (ROADMAP Queue 1 item 8d) and are skipped
-with a message.
+and writes the drawn detections (`{stem}_pred.jpg`), YOLO-txt labels and
+JSON per image into runs/infer/<n> (or --out_dir) in the JAX CLI's
+formats. A file cv2 could not read is skipped with JAX's "[skip] cannot
+read" line; a format the codecs do not decode (TIFF) raises
+`UnsupportedImage`.
 """
 
 from __future__ import annotations
@@ -21,7 +20,9 @@ import os
 
 from yololite_tpu_torch.config.config import next_run_dir
 from yololite_tpu_torch.data.codecs import imread_bgr
+from yololite_tpu_torch.data.imwrite import imwrite_bgr
 from yololite_tpu_torch.deploy.predictor import Predictor
+from yololite_tpu_torch.utils.viz import draw_detections
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,7 +54,6 @@ def main(argv=None):
     else:
         files = [args.img]
 
-    print("[draw] *_pred.jpg skipped: drawing needs utils/viz.py (ROADMAP Queue 1 item 8d)")
     results = {}
     for path in files:
         try:
@@ -65,6 +65,9 @@ def main(argv=None):
                                       args.max_det)
         results[path] = r
         stem = os.path.splitext(os.path.basename(path))[0]
+        vis = draw_detections(img_bgr[..., ::-1], r["boxes"], r["scores"], r["classes"],
+                              pred.names)
+        imwrite_bgr(os.path.join(out_dir, f"{stem}_pred.jpg"), vis[..., ::-1])
         h, w = img_bgr.shape[:2]
         if args.save_txt:
             with open(os.path.join(out_dir, f"{stem}.txt"), "w") as f:

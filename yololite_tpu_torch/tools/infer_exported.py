@@ -10,7 +10,7 @@ sidecar, reads the image with the port's codecs and runs
 "decoded" format's host sigmoid, score and per-class NMS, or the "nms"
 format's in-graph detections filtered by --conf on the host (its iou and
 max_det were fixed at export). Prints the per-stage times and one line a
-detection. `--out` (drawing) needs `utils/viz.py`: ROADMAP Queue 1 item 8d.
+detection; `--out` writes the drawn detections (encoded by the extension).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 
 from yololite_tpu_torch.data.codecs import imread_bgr
+from yololite_tpu_torch.data.imwrite import imwrite_bgr
 from yololite_tpu_torch.deploy.export import load_exported
 from yololite_tpu_torch.deploy.infer_exported import infer_frame
 
@@ -36,9 +37,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.out:
-        raise NotImplementedError("--out draws the detections, which needs utils/viz.py "
-                                  "and a JPEG encoder: ROADMAP Queue 1 item 8d")
     call, meta = load_exported(args.artifact)
     try:
         img_bgr = imread_bgr(args.img)
@@ -54,6 +52,12 @@ def main(argv=None):
           f"infer {sp['inference_ms']:.1f} ms | post {sp['postprocess_ms']:.1f} ms")
     for box, sc, cl in zip(r["boxes"], r["scores"], r["classes"]):
         print(f"  cls {int(cl)} {sc:.3f} {box.round(1).tolist()}")
+    if args.out:
+        from yololite_tpu_torch.utils.viz import draw_detections
+        vis = draw_detections(img_bgr[..., ::-1], r["boxes"], r["scores"], r["classes"],
+                              meta.get("names"))
+        imwrite_bgr(args.out, vis[..., ::-1])
+        print(f"saved {args.out}")
     return r
 
 

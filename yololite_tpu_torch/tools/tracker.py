@@ -1,7 +1,8 @@
 """Multi-object tracking over an image sequence (port of `tools/tracker.py`).
 
     python -m yololite_tpu_torch.tools.tracker --weights best.ckpt \
-        --video frames/%04d.png [--max_frames N] [--device cuda]
+        --video frames/%04d.png [--out out.avi | --out out/%04d.jpg] \
+        [--max_frames N] [--device cuda]
 
 `Predictor.infer_stream` (two graph calls in flight) feeds a
 `KalmanSortTracker`; prints "Processed N frames @ F FPS". The port has no
@@ -10,26 +11,42 @@ sequence, a printf pattern of JPEG, PNG or BMP files (`frames/%04d.png`),
 decoded by the port's codecs from the first index in 0-4 that exists up to
 the first index missing, as OpenCV 5.0 does (a frame OpenCV cannot decode
 ends the sequence there too; frames must share one size). A container file
-or a camera index, `--out` (`cv2.VideoWriter` and drawing) and `--show` raise
-`NotImplementedError` (ROADMAP, "When a user needs them": video files for
-the tracker; drawing, Queue 1 item 8d).
+or a camera index raises `NotImplementedError` (ROADMAP, "When a user needs
+them": video files for the tracker).
+
+`--out` draws each frame as the JAX tool does (track boxes and labels in
+the class colour, the FPS line) and writes it, with no video encoder (the
+JAX tool's `cv2.VideoWriter(..., "mp4v")`): a printf pattern as a sequence
+of image files numbered from 1 (as OpenCV's image-sequence writer numbers
+them), encoded by their extension; an `.avi` as Motion-JPEG at the JAX
+tool's rate, `cap.get(CAP_PROP_FPS) or 30`, which OpenCV 5.0 reports as 25
+for an image sequence. Any other container raises `NotImplementedError`
+naming the same ROADMAP entry; `--show` (a window) raises as well.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import re
 import time
+from collections import deque
 
+from yololite_tpu_torch.data import imgops
 from yololite_tpu_torch.data.codecs import imread_bgr
+from yololite_tpu_torch.data.imwrite import AviWriter, imwrite_bgr
 from yololite_tpu_torch.deploy.predictor import Predictor
 from yololite_tpu_torch.track import KalmanSortTracker
+from yololite_tpu_torch.utils.viz import class_color
 
 _PRINTF_INT = re.compile(r"%0?\d*d")
 # cv2.VideoCapture's image-sequence reader (ffmpeg's image2 demuxer) looks
 # for the first frame among these indices
 FIRST_INDICES = range(5)
+# the frame rate cv2.VideoCapture reports for an image sequence (OpenCV 5.0),
+# which the JAX tool's writer takes
+SEQUENCE_FPS = 25.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", required=True)
     ap.add_argument("--video", required=True,
                     help="printf pattern of image files, e.g. frames/%%04d.png")
-    ap.add_argument("--out", default=None, help="output video path (not ported)")
+    ap.add_argument("--out", default=None,
+                    help="output: out.avi (Motion-JPEG) or a pattern out/%%04d.jpg")
     ap.add_argument("--conf", type=float, default=0.35)
     ap.add_argument("--iou", type=float, default=0.45)
     ap.add_argument("--track_iou", type=float, default=0.3)
@@ -49,10 +67,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _is_pattern(path: str) -> bool:
+    return len(_PRINTF_INT.findall(path)) == 1
+
+
 def sequence_paths(pattern: str):
     """The files `cv2.VideoCapture(pattern)` reads, in order. A pattern with
     no printf integer field (a container file) or a camera index raises."""
-    if pattern.isdigit() or len(_PRINTF_INT.findall(pattern)) != 1:
+    if pattern.isdigit() or not _is_pattern(pattern):
         raise NotImplementedError(
             f"--video {pattern!r}: the port reads image sequences given as one printf "
             f"pattern (frames/%04d.png); camera indices and video files need a video "
@@ -84,12 +106,60 @@ def read_frames(pattern: str, max_frames: int = 0):
         yield frame
 
 
+class SequenceWriter:
+    """Frames written as the files of a printf pattern, numbered from 1."""
+
+    def __init__(self, pattern: str):
+        self.pattern, self.n = pattern, 0
+
+    def write(self, frame) -> None:
+        self.n += 1
+        path = self.pattern % self.n
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        imwrite_bgr(path, frame)
+
+    def close(self) -> None:
+        pass
+
+
+def check_out(out: str) -> None:
+    """`--out` must be a printf pattern of image files or an .avi."""
+    if not (_is_pattern(out) or out.lower().endswith(".avi")):
+        raise NotImplementedError(
+            f"--out {out!r}: the port writes an image sequence (out/%04d.jpg) or "
+            f"Motion-JPEG in an .avi; other containers need a video encoder: ROADMAP, "
+            f"'When a user needs them' (video files for the tracker)")
+
+
+def open_writer(out: str, size):
+    """The writer for `--out` (`check_out`) for frames of `size` (w, h)."""
+    check_out(out)
+    if _is_pattern(out):
+        return SequenceWriter(out)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    return AviWriter(out, SEQUENCE_FPS, size)
+
+
+def draw_tracks(frame, tracks, fps: float) -> None:
+    """The JAX tool's overlay, drawn on the BGR frame in place: each track's
+    box and "#id c<cls> score" in its class colour, then the FPS line."""
+    for t in tracks:
+        x1, y1, x2, y2 = [int(v) for v in t["bbox"]]
+        color = class_color(t["cls"])
+        imgops.rectangle(frame, (x1, y1), (x2, y2), color, 2)
+        imgops.put_text(frame, f"#{t['track_id']} c{t['cls']} {t['score']:.2f}",
+                        (x1, max(12, y1 - 6)), 0.5, color, 1)
+    imgops.put_text(frame, f"FPS {fps:.1f}", (8, 24), 0.8, (0, 255, 0), 2)
+
+
 def run(args):
-    """Track over the sequence; returns (the tracker's output for each frame,
-    the last FPS reading)."""
-    if args.out or args.show:
-        raise NotImplementedError("--out and --show draw the tracks (cv2.VideoWriter, "
-                                  "utils/viz.py): ROADMAP Queue 1 item 8d")
+    """Track over the sequence, drawing and writing each frame with --out;
+    returns (the tracker's output for each frame, the last FPS reading)."""
+    if args.show:
+        raise NotImplementedError("--show opens a window (cv2.imshow), which the port "
+                                  "does not have: ROADMAP Queue 3 (the tracker's output)")
+    if args.out:
+        check_out(args.out)             # before the model loads
     frames = read_frames(args.video, args.max_frames)
     first = next(frames, None)          # opens the source before the model loads
     pred = Predictor(args.weights, device=args.device)
@@ -97,24 +167,42 @@ def run(args):
     tracker = KalmanSortTracker(iou_threshold=args.track_iou, max_age=args.max_age,
                                 min_hits=args.min_hits)
 
+    # the stream yields results in order without their frames: pair them
+    pending = deque()
+
     def stream():
         if first is not None:
-            yield first
-            yield from frames
+            for f in itertools.chain([first], frames):
+                pending.append(f)
+                yield f
 
-    per_frame, n, fps = [], 0, 0.0
+    per_frame, n, fps, writer = [], 0, 0.0, None
     t0 = time.perf_counter()
-    for res in pred.infer_stream(stream(), conf=args.conf, iou=args.iou):
-        per_frame.append(tracker.update(res["boxes"], res["scores"], res["classes"]))
-        n += 1
-        if n % 10 == 0:
-            fps = n / (time.perf_counter() - t0)
+    try:
+        for res in pred.infer_stream(stream(), conf=args.conf, iou=args.iou):
+            frame = pending.popleft()
+            tracks = tracker.update(res["boxes"], res["scores"], res["classes"])
+            per_frame.append(tracks)
+            n += 1
+            if n % 10 == 0:
+                fps = n / (time.perf_counter() - t0)
+            if args.out:
+                frame = frame.copy()
+                draw_tracks(frame, tracks, fps)
+                if writer is None:
+                    writer = open_writer(args.out, (frame.shape[1], frame.shape[0]))
+                writer.write(frame)
+    finally:
+        if writer is not None:
+            writer.close()
     return per_frame, fps
 
 
 def main(argv=None):
-    tracks, fps = run(build_parser().parse_args(argv))
-    print(f"Processed {len(tracks)} frames @ {fps:.1f} FPS")
+    args = build_parser().parse_args(argv)
+    tracks, fps = run(args)
+    print(f"Processed {len(tracks)} frames @ {fps:.1f} FPS"
+          + (f" -> {args.out}" if args.out else ""))
     return tracks
 
 

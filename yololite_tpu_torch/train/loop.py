@@ -50,9 +50,12 @@ batch must split over the data indices, else one process trains, as JAX
 drops its mesh.
 
 Not ported, raising `NotImplementedError` with its ROADMAP item: the orbax
-checkpoint backend (8c); the sanity and val-debug images need
-`utils/viz.py` (8d) and are skipped with a message, as the JAX loop does
-when drawing fails.
+checkpoint backend (8c).
+
+The main process draws the first training batch's labels into
+`sanity_check.jpg` (a failure is printed and skipped, as in the JAX loop)
+and, from epoch 6 on, the detections of one validation batch (picked by
+`random.randrange`, as JAX picks it) into `last_b{n}.jpg`.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ from yololite_tpu_torch.train.schedulers import build_scheduler
 from yololite_tpu_torch.train.steps import Trainer
 from yololite_tpu_torch.train.writers import MetricWriters
 from yololite_tpu_torch.utils.profiling import start_trace, stop_trace
+from yololite_tpu_torch.utils.viz import save_val_debug, visualize_batch
 
 CSV_HEADER = ["epoch", "AP", "AP50", "AP75", "APS", "APM", "APL", "AR",
               "train_loss", "val_loss", "lr_g0", "lr_g1", "lr_g2",
@@ -319,7 +323,12 @@ def _train(config: Dict[str, Any], device: str,
     best_ckpt = os.path.join(weight_dir, "best_model_state.ckpt")
     last_ckpt = os.path.join(weight_dir, "last_model_state.ckpt")
     best_no_aug = os.path.join(weight_dir, "best_no_aug.ckpt")
-    say("[sanity_check] skipped: drawing needs utils/viz.py (ROADMAP Queue 1 item 8d)")
+    if main:    # sanity-check image of the first batch
+        try:
+            first = train_loader.first_batch()   # JAX: next(iter(train_loader))
+            visualize_batch(first, os.path.join(log_dir, "sanity_check.jpg"), class_names)
+        except Exception as e:
+            print(f"[sanity_check] skipped: {e}")
 
     best_metric, best_metric_no_aug = -1.0, -1.0
     train_losses, val_losses, step_losses = [], [], []
@@ -393,9 +402,16 @@ def _train(config: Dict[str, Any], device: str,
         if do_eval:
             # per-epoch COCO is bbox-only (segm mAP runs in the final
             # evaluate_model): the masks stay on the device
+            dbg_batch = random.randrange(max(1, len(val_loader)))
+
+            def val_debug(bi, batch, dets):
+                if bi == dbg_batch and epoch + 1 > 5 and main:
+                    save_val_debug(batch["image"], {k: dets[k].cpu().numpy() for k in
+                                                    ("boxes", "scores", "classes", "valid")},
+                                   log_dir, conf_th=0.3, names=class_names)
             coco_images, coco_anns, coco_dets, avg_val = collect_coco(
                 trainer, variables, val_loader, img_size, conf_th=0.1, iou_th=0.65,
-                masks=False)
+                masks=False, on_batch=val_debug)
             scheduler.observe(avg_val)
             coco_stats = None
             if main:
