@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the serving and training paths' shapes and beyond
               (nms_suppress: B=128 at k = 256, 512, 1024, 2048; B=1 at
-              k=512; B=8 at k = 1,024 (validation), 8,400 and 8,683): the
-              keep masks must be equal; prints kernel, mask-pass, scan and
-              plain ms beside the bound
+              k=512; B=8 at k = 1,024 (validation), 8,400 and 8,683), in
+              its IoU and its DIoU mode (DIoU also at DIOU_NEG_THR for
+              k <= 2,048): the keep masks must be equal; prints kernel,
+              mask-pass, scan and plain ms beside the bound
   4. fp32     edge_n @640, 2 images, TF32 off: card (kernel) against CPU
               (plain version)
   5. serve    edge_n @640 at full width, seeded heads and the bundled
@@ -149,8 +150,8 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               same PNG set: model_info --all (12 configs @640) on the card,
               its table logged, parameters and FLOPs equal to the CPU's;
               pretrain_backbone (MobileNetV4-Conv-S-050, 25 epochs b32 @224)
-              on an imagefolder of PNG crops of the set's boxes, in
-              make_crop_corpus's layout (finite, falling loss; EMA val top-1
+              on an imagefolder of JPEG crops of the set's boxes written by
+              the port's make_crop_corpus (finite, falling loss; EMA val top-1
               above the majority class's share), its checkpoint loaded into
               a 1-epoch edge_n run through pretrained_backbone (the backbone
               at step 0 equal to it); benchmark --epochs 1 --batch_size 8
@@ -159,7 +160,25 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               predicted; its batched img/s beside serve's); the loop's
               profile flag on a 2-epoch run (one trace, holding CUDA kernel
               events)
- 18. ddp      data-parallel training, edge_n @640 at full width: two ranks
+ 18. synth    the dataset generators on the card's host (numpy, through
+              each tool's main(argv)): make_hard_synth 32 + 8 at base 640
+              (boxes) and 16 + 8 (--seg), make_synth_dataset 32 + 8 at 320
+              (plain and --seg_polygons), make_crop_corpus of the HardSynth
+              set, make_cls_corpus 8 + 2 a class at 160; host ms an image,
+              every JPEG decoded within DRAW_PSNR_DB of its canvas, every
+              label row parsed by the dataset readers. Then edge_n @640
+              trained 2 epochs b8 by hardsynth_device_aug.yaml (validation
+              every epoch) on HardSynth through tools.train (finite, falling
+              loss), tools.evaluate on its best checkpoint (finite stats),
+              edge_n_seg 1 epoch on the --seg set (finite mask loss),
+              pretrain_backbone 2 epochs on the class corpus (finite loss);
+              the trained edge_n's raw outputs on the 8 val images (8,400
+              anchors) suppressed at top-k 512 and 8,400, IoU and DIoU, iou
+              0.65 and DIOU_NEG_THR: keep masks equal to the plain version's
+              on the same tensors on the CPU, then batched_nms on the card
+              (launches counted, DIoU apart) bit for bit the plain
+              detections
+ 19. ddp      data-parallel training, edge_n @640 at full width: two ranks
               spawned on this one card over gloo (NCCL refuses two ranks on
               one device) against one process at the same global batch and
               weights: a b16 step (8 a rank) in fp32 (TF32 off) and bf16,
@@ -176,7 +195,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               final COCO equal to one process's evaluate_model of the best
               checkpoint); with 2 cards the same over NCCL, else a world-1
               NCCL group
- 19. spatial  spatial parallelism (the image height split over ranks),
+ 20. spatial  spatial parallelism (the image height split over ranks),
               yololite_l + P6 @1280 at full width and depth on a 1280x1280
               PNG set, seeded weights with calibrated BatchNorm statistics:
               n_data 1 x n_spatial 2 ranks on this card over gloo against
@@ -222,7 +241,7 @@ sys.path.insert(0, ROOT)
 
 from yololite_tpu_torch.api import YoloLite  # noqa: E402
 from yololite_tpu_torch.config import read_yaml  # noqa: E402
-from yololite_tpu_torch.config.config import MODEL_DIRS, load_configs  # noqa: E402
+from yololite_tpu_torch.config.config import MODEL_DIRS, dump_yaml, load_configs  # noqa: E402
 from yololite_tpu_torch.convert import load_flax, to_flax  # noqa: E402
 from yololite_tpu_torch.csrc import build as kbuild  # noqa: E402
 from yololite_tpu_torch.data import augment as host_aug  # noqa: E402
@@ -231,9 +250,11 @@ from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
 from yololite_tpu_torch.data import weather  # noqa: E402
 from yololite_tpu_torch.data.imwrite import (  # noqa: E402
-    encode_jpeg, write_bmp, write_jpeg, write_png,
+    JPEG_QUALITY, encode_jpeg, write_bmp, write_jpeg, write_png,
 )
-from yololite_tpu_torch.data.dataset import YoloDataset  # noqa: E402
+from yololite_tpu_torch.data.dataset import (  # noqa: E402
+    YoloDataset, parse_yolo_label_file, parse_yolo_seg_file,
+)
 from yololite_tpu_torch.data.loader import DataLoader, collate  # noqa: E402
 from yololite_tpu_torch import native  # noqa: E402
 from yololite_tpu_torch.deploy import export as deploy_export  # noqa: E402
@@ -252,7 +273,8 @@ from yololite_tpu_torch.ops.decode import decode_anchorfree, flatten_levels  # n
 from yololite_tpu_torch.ops.masks import assemble_masks_batch  # noqa: E402
 from yololite_tpu_torch.parallel import dist as pdist  # noqa: E402
 from yololite_tpu_torch.ops.nms import (  # noqa: E402
-    batched_nms, finalize_detections, nms_numpy, select_candidates, yolo_scores,
+    _greedy_keep, _suppression_matrix, batched_nms, finalize_detections, nms_numpy,
+    select_candidates, yolo_scores,
 )
 from yololite_tpu_torch.train.checkpoint import (  # noqa: E402
     build_meta, load_checkpoint, model_from_meta, save_checkpoint,
@@ -271,6 +293,10 @@ from yololite_tpu_torch.tools import benchmark as cli_benchmark  # noqa: E402
 from yololite_tpu_torch.tools import model_info as cli_model_info  # noqa: E402
 from yololite_tpu_torch.tools import pretrain_backbone as cli_pretrain  # noqa: E402
 from yololite_tpu_torch.tools import augment_weather as cli_augment  # noqa: E402
+from yololite_tpu_torch.tools import make_cls_corpus as cli_make_cls  # noqa: E402
+from yololite_tpu_torch.tools import make_crop_corpus as cli_make_crops  # noqa: E402
+from yololite_tpu_torch.tools import make_hard_synth as cli_make_hs  # noqa: E402
+from yololite_tpu_torch.tools import make_synth_dataset as cli_make_synth  # noqa: E402
 from yololite_tpu_torch.utils.viz import draw_detections  # noqa: E402
 
 IMG = 640
@@ -285,6 +311,10 @@ BACKBONE_CKPT = os.path.join(ROOT, "weights", "mnv4_050_cls20.ckpt")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 IOU_FLOPS_PER_PAIR = 15   # 4 min/max, 4 sub, 2 clamp, 1 mul, 2 add, 1 div, 1 cmp
+# DIoU adds 2 sub, 2 mul, 1 add (d2), 2 max, 2 min, 2 sub, 2 mul, 2 add (c2),
+# 1 div, 1 sub a pair (csrc/nms_suppress.cu); the centres are per box
+DIOU_FLOPS_PER_PAIR = IOU_FLOPS_PER_PAIR + 17
+DIOU_NEG_THR = -0.1       # a DIoU threshold below 0: the kernel computes every column
 SLEEP_CYCLES_PER_MS = 2.0e6   # at most ~2 GHz SM clock: a sleep at least this long
 NMS_CASES = [(BATCH, 256), (BATCH, PRE_NMS_TOPK), (BATCH, 1024), (BATCH, 2048),
              (1, PRE_NMS_TOPK), (8, 1024),    # (B, k); B=8 k=1024: the val batch of
@@ -482,20 +512,21 @@ def _dense_boxes(rng, b, k):
             torch.from_numpy(valid).cuda())
 
 
-def nms_bound_ms(keep: torch.Tensor, valid: torch.Tensor):
-    """Least time for the suppression on this data: the IoUs exact greedy
-    needs (each kept box against every later valid candidate) at the fp32
-    rate, or the bytes (boxes and valid in, keep out) at the memory rate."""
+def nms_bound_ms(keep: torch.Tensor, valid: torch.Tensor, per_pair: int = IOU_FLOPS_PER_PAIR):
+    """Least time for the suppression on this data: the IoUs (or DIoUs, at
+    `per_pair` operations) exact greedy needs (each kept box against every
+    later valid candidate) at the fp32 rate, or the bytes (boxes and valid
+    in, keep out) at the memory rate."""
     later_valid = valid.flip(-1).cumsum(-1).flip(-1) - valid.long()
     pairs = int((later_valid * keep).sum())
     b, k = keep.shape
-    ops = pairs * IOU_FLOPS_PER_PAIR
+    ops = pairs * per_pair
     nbytes = b * k * (16 + 1 + 1)                # boxes f32, valid, keep
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations", pairs) if t_ops >= t_bytes else (t_bytes, "bytes", pairs)
 
 
-def _launch_split(boxes, valid, iou_th):
+def _launch_split(boxes, valid, iou_th, diou: bool = False):
     """The kernel's two launches as separate calls, for timing them apart
     (not counted in cuda_nms.LAUNCHES)."""
     lib = cuda_nms.library()
@@ -510,12 +541,46 @@ def _launch_split(boxes, valid, iou_th):
 
     def mask():
         check(lib.yl_nms_mask(boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
-                              b, k, iou_th, stream), "yl_nms_mask")
+                              b, k, iou_th, int(diou), stream), "yl_nms_mask")
 
     def scan():
         check(lib.yl_nms_scan(scratch.data_ptr(), valid.data_ptr(), keep.data_ptr(),
                               b, k, stream), "yl_nms_scan")
     return mask, scan, keep
+
+
+def _kernel_diou(card: str, boxes, valid, thr: float, many: int) -> dict:
+    """The DIoU mode against its plain version on one case's inputs, timed
+    beside its bound (DIOU_FLOPS_PER_PAIR over the pairs its keep mask needs)."""
+    b, k = valid.shape
+    got = cuda_nms.greedy_keep(boxes, valid, thr, True)
+    want = cuda_nms.greedy_keep_reference(boxes, valid, thr, True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"nms_suppress DIoU B={b} k={k}: "
+                             f"{int((got != want).sum())} keep bits differ")
+    mask, scan, split_keep = _launch_split(boxes, valid, thr, diou=True)
+    mask()
+    scan()
+    torch.cuda.synchronize()
+    if not torch.equal(split_keep, got):
+        raise AssertionError(f"nms_suppress DIoU B={b} k={k}: split launches differ")
+    if k <= 2048:                      # every column computed: no prefilter below 0
+        neg = cuda_nms.greedy_keep(boxes, valid, DIOU_NEG_THR, True)
+        if not torch.equal(neg, cuda_nms.greedy_keep_reference(boxes, valid,
+                                                               DIOU_NEG_THR, True)):
+            raise AssertionError(f"nms_suppress DIoU B={b} k={k} at {DIOU_NEG_THR}: "
+                                 f"keep masks differ")
+    ms = cuda_ms(lambda: cuda_nms.greedy_keep(boxes, valid, thr, True), many)
+    ms_mask = cuda_ms(mask, many)
+    plain = cuda_ms(lambda: cuda_nms.greedy_keep_reference(boxes, valid, thr, True), 3, 1)
+    bound, by, pairs = nms_bound_ms(got, valid, DIOU_FLOPS_PER_PAIR)
+    log(f"kernel nms_suppress DIoU B={b} k={k}: equal keep masks ({int(got.sum())} kept); "
+        f"kernel {ms:.4f} ms (mask {ms_mask:.4f}), plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}, {pairs} pairs at {DIOU_FLOPS_PER_PAIR} op) [{card}]")
+    return {"err": int((got.int() - want.int()).abs().max()), "ms_diou": ms,
+            "ms_mask_diou": ms_mask, "plain_ms_diou": plain, "bound_ms_diou": bound,
+            "bound_by_diou": by, "pairs_diou": pairs, "kept_diou": int(got.sum())}
 
 
 def phase_kernels(card: str):
@@ -552,7 +617,11 @@ def phase_kernels(card: str):
         log(f"kernel nms_suppress B={b} k={k}: equal keep masks ({int(got.sum())} kept); "
             f"kernel {ms:.4f} ms (mask {ms_mask:.4f}, scan {ms_scan:.4f}), "
             f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}, {pairs} pairs) [{card}]")
-        del boxes, valid, got, want, mask, scan, split_keep
+        del got, want, mask, scan, split_keep
+        torch.cuda.empty_cache()
+        rows[key].update(_kernel_diou(card, boxes, valid, thr, many))
+        max_err = max(max_err, rows[key].pop("err"))
+        del boxes, valid
         torch.cuda.empty_cache()
     chain = torch.tensor([[i * 20.0, 0.0, i * 20.0 + 100.0, 50.0] for i in range(30)],
                          device="cuda")[None]
@@ -955,35 +1024,6 @@ def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
     return data_yaml
 
 
-
-def make_crop_set(data_yaml: str, out: str, margin: float = 0.25, min_px: int = 10) -> str:
-    """`tools/make_crop_corpus.py`'s imagefolder of a synthetic set, as PNG
-    crops of `write_png`: every labelled box with a context margin of
-    `margin` of its size, under out/train/<class>/ and out/val/<class>/.
-    Returns `out`."""
-    root = os.path.dirname(data_yaml)
-    for split, src in (("train", "train"), ("val", "valid")):
-        img_dir = os.path.join(root, src, "images")
-        for fn in sorted(os.listdir(img_dir)):
-            stem = os.path.splitext(fn)[0]
-            img = host_codecs.imread_bgr(os.path.join(img_dir, fn))[..., ::-1]
-            h, w = img.shape[:2]
-            with open(os.path.join(root, src, "labels", stem + ".txt")) as f:
-                rows = [ln.split() for ln in f.read().splitlines() if ln.strip()]
-            for ri, r in enumerate(rows):
-                cx, cy, bw, bh = (float(v) for v in r[1:5])
-                x1, y1, x2, y2 = (cx - bw / 2) * w, (cy - bh / 2) * h, \
-                    (cx + bw / 2) * w, (cy + bh / 2) * h
-                mx, my = margin * (x2 - x1), margin * (y2 - y1)
-                xa, ya = max(0, int(x1 - mx)), max(0, int(y1 - my))
-                xb, yb = min(w, int(x2 + mx) + 1), min(h, int(y2 + my) + 1)
-                if xb - xa < min_px or yb - ya < min_px:
-                    continue
-                cdir = os.path.join(out, split, f"c{int(float(r[0]))}")
-                os.makedirs(cdir, exist_ok=True)
-                write_png(os.path.join(cdir, f"{stem}_{ri}.png"), img[ya:yb, xa:xb])
-    return out
-
 SEG_SHAPES = ("rect", "tri", "ell")
 
 
@@ -1288,10 +1328,13 @@ def train_timing(data_yaml: str, card: str, tmp: str, iters: int = 10):
                 evaluate_model_s=evaluate_s)
 
 
-def _check_run_dir(log_dir: str) -> None:
+def _check_run_dir(log_dir: str, curves: bool = True) -> None:
+    """A run's artifacts; `curves=False` for a run whose final evaluation
+    may find no detection to draw P/R/F1 curves of."""
     want = ["merged_config.yaml", "metrics.csv", "last_metrics.json", "best_metrics.json",
-            "eval_results.json", "p_r_f1_curves.csv", "confusion_stats.txt",
+            "eval_results.json", "confusion_stats.txt",
             "weights/best_model_state.ckpt", "weights/last_model_state.ckpt"]
+    want += ["p_r_f1_curves.csv"] if curves else []
     missing = [w for w in want if not os.path.exists(os.path.join(log_dir, w))]
     if missing:
         raise AssertionError(f"train: missing artifacts {missing}")
@@ -3879,7 +3922,9 @@ def _tools_pretrain(card: str, data: str, work: str) -> dict:
     """Crops of the synthetic set as an imagefolder, `pretrain_backbone` on
     the card: finite and falling loss, EMA val top-1 above the majority
     class's share."""
-    crops = make_crop_set(data, os.path.join(work, "crops"))
+    crops = os.path.join(work, "crops")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_make_crops.main(["--data", os.path.dirname(data), "--out", crops])
     counts = {split: {c: len(os.listdir(os.path.join(crops, split, c)))
                       for c in sorted(os.listdir(os.path.join(crops, split)))}
               for split in ("train", "val")}
@@ -4042,6 +4087,323 @@ def phase_tools(card: str, data: str, tmp: str, serve: dict):
         os.chdir(cwd)
     out["launches"] = out["benchmark"]["launches"]
     return out
+
+
+# --------------------------------------------------------------------------- #
+# synth: the four dataset generators on this machine's host (numpy; the
+# card's machine has no cv2), then edge_n @640 trained by
+# hardsynth_device_aug.yaml (2 epochs b8, validation every epoch) and
+# evaluated on HardSynth-20, edge_n_seg 1 epoch on its polygon set, backbone
+# pretraining on the classification corpus, and DIoU-NMS on the trained
+# model's raw outputs, card against the plain version on the CPU
+SYNTH_HS = ["--n_train", "32", "--n_val", "8", "--base", str(IMG), "--seed", "7"]
+SYNTH_HS_SEG = ["--n_train", "16", "--n_val", "8", "--base", str(IMG), "--seed", "7", "--seg"]
+SYNTH_SD = ["--n_train", "32", "--n_val", "8", "--img", "320"]
+SYNTH_CLS = ["--per_class", "8", "--val_per_class", "2", "--img", "160"]
+SYNTH_TRAIN = ["--epochs", "2", "--batch_size", "8", "--img_size", str(IMG), "--workers", "8",
+               "--pretrained_backbone", BACKBONE_CKPT, "--data_parallel", "1"]
+SYNTH_PRETRAIN = dict(PRETRAIN, epochs=2)
+SYNTH_TOPK = (PRE_NMS_TOPK, 8400)          # the Predictor's top-k, and every anchor @640
+SYNTH_IOU = (0.65, DIOU_NEG_THR)
+# conf 0: every anchor with a score above 0 is a candidate (the 2-epoch model
+# scores no anchor above the validation's 0.001 on HardSynth-20's 20 classes)
+SYNTH_NMS = dict(conf_th=0.0, max_det=300, class_aware=True)
+
+
+@contextlib.contextmanager
+def _captured_generator_writes():
+    """{absolute path: (BGR canvas, JPEG quality)} of every image the four
+    generator tools write while the block runs (the files are written too)."""
+    seen = {}
+    jpeg, bgr = cli_make_hs.write_jpeg, cli_make_cls.imwrite_bgr
+
+    def write_jpeg_(path, rgb, quality=90):
+        seen[os.path.abspath(path)] = (np.array(rgb[..., ::-1]), quality)
+        jpeg(path, rgb, quality)
+
+    def imwrite_bgr_(path, img):
+        seen[os.path.abspath(path)] = (np.array(img), JPEG_QUALITY)
+        bgr(path, img)
+    for m in (cli_make_hs, cli_make_synth):
+        m.write_jpeg = write_jpeg_
+    for m in (cli_make_cls, cli_make_crops):
+        m.imwrite_bgr = imwrite_bgr_
+    try:
+        yield seen
+    finally:
+        for m in (cli_make_hs, cli_make_synth):
+            m.write_jpeg = jpeg
+        for m in (cli_make_cls, cli_make_crops):
+            m.imwrite_bgr = bgr
+
+
+def _check_generated(seen: dict, what: str) -> dict:
+    """Every JPEG a generator wrote decodes with the port's codec within
+    DRAW_PSNR_DB of the canvas it drew (1 in DRAW_REENCODE_EVERY byte for
+    byte the encoder's output at its quality)."""
+    psnrs = []
+    for k, (path, (canvas, quality)) in enumerate(sorted(seen.items())):
+        with open(path, "rb") as f:
+            data = f.read()
+        got = host_codecs.decode_jpeg(data)
+        psnrs.append(_psnr(got, canvas))
+        if got.shape != canvas.shape or psnrs[-1] < DRAW_PSNR_DB:
+            raise AssertionError(f"synth: {path} decodes {got.shape} at {psnrs[-1]:.2f} dB of "
+                                 f"its canvas {canvas.shape} (floor {DRAW_PSNR_DB})")
+        if k % DRAW_REENCODE_EVERY == 0 and data != encode_jpeg(canvas[..., ::-1], quality):
+            raise AssertionError(f"synth: {path} is not the encoder's output of its canvas")
+    if not seen:
+        raise AssertionError(f"synth: {what} wrote no image")
+    return {"files": len(seen), "jpeg_min_psnr_db": min(psnrs)}
+
+
+def _check_labels(root: str, nc: int, polygons: bool) -> dict:
+    """Every label row of a generated YOLO set parses with the port's
+    readers (boxes and polygons) with its class in [0, nc); a polygon set
+    holds polygon rows."""
+    rows = poly_rows = 0
+    for split in ("train", "valid"):
+        ldir = os.path.join(root, split, "labels")
+        for fn in sorted(os.listdir(ldir)):
+            path = os.path.join(ldir, fn)
+            with open(path) as f:
+                widths = [len(ln.split()) for ln in f.read().splitlines() if ln.strip()]
+            n = len(widths)
+            boxes, polys = parse_yolo_label_file(path), parse_yolo_seg_file(path)
+            cls = boxes[:, 0]
+            if len(boxes) != n or len(polys) != n or not (
+                    (cls >= 0) & (cls < nc) & np.isfinite(boxes).all(1)).all():
+                raise AssertionError(f"synth: {path}: {n} rows, parsed {len(boxes)} boxes "
+                                     f"and {len(polys)} polygons, classes {cls.tolist()}")
+            rows += n
+            poly_rows += sum(w > 5 for w in widths)
+    if polygons != (poly_rows > 0):
+        raise AssertionError(f"synth: {root}: {poly_rows} polygon rows (polygons {polygons})")
+    return {"rows": rows, "polygon_rows": poly_rows}
+
+
+def _synth_generate(card: str, work: str) -> dict:
+    """The four tools through main(argv): host ms a written image, every
+    file and label row checked."""
+    hs, hs_seg = os.path.join(work, "hardsynth"), os.path.join(work, "hardsynth_seg")
+    runs = (("hardsynth", cli_make_hs, ["--out", hs] + SYNTH_HS, 20, False),
+            ("hardsynth_seg", cli_make_hs, ["--out", hs_seg] + SYNTH_HS_SEG, 20, True),
+            ("synth", cli_make_synth, ["--out", os.path.join(work, "synth")] + SYNTH_SD,
+             4, False),
+            ("synth_seg", cli_make_synth, ["--out", os.path.join(work, "synth_seg"),
+                                           "--seg_polygons"] + SYNTH_SD, 4, True),
+            ("crops", cli_make_crops, ["--data", hs, "--out", os.path.join(work, "crops")],
+             None, None),
+            ("cls", cli_make_cls, ["--out", os.path.join(work, "cls")] + SYNTH_CLS, None, None))
+    out = {}
+    for name, mod, argv, nc, polygons in runs:
+        buf = io.StringIO()
+        with _captured_generator_writes() as seen, contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            mod.main(argv)
+            secs = time.perf_counter() - t0
+        files = _check_generated(seen, name)
+        root = argv[argv.index("--out") + 1]
+        labels = _check_labels(root, nc, polygons) if nc else None
+        out[name] = dict(files, seconds=secs, ms_per_image=secs * 1e3 / files["files"],
+                         labels=labels, root=root)
+        log(f"synth {mod.__name__.rsplit('.', 1)[1]} {' '.join(argv[2:])}: {files['files']} "
+            f"JPEGs in {secs:.2f} s, {out[name]['ms_per_image']:.2f} ms an image on the host "
+            f"({_cpu_name()}); each decodes at >= {files['jpeg_min_psnr_db']:.2f} dB of its "
+            f"canvas; {labels or 'no labels'}; "
+            f"{' | '.join(buf.getvalue().strip().splitlines())[:240]} [{card}]")
+    return out
+
+
+def _synth_recipe(work: str) -> str:
+    """hardsynth_device_aug.yaml with validation every epoch (the command
+    line has no --eval_every)."""
+    cfg = read_yaml(os.path.join(ROOT, "configs", "train", "hardsynth_device_aug.yaml"))
+    cfg["training"]["eval_every"] = 1
+    path = os.path.join(work, "hardsynth_device_aug_eval1.yaml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg))
+    return path
+
+
+def _synth_train(card: str, rel: str, data: str, recipe: str, epochs: int, what: str) -> dict:
+    """`tools.train` on a generated set: finite losses, the launches
+    (validation each epoch and the final evaluation) and, per step, the
+    loss metrics the trainer returned."""
+    steps = []
+    real = Trainer.train_step
+
+    def step(self, state, batch, lr_vec):
+        state, metrics = real(self, state, batch, lr_vec)
+        steps.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+    argv = ["--model", os.path.join(ROOT, rel), "--train", recipe, "--data", data] + \
+        SYNTH_TRAIN + ["--epochs", str(epochs)]
+    Trainer.train_step = step
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        res = cli_train.main(argv)
+    finally:
+        Trainer.train_step = real
+    torch.cuda.synchronize()
+    secs, launches = time.perf_counter() - t0, cuda_nms.LAUNCHES
+    hist = res["history"]
+    expected = epochs + 1                       # 8 val images: one b8 batch a validation
+    log(f"synth {what}: {epochs} epoch(s) of {os.path.basename(rel)} @{IMG} b8 "
+        f"(hardsynth_device_aug.yaml, eval_every 1) in {secs:.1f} s, {len(steps)} steps; epoch "
+        f"train loss {[round(float(v), 4) for v in hist['train_loss']]}, val loss "
+        f"{[round(float(v), 4) for v in hist['val_loss']]}; final COCO AP50 "
+        f"{res.get('coco', {}).get('AP50', float('nan')):.4f}; nms_suppress launched "
+        f"{launches} times (expected {expected}) [{card}]")
+    if launches != expected:
+        raise AssertionError(f"synth {what}: {launches} nms_suppress launches, expected {expected}")
+    if not all(np.isfinite(hist["step_loss"] + hist["val_loss"])) or not steps:
+        raise AssertionError(f"synth {what}: non-finite loss {hist}")
+    # 2 epochs on 20 hard classes: the final evaluation may draw no P/R/F1 curve
+    _check_run_dir(res["log_dir"], curves=False)
+    return {"seconds": secs, "launches": launches, "history": hist, "steps": steps,
+            "coco": res.get("coco"), "coco_segm": res.get("coco_segm"),
+            "best": os.path.join(res["log_dir"], "weights", "best_model_state.ckpt")}
+
+
+def _synth_nms(card: str, best: str, data: str) -> dict:
+    """The trained edge_n's raw outputs on the 8 val images (8,400 anchors):
+    at each pre-NMS top-k, IoU and DIoU, each threshold, the kernel's keep
+    mask equal to the plain version's on the same tensors on the CPU (the
+    overlap matrix built once a metric), timed beside its bound; then
+    `batched_nms` on the card, launches counted, its detections bit for bit
+    the plain version's."""
+    sd, meta = load_checkpoint(best)
+    model = load_flax(model_from_meta(meta), sd["params"], sd["batch_stats"]).cuda().eval()
+    ds_cfg = load_configs(None, None, data, make_run_dir=False)["dataset"]
+    ds = YoloDataset(ds_cfg["val_images"], ds_cfg["val_labels"], img_size=IMG,
+                     is_train=False, augment=False)
+    images = torch.from_numpy(collate([ds.get(i) for i in range(len(ds))])["image"]).cuda()
+    with torch.no_grad():
+        boxes, scores, classes = _decode_scores(model(normalize_images(images.permute(0, 3, 1, 2))))
+    del model
+    host = [t.cpu() for t in (boxes, scores, classes)]
+    rows, plain = {}, {}
+    for k in SYNTH_TOPK:
+        kk = min(k, boxes.shape[1])
+        cand = select_candidates(boxes, scores, classes, k=kk, conf_th=SYNTH_NMS["conf_th"],
+                                 class_aware=True)
+        cand_h = select_candidates(*host, k=kk, conf_th=SYNTH_NMS["conf_th"], class_aware=True)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(cand, cand_h)):
+            raise AssertionError(f"synth nms: top-{kk} candidates differ card vs CPU")
+        top_h, idx_h, boxes_h, cls_h, valid_h, shifted_h = cand_h
+        valid, shifted = cand[4], cand[5].contiguous()
+        if int(valid.sum()) < len(images):
+            raise AssertionError(f"synth nms: {int(valid.sum())} candidates above conf "
+                                 f"{SYNTH_NMS['conf_th']} in the top {kk}: nothing to suppress")
+        for diou in (False, True):
+            t0 = time.perf_counter()
+            overlap = _suppression_matrix(shifted_h, diou)
+            matrix_s = time.perf_counter() - t0
+            for thr in SYNTH_IOU:
+                key = f"{'diou' if diou else 'iou'}_k{kk}_thr{thr}"
+                keep = cuda_nms.greedy_keep(shifted, valid, thr, diou)
+                keep_h = _greedy_keep(overlap, valid_h, thr)
+                if not torch.equal(keep.cpu(), keep_h):
+                    raise AssertionError(f"synth nms {key}: {int((keep.cpu() != keep_h).sum())} "
+                                         f"keep bits differ card vs CPU")
+                ms = cuda_ms(lambda: cuda_nms.greedy_keep(shifted, valid, thr, diou), 20)
+                bound, by, pairs = nms_bound_ms(
+                    keep, valid, DIOU_FLOPS_PER_PAIR if diou else IOU_FLOPS_PER_PAIR)
+                plain[key] = finalize_detections(keep_h, top_h, idx_h, boxes_h, cls_h,
+                                                 max_det=SYNTH_NMS["max_det"])
+                rows[key] = {"k": kk, "diou": diou, "iou_th": thr, "valid": int(valid.sum()),
+                             "kept": int(keep.sum()), "ms": ms, "bound_ms": bound,
+                             "bound_by": by, "pairs": pairs, "plain_matrix_s": matrix_s}
+                log(f"synth nms {key}: B={len(images)} k={kk}, {int(valid.sum())} valid, "
+                    f"{int(keep.sum())} kept, keep masks equal card vs CPU; kernel {ms:.4f} ms, "
+                    f"bound {bound:.4f} ms ({by}, {pairs} pairs) [{card}]")
+            del overlap
+    # the main path: batched_nms on the card (IoU and DIoU), launches counted
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = cuda_nms.LAUNCHES_DIOU = 0
+    for key, r in rows.items():
+        got = batched_nms(boxes, scores, classes, iou_th=r["iou_th"], pre_nms_topk=r["k"],
+                          use_diou=r["diou"], **SYNTH_NMS)
+        for name, g, w in zip(("boxes", "scores", "classes", "valid", "idx"), got, plain[key]):
+            if not (g.device == boxes.device and torch.equal(g.cpu(), w)):
+                raise AssertionError(f"synth nms {key}: batched_nms {name} card != CPU")
+        r["detections"] = int(got[3].sum())
+    torch.cuda.synchronize()
+    launches, launches_diou = cuda_nms.LAUNCHES, cuda_nms.LAUNCHES_DIOU
+    log(f"synth nms: batched_nms on the card equal to the plain version bit for bit in all "
+        f"{len(rows)} cases (detections {[r['detections'] for r in rows.values()]}); "
+        f"nms_suppress launched {launches} times, {launches_diou} of them DIoU (expected "
+        f"{len(rows)}, {len(rows) // 2}) [{card}]")
+    if (launches, launches_diou) != (len(rows), len(rows) // 2):
+        raise AssertionError(f"synth nms: launches {launches}, DIoU {launches_diou}")
+    return {"rows": rows, "launches": launches, "launches_diou": launches_diou}
+
+
+def phase_synth(card: str, tmp: str):
+    """The dataset generators and what is trained on their sets, on the card;
+    runs go under a working directory of `tmp`."""
+    work = os.path.join(tmp, "synth_tools")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        gen = _synth_generate(card, work)
+        recipe = _synth_recipe(work)
+        hs_data = os.path.join(gen["hardsynth"]["root"], "data.yaml")
+        train = _synth_train(card, "configs/models/edge_n.yaml", hs_data, recipe, 2,
+                             "train edge_n")
+        loss = train["history"]["train_loss"]
+        if not loss[-1] < loss[0]:
+            raise AssertionError(f"synth train: epoch train loss not falling {loss}")
+        torch.cuda.synchronize()
+        cuda_nms.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ev = cli_evaluate.main(["--weights", train["best"], "--test_folder",
+                                os.path.join(gen["hardsynth"]["root"], "valid", "images")])
+        torch.cuda.synchronize()
+        ev_s, ev_launches = time.perf_counter() - t0, cuda_nms.LAUNCHES
+        log(f"synth evaluate: best checkpoint on the 8 HardSynth val images in {ev_s:.1f} s: "
+            f"{json.dumps({k: round(v, 4) for k, v in ev['coco'].items()})}; nms_suppress "
+            f"launched {ev_launches} times (expected 1) [{card}]")
+        if not all(np.isfinite(v) for v in ev["coco"].values()) or ev_launches != 1:
+            raise AssertionError(f"synth evaluate: stats {ev['coco']}, launches {ev_launches}")
+        seg = _synth_train(card, "configs/models/edge_n_seg.yaml",
+                           os.path.join(gen["hardsynth_seg"]["root"], "data.yaml"), recipe, 1,
+                           "train edge_n_seg")
+        mask = [st["mask"] for st in seg["steps"]]
+        log(f"synth train edge_n_seg: mask loss by step {[round(v, 4) for v in mask]}")
+        if not (mask and np.all(np.isfinite(mask))):
+            raise AssertionError(f"synth seg: mask loss {mask}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_pretrain.pretrain(gen["cls"]["root"], out=os.path.join(work, "cls20.ckpt"),
+                                  device="cuda", **SYNTH_PRETRAIN)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        losses = [float(ln.split(" loss ")[1].split()[0]) for ln in buf.getvalue().splitlines()
+                  if " loss " in ln]
+        log(f"synth pretrain_backbone: {SYNTH_PRETRAIN['backbone']} {SYNTH_PRETRAIN['epochs']} "
+            f"epochs b{SYNTH_PRETRAIN['batch_size']} @{SYNTH_PRETRAIN['img_size']} on the "
+            f"20-class corpus in {pre_s:.1f} s; loss by step {[round(v, 4) for v in losses]} "
+            f"[{card}]")
+        if not (losses and np.all(np.isfinite(losses))):
+            raise AssertionError(f"synth pretrain: loss {losses}")
+        nms = _synth_nms(card, train["best"], hs_data)
+    finally:
+        os.chdir(cwd)
+    launches = train["launches"] + ev_launches + seg["launches"] + nms["launches"]
+    log(f"synth: nms_suppress launches train {train['launches']} + evaluate {ev_launches} + "
+        f"seg {seg['launches']} + batched_nms {nms['launches']} = {launches} "
+        f"({nms['launches_diou']} DIoU) [{card}]")
+    return {"generate": gen, "train": {k: v for k, v in train.items() if k != "steps"},
+            "evaluate": {"coco": ev["coco"], "seconds": ev_s, "launches": ev_launches},
+            "seg": {k: v for k, v in seg.items() if k != "steps"}, "seg_mask_loss": mask,
+            "pretrain": {"seconds": pre_s, "losses": losses}, "nms": nms,
+            "launches": launches, "launches_diou": nms["launches_diou"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -4856,6 +5218,7 @@ def main():
                          ("cli", lambda: phase_cli(card, data, tmp)),
                          ("draw", lambda: phase_draw(card, data, tmp, phases["cli"])),
                          ("tools", lambda: phase_tools(card, data, tmp, serve)),
+                         ("synth", lambda: phase_synth(card, tmp)),
                          ("ddp", lambda: phase_ddp(card, data, tmp)),
                          ("spatial", lambda: phase_spatial(card, tmp))):
             t0 = time.perf_counter()
@@ -4867,6 +5230,9 @@ def main():
                     ms=main_k["ms"], plain_ms=main_k["plain_ms"],
                     bound_ms=main_k["bound_ms"], bound_by=main_k["bound_by"],
                     library_ms=None, ms_mask=main_k["ms_mask"], ms_scan=main_k["ms_scan"],
+                    ms_diou=main_k["ms_diou"], bound_ms_diou=main_k["bound_ms_diou"],
+                    plain_ms_diou=main_k["plain_ms_diou"],
+                    ms_diou_by_k={key: r["ms_diou"] for key, r in krows.items()},
                     ms_b1=krows[f"B1_k{PRE_NMS_TOPK}"]["ms"],
                     ms_by_k={key: r["ms"] for key, r in krows.items()},
                     launches_train=train["launches"],
@@ -4881,6 +5247,8 @@ def main():
                     launches_cli=phases["cli"]["launches"],
                     launches_draw=phases["draw"]["launches"],
                     launches_tools=phases["tools"]["launches"],
+                    launches_synth=phases["synth"]["launches"],
+                    launches_diou=phases["synth"]["launches_diou"],
                     launches_ddp=phases["ddp"]["launches"],
                     launches_spatial=phases["spatial"]["launches"])]
     q = phases["quant"]["int8"]

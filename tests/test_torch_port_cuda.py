@@ -1,5 +1,6 @@
-"""The CUDA suppression kernel against its plain PyTorch version, on the card
-(and the device photometric augmentation, card vs CPU).
+"""The CUDA suppression kernel (IoU and DIoU modes) against its plain
+PyTorch version, on the card (and the device photometric augmentation, card
+vs CPU).
 
 Marked `cuda`; skips without a card. This file imports no JAX, so it runs on
 the card's machine, which has none (tests/conftest.py imports JAX, hence
@@ -30,13 +31,14 @@ def card():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
 
 
-def _check(boxes, valid, thr=0.5):
+def _check(boxes, valid, thr=0.5, diou=False):
     boxes, valid = boxes.cuda().contiguous(), valid.cuda().contiguous()
-    before = cuda_nms.LAUNCHES
-    got = cuda_nms.greedy_keep(boxes, valid, thr)
+    before, before_diou = cuda_nms.LAUNCHES, cuda_nms.LAUNCHES_DIOU
+    got = cuda_nms.greedy_keep(boxes, valid, thr, use_diou=diou)
     torch.cuda.synchronize()
     assert cuda_nms.LAUNCHES == before + 1
-    want = cuda_nms.greedy_keep_reference(boxes, valid, thr)
+    assert cuda_nms.LAUNCHES_DIOU == before_diou + diou
+    want = cuda_nms.greedy_keep_reference(boxes, valid, thr, use_diou=diou)
     assert torch.equal(got, want), f"{int((got != want).sum())} keep bits differ"
     return got
 
@@ -47,6 +49,17 @@ def _check(boxes, valid, thr=0.5):
 def test_kernel_matches_reference(card, k, b):
     rng = np.random.RandomState(k * 10 + b)
     _check(torch.from_numpy(_boxes(rng, b, k)), torch.from_numpy(rng.rand(b, k) > 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.65, 0.0, -0.1, -0.5])
+@pytest.mark.parametrize("k", [1, 33, 512, 1025, 2048])
+def test_kernel_diou_matches_reference(card, k, thr):
+    """The DIoU mode: the prefilter prunes for thr >= 0, every pair is
+    computed below 0."""
+    rng = np.random.RandomState(k * 7 + 3)
+    _check(torch.from_numpy(_boxes(rng, 3, k)), torch.from_numpy(rng.rand(3, k) > 0.1),
+           thr, diou=True)
 
 
 @pytest.mark.cuda
@@ -122,12 +135,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_nms.greedy_keep(boxes.transpose(0, 1).contiguous().transpose(0, 1),
                              torch.ones(2, 1025, dtype=torch.bool, device="cuda"), 0.5)
+    # DIoU-NMS on CUDA tensors launches the kernel's DIoU mode: equal to the
+    # plain version on the same tensors on the CPU, nothing moved or raised
     rng = np.random.RandomState(0)
     b = torch.from_numpy(_boxes(rng, 2, 64)).cuda()
     s = torch.rand(2, 64, device="cuda")
     c = torch.zeros(2, 64, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
-        batched_nms(b, s, c, use_diou=True)
+    before = cuda_nms.LAUNCHES_DIOU
+    got = batched_nms(b, s, c, use_diou=True)
+    assert cuda_nms.LAUNCHES_DIOU == before + 1
+    want = batched_nms(b.cpu(), s.cpu(), c.cpu(), use_diou=True)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda

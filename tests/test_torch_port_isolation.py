@@ -143,3 +143,19 @@ def test_drawing_and_weather_modules_are_covered():
         assert os.path.join("yololite_tpu_torch", rel) in files
     from yololite_tpu_torch.tools import augment_weather
     assert "--device" not in augment_weather.build_parser()._option_string_actions
+
+
+GENERATOR_TOOLS = ("make_hard_synth", "make_synth_dataset", "make_cls_corpus",
+                   "make_crop_corpus")
+
+
+def test_dataset_generators_are_covered():
+    """The four dataset generators are host tools: covered by the import
+    check, each `main(argv)` taking no --device."""
+    import importlib
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in GENERATOR_TOOLS:
+        assert os.path.join("yololite_tpu_torch", "tools", f"{name}.py") in files
+        mod = importlib.import_module(f"yololite_tpu_torch.tools.{name}")
+        assert "--device" not in mod.build_parser()._option_string_actions
+        assert "argv" in inspect.signature(mod.main).parameters

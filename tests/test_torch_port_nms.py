@@ -100,6 +100,32 @@ def test_batched_nms_diou_matches_jax(class_aware):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("thr", [0.65, 0.3, 0.0, -0.1, -0.4])
+def test_op_diou_route_matches_jax(thr):
+    """`yololite::nms_suppress` with use_diou on CPU tensors (the kernel's
+    plain version) against JAX's `_suppression_matrix(use_diou=True)` and
+    `_greedy_keep`, at thresholds >= 0 (where the kernel prunes pairs that
+    do not intersect) and < 0 (where it computes every pair); the chain of
+    30 boxes in image 0."""
+    rng = np.random.RandomState(21)
+    B, k = 3, 160
+    boxes = random_boxes(rng, (B, k), span=300.0)
+    boxes[0, :30] = chain_boxes()
+    valid = rng.rand(B, k) > 0.15
+    tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
+    got = torch.ops.yololite.nms_suppress(tb, tv, thr, True)
+    np.testing.assert_array_equal(cuda_nms.greedy_keep(tb, tv, thr, use_diou=True).numpy(),
+                                  got.numpy())
+    assert cuda_nms.LAUNCHES == 0 and cuda_nms.LAUNCHES_DIOU == 0
+    for b in range(B):
+        overlap = jax_suppression_matrix(jnp.asarray(boxes[b]), use_diou=True)
+        want = np.asarray(jax_greedy_keep(overlap, jnp.asarray(valid[b]), thr))
+        np.testing.assert_array_equal(got[b].numpy(), want)
+    # DIoU is a different metric: at these thresholds it keeps other boxes
+    iou = torch.ops.yololite.nms_suppress(tb, tv, thr)
+    assert thr > 0.5 or not torch.equal(iou, got)
+
+
 def test_deep_chain_is_exact_greedy():
     """The port's suppression is exact greedy (JAX unroll=0), not the JAX
     deploy graph's bounded unroll, which diverges on this chain."""

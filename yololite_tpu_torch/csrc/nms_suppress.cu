@@ -68,6 +68,17 @@
 // It loads some others ahead of time (those of invalid rows, or of rows not
 // kept) and drops them.
 //
+// DIoU mode (a template parameter of the mask pass; the scan is the same):
+// bit l is set where DIoU(j, i) = IoU - d2 / c2 > thr, d2 the squared
+// distance of the two centres (cx = (x1 + x2) * 0.5) and c2 = (w^2 + h^2) +
+// 1e-7 for the enclosing box's w = max(x2) - min(x1) and h likewise, in the
+// JAX op order (yololite_tpu/ops/nms.py:40-46). For thr >= 0 the
+// intersection prefilter still holds: DIoU > thr >= 0 needs IoU > DIoU, so
+// the boxes intersect; a pair with a NaN coordinate has a NaN d2 and is never
+// set. About 32 operations a pair (IoU's 15, then 2 sub, 2 mul, 1 add for
+// d2, 2 max, 2 min, 2 sub, 2 mul, 2 add for c2, 1 div, 1 sub): ~8.2 us for
+// all pairs at B=128, k=512 at 67 TFLOP/s.
+//
 // Bit-exactness: the keep mask is discrete, so one flipped `IoU > thr` bit is
 // a wrong answer. The IoU keeps the JAX op order (ops/boxes.py):
 // inter / (((area_j + area_i) - inter) + 1e-7), with each area computed once
@@ -94,7 +105,9 @@ __device__ __forceinline__ float box_area(float4 b) {
 
 // Block (img, c, tile): rows 32c..32c+31 of image `img` against the column
 // words [tile*8, tile*8 + 8). Warp v takes word tile*8 + v; lane r takes
-// row 32c + r and builds the whole word in a register.
+// row 32c + r and builds the whole word in a register. kDiou: the bits are
+// DIoU > thr instead of IoU > thr.
+template <bool kDiou>
 __global__ void __launch_bounds__(kMaskThreads)
 nms_mask_kernel(const float4* __restrict__ boxes,
                 const uint8_t* __restrict__ valid,
@@ -161,7 +174,17 @@ nms_mask_kernel(const float4* __restrict__ boxes,
     const float ih = fmaxf(fminf(rb.w, cb.w) - fmaxf(rb.y, cb.y), 0.0f);
     const float inter = iw * ih;
     const float uni = ((ra + sa[l]) - inter) + 1e-7f;
-    const bool sup = inter != 0.0f ? inter / uni > iou_th : uni == uni;
+    bool sup;
+    if (kDiou) {
+      const float dx = (rb.x + rb.z) * 0.5f - (cb.x + cb.z) * 0.5f;
+      const float dy = (rb.y + rb.w) * 0.5f - (cb.y + cb.w) * 0.5f;
+      const float ew = fmaxf(rb.z, cb.z) - fminf(rb.x, cb.x);
+      const float eh = fmaxf(rb.w, cb.w) - fminf(rb.y, cb.y);
+      const float c2 = (ew * ew + eh * eh) + 1e-7f;
+      sup = inter / uni - (dx * dx + dy * dy) / c2 > iou_th;
+    } else {
+      sup = inter != 0.0f ? inter / uni > iou_th : uni == uni;
+    }
     bits |= static_cast<uint32_t>(sup) << l;
   }
   if (row_valid) mask[(static_cast<size_t>(img) * k + j) * words + w] = bits;
@@ -289,15 +312,16 @@ nms_scan_kernel(const uint32_t* __restrict__ mask,
 }  // namespace
 
 // Mask pass. boxes [B,k,4] f32, valid [B,k] bool, mask [B,k,ceil(k/32)]
-// uint32 scratch (all contiguous, on the device). Launches on `stream`;
-// returns cudaGetLastError().
+// uint32 scratch (all contiguous, on the device); diou 0 (IoU) or 1 (DIoU).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int yl_nms_mask(const void* boxes, const void* valid, void* mask,
-                           int batch, int k, float iou_th, void* stream) {
+                           int batch, int k, float iou_th, int diou, void* stream) {
   const int words = (k + 31) >> 5;
-  if (batch <= 0 || k <= 0 || words > kMaxGridY)
+  if (batch <= 0 || k <= 0 || words > kMaxGridY || (diou != 0 && diou != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(batch, words, (words + kMaskWarps - 1) / kMaskWarps);
-  nms_mask_kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = diou ? nms_mask_kernel<true> : nms_mask_kernel<false>;
+  kernel<<<grid, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
       static_cast<uint32_t*>(mask), k, iou_th);
   return static_cast<int>(cudaGetLastError());
@@ -324,8 +348,8 @@ extern "C" int yl_nms_scan(const void* mask, const void* valid, void* keep,
 // caller's scratch, [B, k, ceil(k/32)] uint32; it needs no zeroing.
 extern "C" int yl_nms_greedy_keep(const void* boxes, const void* valid,
                                   void* keep, void* mask, int batch, int k,
-                                  float iou_th, void* stream) {
-  const int err = yl_nms_mask(boxes, valid, mask, batch, k, iou_th, stream);
+                                  float iou_th, int diou, void* stream) {
+  const int err = yl_nms_mask(boxes, valid, mask, batch, k, iou_th, diou, stream);
   if (err != 0) return err;
   return yl_nms_scan(mask, valid, keep, batch, k, stream);
 }

@@ -1,8 +1,10 @@
-"""The image operations of host augmentation, in numpy, without cv2.
+"""The image operations of host augmentation, drawing and the dataset
+generators, in numpy, without cv2.
 
 The card's machine has no cv2, so the port carries its own versions of the
-OpenCV calls that `data/augment.py` and `data/weather.py` make. Each works on
-whole arrays (no per-pixel Python loop) and follows OpenCV 5.0's arithmetic,
+OpenCV calls that `data/augment.py`, `data/weather.py`, `utils/viz.py` and
+`tools/make_*.py` make. Each works on whole arrays (no per-pixel Python loop;
+the contour tracer walks border pixels) and follows OpenCV 5.0's arithmetic,
 which the JAX package's cv2 runs:
 
   - `warp_affine` / `remap` (INTER_LINEAR, BORDER_CONSTANT): OpenCV 5 inverts
@@ -14,7 +16,8 @@ which the JAX package's cv2 runs:
     `resize_cubic_f32`: INTER_CUBIC (a = -0.75, taps clamped to the edge),
     within 2 ulp of cv2 (its sums run in another order);
   - `gaussian_blur_f32` (`getGaussianKernel` weights) and `box_blur_u8`,
-    separable, BORDER_REFLECT_101; `box_blur2_u8` (the even 2x2 window,
+    separable, BORDER_REFLECT_101; `gaussian_blur3` (3x3, sigma 0: uint8
+    in OpenCV's bit-exact fixed point, float in its probed op order); `box_blur2_u8` (the even 2x2 window,
     anchored at its lower right, OpenCV's 8-bit divide rounding up) and
     `box_blur_f32` (sums in double, as OpenCV's float path);
   - `line_blur3`: `filter2D` with a 3x3 kernel holding one line of 1/3;
@@ -24,9 +27,10 @@ which the JAX package's cv2 runs:
     fma; OpenCV's vector loop truncates while the scalar tail of each row
     (width mod 32 pixels) rounds);
   - `convex_hull`, `fill_convex_poly` (OpenCV's fixed-point scanline fill
-    and its 8-connected outline), `line` (`cv2.line`, LINE_8, clipped as
-    `cv2.clipLine` clips) and `fill_circle` (OpenCV's midpoint circle,
-    filled);
+    and its 8-connected outline, at shift 0 or 16), `line` (`cv2.line`,
+    LINE_8, clipped as `cv2.clipLine` clips; thicker lines as `ThickLine`
+    quads with round caps), `fill_circle` (OpenCV's midpoint circle,
+    filled) and `fill_ellipse` (`ellipse2Poly`'s polygon, filled);
   - `fill_poly`: `cv2.fillPoly` of one polygon with integer vertices (any
     shape: non-convex, self-intersecting, partly outside), OpenCV's edge
     collection and even-odd scanline fill in 16.16 fixed point, plus each
@@ -40,13 +44,18 @@ which the JAX package's cv2 runs:
     anti-aliased coverage is blended in at an integer pen position as
     round((dst * (255 - a) + color * a) / 255), glyph after glyph; the
     bitmaps are data (`data/font_simplex.py`, probed from cv2 by
-    `tests/font_probe.py`).
+    `tests/font_probe.py`);
+  - `find_contours` / `contour_area`: `cv2.findContours` with RETR_CCOMP
+    and CHAIN_APPROX_TC89_L1 (Suzuki-Abe border following, the two-level
+    hierarchy, Teh-Chin approximation as OpenCV 5.0 runs it) and
+    `cv2.contourArea`.
 """
 
 from __future__ import annotations
 
 import base64
 import functools
+import math
 import zlib
 from typing import Sequence, Tuple
 
@@ -172,8 +181,19 @@ def _reflect101(n: int, r: int) -> np.ndarray:
     return np.where(i >= n, period - i, i)
 
 
+# getGaussianKernel's fixed kernels for sigma <= 0 and k <= 7 (exact in float32)
+_SMALL_GAUSSIAN = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+                   7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125]}
+
+
 def gaussian_kernel(k: int, sigma: float) -> np.ndarray:
-    """cv2.getGaussianKernel(k, sigma, CV_32F) for sigma > 0."""
+    """cv2.getGaussianKernel(k, sigma, CV_32F): for sigma <= 0 the fixed
+    table at k = 1, 3, 5, 7 (OpenCV 5.0 rounds larger sigma-0 kernels to
+    fixed point, which the port does not follow: they raise)."""
+    if sigma <= 0:
+        if k not in _SMALL_GAUSSIAN:
+            raise ValueError(f"gaussian_kernel: sigma <= 0 at k = {k} (1, 3, 5 or 7 only)")
+        return np.asarray(_SMALL_GAUSSIAN[k], F32)
     x = np.arange(k, dtype=np.float64) - (k - 1) * 0.5
     t = np.exp(-0.5 / (sigma * sigma) * x * x)
     return (t * (1.0 / t.sum())).astype(F32)
@@ -199,6 +219,32 @@ def gaussian_blur_f32(src: np.ndarray, k: int, sigma: float) -> np.ndarray:
     """cv2.GaussianBlur(src, (k, k), sigma) of a float32 [H,W] array."""
     kern = gaussian_kernel(k, sigma)
     return _sep_filter(np.asarray(src, F32), kern, kern)
+
+
+def gaussian_blur3(img: np.ndarray) -> np.ndarray:
+    """cv2.GaussianBlur(img, (3, 3), 0) of an [H,W] or [H,W,C] array, the
+    kernel [1/4, 1/2, 1/4] each way, BORDER_REFLECT_101. uint8: OpenCV's
+    bit-exact fixed point, (sum of the [1 2 1] x [1 2 1] taps + 8) >> 4.
+    float64: rows as (a/4 + b/2) + c/4, then columns as b/2 + (a + c)/4;
+    float32: both passes as b/2 + (a + c)/4 (the op orders probed on cv2)."""
+    x = np.asarray(img)
+    H, W = x.shape[:2]
+    ry, rx = _reflect101(H, 1), _reflect101(W, 1)
+    if x.dtype == np.uint8:
+        p = x.astype(np.int32)[:, rx]
+        rows = p[:, :-2] + 2 * p[:, 1:-1] + p[:, 2:]
+        p = rows[ry]
+        return ((p[:-2] + 2 * p[1:-1] + p[2:] + 8) >> 4).astype(np.uint8)
+    if x.dtype not in (np.float32, np.float64):
+        raise ValueError(f"gaussian_blur3: uint8, float32 or float64, got {x.dtype}")
+    q, h = x.dtype.type(0.25), x.dtype.type(0.5)
+    p = x[:, rx]
+    if x.dtype == np.float64:
+        rows = (p[:, :-2] * q + p[:, 1:-1] * h) + p[:, 2:] * q
+    else:
+        rows = p[:, 1:-1] * h + (p[:, :-2] + p[:, 2:]) * q
+    p = rows[ry]
+    return p[1:-1] * h + (p[:-2] + p[2:]) * q
 
 
 def box_blur_u8(src: np.ndarray, k: int) -> np.ndarray:
@@ -394,27 +440,34 @@ _XY_SHIFT = 16
 _XY_ONE = 1 << _XY_SHIFT
 
 
-def fill_convex_poly(mask: np.ndarray, pts: np.ndarray, value) -> np.ndarray:
-    """cv2.fillConvexPoly(mask, pts, value) with LINE_8 and integer vertices
-    (in place), as OpenCV's `FillConvexPoly` runs it: the 8-connected
-    outline (`line`), then from the top vertex a left and a right edge walked
-    down in 16.16 fixed point (dx from the rounded division of the edge's
-    run by its rows, taken when the scan reaches the edge's first row), each
-    row filled between their rounded x; the scan stops when either chain runs
-    out of vertices."""
+def fill_convex_poly(mask: np.ndarray, pts: np.ndarray, value, shift: int = 0) -> np.ndarray:
+    """cv2.fillConvexPoly(mask, pts, value, LINE_8, shift) (in place), as
+    OpenCV's `FillConvexPoly` runs it: the outline (at shift 0 the
+    8-connected `line`, else `_line2` in 16.16 fixed point), then from the
+    top vertex a left and a right edge walked down in 16.16 fixed point (dx
+    from the rounded division of the edge's run by its rows, taken when the
+    scan reaches the edge's first row; a vertex's row is its y rounded at
+    `shift`), each row filled between their rounded x; the scan stops when
+    either chain runs out of vertices."""
     v = np.asarray(pts, np.int64).reshape(-1, 2).tolist()
     n = len(v)
     H, W = mask.shape[:2]
+    up = _XY_SHIFT - shift
     for i in range(n):
-        line(mask, v[i - 1], v[i], value)
+        if shift == 0:
+            line(mask, v[i - 1], v[i], value)
+        else:
+            _line2(mask, [c << up for c in v[i - 1]], [c << up for c in v[i]], value)
     if n < 3:
         return mask
+    delta = (1 << shift) >> 1
     xs, ys = [p[0] for p in v], [p[1] for p in v]
-    ymin, ymax = min(ys), max(ys)
-    if max(xs) < 0 or ymax < 0 or min(xs) >= W or ymin >= H:
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(xs) + delta) >> shift, (max(xs) + delta) >> shift
+    ymin, ymax = (min(ys) + delta) >> shift, (max(ys) + delta) >> shift
+    if xmax < 0 or ymax < 0 or xmin >= W or ymin >= H:
         return mask
     ymax = min(ymax, H - 1)
-    imin = ys.index(ymin)
     # per chain: [vertex index, step, x, dx, first row past the edge]
     edge = [[imin, 1, -_XY_ONE, 0, ymin], [imin, n - 1, -_XY_ONE, 0, ymin]]
     y, left = ymin, n
@@ -427,11 +480,11 @@ def fill_convex_poly(mask: np.ndarray, pts: np.ndarray, value) -> np.ndarray:
                 more, left = left > 0, left - 1
                 if not more:
                     break
-                ty = ys[idx]
+                ty = (ys[idx] + delta) >> shift
                 if ty > y:
-                    e[2] = xs[idx0] << _XY_SHIFT
-                    e[3] = _trunc_div(((xs[idx] - xs[idx0]) << (_XY_SHIFT + 1)) + ty - y,
-                                      2 * (ty - y))
+                    x0, x1 = xs[idx0] << up, xs[idx] << up
+                    e[2] = x0
+                    e[3] = _trunc_div(2 * (x1 - x0) + ty - y, 2 * (ty - y))
                     e[0], e[4] = idx, ty
                     break
                 idx0, idx = idx, (idx + e[1]) % n
@@ -453,6 +506,39 @@ def fill_convex_poly(mask: np.ndarray, pts: np.ndarray, value) -> np.ndarray:
         if y > ymax:
             break
     return mask
+
+
+def _line2(img: np.ndarray, p1, p2, value) -> np.ndarray:
+    """OpenCV's `Line2`: an 8-connected line between 16.16 fixed-point end
+    points (in place), clipped to the image at that scale as `clipLine`
+    clips; the major axis steps whole pixels from the first point (its
+    fraction dropped), the minor one adds (d << 16) / (|major| | 1) a step,
+    and the pixel of the rounded second point is set too."""
+    H, W = img.shape[:2]
+    inside, (x1, y1), (x2, y2) = clip_line(W << _XY_SHIFT, H << _XY_SHIFT, p1, p2)
+    if not inside:
+        return img
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:
+            dy, x1, x2, y1, y2 = -dy, x2, x1, y2, y1
+        step = _trunc_div(dy << _XY_SHIFT, ax | 1)
+        k = np.arange(((x2 - x1) >> _XY_SHIFT) + 1)
+        xs = ((x1 + (_XY_ONE >> 1)) >> _XY_SHIFT) + k
+        ys = (y1 + (_XY_ONE >> 1) + step * k) >> _XY_SHIFT
+    else:
+        if dy < 0:
+            dx, x1, x2, y1, y2 = -dx, x2, x1, y2, y1
+        step = _trunc_div(dx << _XY_SHIFT, ay | 1)
+        k = np.arange(((y2 - y1) >> _XY_SHIFT) + 1)
+        xs = (x1 + (_XY_ONE >> 1) + step * k) >> _XY_SHIFT
+        ys = ((y1 + (_XY_ONE >> 1)) >> _XY_SHIFT) + k
+    xs = np.append(xs, (x2 + (_XY_ONE >> 1)) >> _XY_SHIFT)
+    ys = np.append(ys, (y2 + (_XY_ONE >> 1)) >> _XY_SHIFT)
+    keep = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    img[ys[keep], xs[keep]] = value
+    return img
 
 
 def line8(img: np.ndarray, p0, p1, value) -> np.ndarray:
@@ -507,10 +593,37 @@ def clip_line(w: int, h: int, p1, p2):
     return (c1 | c2) == 0, (x1, y1), (x2, y2)
 
 
-def line(img: np.ndarray, p0, p1, value) -> np.ndarray:
-    """cv2.line(img, p0, p1, value) with thickness 1 and LINE_8 (in place):
-    endpoints outside the image are clipped first."""
+def line(img: np.ndarray, p0, p1, value, thickness: int = 1) -> np.ndarray:
+    """cv2.line(img, p0, p1, value, thickness) with LINE_8 (in place), for a
+    pixel `value` of `img`'s type (see `_color`).
+
+    Thickness 1: the 8-connected line, endpoints outside the image clipped
+    first. Thicker, as OpenCV 5.0 draws it (probed): the segment clipped to
+    the image grown by `thickness` on every side (`clip_line`, integer end
+    points), then `ThickLine`: a quad around it whose half-width vector is
+    (t + t % 2) / 2 pixels along the normal, rounded in 16.16 fixed point
+    from double, filled by `fill_convex_poly` at shift 16, and a disc of
+    radius (t + 1) // 2 (`fill_circle`) at each end."""
     H, W = img.shape[:2]
+    if thickness > 1:
+        t = int(thickness)
+        inside, a, b = clip_line(W + 2 * t, H + 2 * t, (p0[0] + t, p0[1] + t),
+                                 (p1[0] + t, p1[1] + t))
+        if not inside:
+            return img
+        (x0, y0), (x1, y1) = (a[0] - t, a[1] - t), (b[0] - t, b[1] - t)
+        dx, dy = float(x0 - x1), float(y1 - y0)
+        r = dx * dx + dy * dy
+        if abs(r) > np.finfo(np.float64).eps:
+            r = ((t << (_XY_SHIFT - 1)) + (t & 1) * _XY_ONE * 0.5) / np.sqrt(r)
+            ex, ey = int(np.rint(dy * r)), int(np.rint(dx * r))
+            X0, Y0, X1, Y1 = (c << _XY_SHIFT for c in (x0, y0, x1, y1))
+            quad = [(X0 + ex, Y0 + ey), (X0 - ex, Y0 - ey), (X1 - ex, Y1 - ey),
+                    (X1 + ex, Y1 + ey)]
+            fill_convex_poly(img, quad, value, shift=_XY_SHIFT)
+        for c in ((x0, y0), (x1, y1)):
+            fill_circle(img, c, (t + 1) // 2, value)
+        return img
     if not all(0 <= p[0] < W and 0 <= p[1] < H for p in (p0, p1)):
         inside, p0, p1 = clip_line(W, H, p0, p1)
         if not inside:
@@ -613,6 +726,33 @@ def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int, color) ->
     inside = (hw[:, None] >= 0) & (np.abs(xs[None, :] - cx) <= hw[:, None])
     img[ys[0]:ys[-1] + 1][inside] = color
     return img
+
+
+# OpenCV's SinTable: sin of each whole degree 0..450 rounded to 7 decimals, as
+# float (probed through cv2.ellipse2Poly at axes of 2^30)
+_SIN_TABLE = np.round(np.sin(np.deg2rad(np.arange(451))), 7).astype(F32).astype(np.float64)
+
+
+def fill_ellipse(img: np.ndarray, center: Tuple[int, int], axes: Tuple[int, int],
+                 value) -> np.ndarray:
+    """cv2.ellipse(img, center, axes, 0, 0, 360, value, -1) with LINE_8 (in
+    place): `ellipse2Poly`'s polygon in 16.16 fixed point (a vertex every 90,
+    30, 18 or 5 degrees as the larger axis is < 3, < 10, < 15 or more
+    pixels; x = cx + a cos, y = cy + b sin from the float SinTable, in
+    double, rounded; repeats dropped), filled by `fill_convex_poly` at
+    shift 16."""
+    cx, cy = int(center[0]) << _XY_SHIFT, int(center[1]) << _XY_SHIFT
+    aw, ah = abs(int(axes[0])) << _XY_SHIFT, abs(int(axes[1])) << _XY_SHIFT
+    d = (max(aw, ah) + (_XY_ONE >> 1)) >> _XY_SHIFT
+    d = 90 if d < 3 else 30 if d < 10 else 18 if d < 15 else 5
+    deg = np.minimum(np.arange(0, 360 + d, d), 360)
+    px = np.rint(cx + aw * _SIN_TABLE[450 - deg]).astype(np.int64)
+    py = np.rint(cy + ah * _SIN_TABLE[deg]).astype(np.int64)
+    v = np.stack([px, py], 1)
+    v = v[np.r_[True, (v[1:] != v[:-1]).any(1)]]
+    if len(v) == 1:
+        v = np.array([[cx, cy], [cx, cy]])
+    return fill_convex_poly(img, v, value, shift=_XY_SHIFT)
 
 
 def _color(img: np.ndarray, color) -> np.ndarray:
@@ -736,3 +876,258 @@ def put_text(img: np.ndarray, text: str, org, scale: float, color,
             view[ya:yb, xa:xb] = (dst * (255 - a) + col * a + 127) // 255
         x += adv
     return img
+
+
+# --------------------------------------------------------------------------- #
+# Contours (cv2.findContours with RETR_CCOMP and CHAIN_APPROX_TC89_L1)
+# --------------------------------------------------------------------------- #
+
+# Freeman codes 0..7: right, up-right, up, up-left, left, down-left, down, down-right
+_CODE_DX = (1, 1, 0, -1, -1, -1, 0, 1)
+_CODE_DY = (0, -1, -1, -1, 0, 1, 1, 1)
+_ABS_DIFF = (1, 2, 3, 4, 3, 2, 1, 0, 1, 2, 3, 4, 3, 2, 1)   # 1-curvature of a turn
+
+
+def _follow_border(flat: np.ndarray, i0: int, is_hole: bool, nbd: int, step: int) -> list:
+    """Suzuki-Abe border following from pixel `i0` of the padded label image
+    `flat`, as OpenCV's `icvFetchContourEx` runs it: the first neighbour
+    searched clockwise from the left (outer border) or the right (hole), then
+    counter-clockwise around each pixel from the one it came from; a pixel is
+    marked -nbd where the search passed its right neighbour (a 0), else nbd
+    if it was 1. Returns the Freeman chain (empty for a lone pixel)."""
+    deltas = (1, -step + 1, -step, -step - 1, -1, step - 1, step, step + 1) * 2
+    s_end = s = 0 if is_hole else 4
+    while True:
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if flat[i1] != 0 or s == s_end:
+            break
+    if s == s_end:
+        flat[i0] = -nbd
+        return []
+    chain, i3 = [], i0
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            i4 = i3 + deltas[s]
+            if flat[i4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:
+            flat[i3] = -nbd
+        elif flat[i3] == 1:
+            flat[i3] = nbd
+        chain.append(s)
+        if i4 == i0 and i3 == i1:
+            return chain
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def _approx_tc89_l1(chain: list, origin: Tuple[int, int]) -> list:
+    """OpenCV 5.0's Teh-Chin approximation (CHAIN_APPROX_TC89_L1) of a closed
+    Freeman chain, as probed on cv2 (49,303 contours of random masks, all
+    equal). Pass 0: the points of non-zero 1-curvature s. Pass 1: each
+    one's support region k (grown while the chord lengthens and the
+    distance-to-chord ratio keeps its sign's trend, in the float32 sign
+    test). Pass 2: drop a point if a point within k // 2 has a larger s.
+    Pass 3: drop a k = 1 point not above both neighbours. A dropped point's
+    s becomes 0. Pass 4, in index order from the head: where both ends of
+    the chain survive (a run across the start), the s of the start's run
+    but its last point are zeroed, the end's run after its first point is
+    dropped, the walk starts at the start run's last point (if that run is
+    the lone point 0 and the end's run the lone point n - 1, at 0's
+    successor, with a copy of point 0 appended after point n - 1). Then
+    each couple of adjacent survivors keeps the larger s (on a tie the
+    first where its k <= the second's) and each longer run keeps its ends
+    (the first run counted from the successor of the walk's start, or of
+    point 0). Returns the surviving points in index order."""
+    n = len(chain)
+    if n == 0:
+        return [origin]
+    x, y = origin
+    pts, S = [], []
+    for i, code in enumerate(chain):
+        pts.append((x, y))
+        S.append(_ABS_DIFF[code - chain[i - 1] + 7])
+        x += _CODE_DX[code]
+        y += _CODE_DY[code]
+    K = [0] * n
+    for cur in range(n):                             # pass 1: support region
+        if not S[cur]:
+            continue
+        x0, y0 = pts[cur]
+        k, l, d_num = 1, 0, 0
+        while True:
+            xa, ya = pts[cur - k] if cur >= k else pts[cur - k + n]
+            xb, yb = pts[cur + k - n] if cur + k >= n else pts[cur + k]
+            dx, dy = xb - xa, yb - ya
+            lk = dx * dx + dy * dy
+            dk_num = (x0 - xa) * dy - (y0 - ya) * dx
+            d = float(d_num) * lk - float(dk_num) * l       # only its sign matters
+            if k > 1 and (l >= lk or (d_num > 0 and d <= 0)
+                          or (d_num < 0 and (d > 0 or (d == 0 and math.copysign(1, d) > 0)))):
+                break
+            d_num, l = dk_num, lk
+            k += 1
+        K[cur] = k - 1
+    for cur in range(n):                             # pass 2: non-maxima suppression
+        if S[cur] and any(S[(cur - j) % n] > S[cur] or S[(cur + j) % n] > S[cur]
+                          for j in range(1, (K[cur] >> 1) + 1)):
+            S[cur] = 0
+    for cur in range(n):                             # pass 3: k = 1, not dominant
+        if S[cur] and K[cur] == 1 and (S[cur] <= S[cur - 1] or S[cur] <= S[(cur + 1) % n]):
+            S[cur] = 0
+    # pass 4: NXT[i] is the next survivor after i
+    removed = [s == 0 for s in S] + [True]
+    pts.append(pts[0])
+    S.append(0)
+    K.append(0)
+    NXT = [-1] * (n + 1)
+    nxt = -1
+    for i in range(n - 1, -1, -1):
+        NXT[i] = nxt
+        if not removed[i]:
+            nxt = i
+    head, first = nxt, 0
+    if S[0] and S[n - 1]:                            # a run across the start
+        i1 = 1
+        while i1 < n and S[i1]:
+            S[i1 - 1] = 0
+            i1 += 1
+        if i1 == n:                                  # every point survived
+            return [pts[i] for i in range(n) if not removed[i]]
+        i1 -= 1
+        i2 = n - 2
+        while i2 > 0 and S[i2]:
+            NXT[i2] = -1
+            S[i2 + 1], removed[i2 + 1] = 0, True
+            i2 -= 1
+        if i1 == 0 and i2 + 1 == n - 1:              # the lone points 0 and n - 1
+            i1 = NXT[0]
+            S[n], K[n], removed[n] = S[0], K[0], False
+            NXT[n - 1] = n
+        head = first = i1
+    cur, prev, count = head, -1, 1
+    while cur >= 0:
+        nx = NXT[cur]
+        if nx < 0 or nx - cur != 1:
+            if count == 2:
+                if S[prev] > S[cur] or (S[prev] == S[cur] and K[prev] <= K[cur]):
+                    removed[cur] = True
+                else:
+                    removed[prev] = True
+            elif count > 2:
+                j = NXT[NXT[first]]
+                while 0 <= j != cur:
+                    removed[j] = True
+                    j = NXT[j]
+            first, count = cur, 1
+        else:
+            count += 1
+        prev, cur = cur, nx
+    return [pts[i] for i in range(n + 1) if not removed[i]]
+
+
+def find_contours(mask: np.ndarray):
+    """cv2.findContours(mask, RETR_CCOMP, CHAIN_APPROX_TC89_L1) for a 2-D
+    mask (non-zero is foreground): (contours, hierarchy), each contour an
+    int32 [N, 1, 2] array of (x, y), the hierarchy int32 [1, N, 4] of (next,
+    previous, first child, parent), or ((), None) for an empty mask.
+
+    As OpenCV runs it: the mask's bounding box padded by one zero pixel, a
+    raster scan that starts an outer border at a 0 -> 1 step and a hole
+    border at a step from a pixel >= 1 (unlabelled, or labelled without the
+    right-edge mark) to 0, each border followed (`_follow_border`) and
+    approximated (`_approx_tc89_l1`). Outer borders are top level; a hole's
+    parent is the outer border of the last labelled pixel before it on its
+    row (or that border's parent if it is a hole). Each new contour goes to
+    the front of its parent's children, and the list is the tree in
+    depth-first order: outer borders last found first, each followed by its
+    holes, last found first. The scan jumps between changes of a row with
+    numpy; the border following walks the border's pixels."""
+    m = np.asarray(mask) != 0
+    if not m.any():
+        return (), None
+    rows, cols = np.flatnonzero(m.any(1)), np.flatnonzero(m.any(0))
+    oy, ox = int(rows[0]), int(cols[0])
+    img = np.zeros((rows[-1] - oy + 3, cols[-1] - ox + 3), np.int64)
+    img[1:-1, 1:-1] = m[oy:rows[-1] + 1, ox:cols[-1] + 1]
+    H, W = img.shape
+    flat = img.reshape(-1)
+    holes, parents, points, owner = [], [], [], {}
+    nbd = 2
+    for y in range(1, H - 1):
+        base, x, prev, lnbd = y * W, 1, 0, 0
+        while x < W - 1:
+            diff = np.flatnonzero(flat[base + x:base + W - 1] != prev)
+            if not len(diff):
+                break
+            x += int(diff[0])
+            p = int(flat[base + x])
+            if prev == 0 and p == 1:
+                is_hole = False
+            elif p == 0 and prev >= 1:
+                is_hole = True
+                if prev != 1:
+                    lnbd = x - 1
+            else:
+                prev = p
+                if p not in (0, 1):
+                    lnbd = x
+                x += 1
+                continue
+            parent = -1
+            if is_hole and lnbd > 0:
+                parent = owner[abs(int(flat[base + lnbd]))]
+                if holes[parent]:
+                    parent = parents[parent]
+            lnbd = x - is_hole
+            chain = _follow_border(flat, base + lnbd, is_hole, nbd, W)
+            owner[nbd] = len(holes)
+            nbd += 1
+            holes.append(is_hole)
+            parents.append(parent)
+            points.append(_approx_tc89_l1(chain, (lnbd, y)))
+            prev = int(flat[base + x])
+            x += 1
+    # the tree in depth-first order, children last found first
+    children = [[] for _ in holes]
+    top = []
+    for i, par in enumerate(parents):
+        (top if par < 0 else children[par]).append(i)
+    order = []
+
+    def visit(level):
+        for i in reversed(level):
+            order.append(i)
+            visit(children[i])
+    visit(top)
+    pos = {c: i for i, c in enumerate(order)}
+    hier = np.full((1, len(order), 4), -1, np.int32)
+    for i, c in enumerate(order):
+        sib = top if parents[c] < 0 else children[parents[c]]
+        k = sib.index(c)
+        if k > 0:
+            hier[0, i, 0] = pos[sib[k - 1]]
+        if k + 1 < len(sib):
+            hier[0, i, 1] = pos[sib[k + 1]]
+        if children[c]:
+            hier[0, i, 2] = pos[children[c][-1]]
+        if parents[c] >= 0:
+            hier[0, i, 3] = pos[parents[c]]
+    shift = np.array([ox - 1, oy - 1], np.int32)
+    contours = tuple((np.asarray(points[c], np.int32) + shift).reshape(-1, 1, 2)
+                     for c in order)
+    return contours, hier
+
+
+def contour_area(contour: np.ndarray) -> float:
+    """cv2.contourArea(contour): half the absolute shoelace sum, in double
+    (exact for integer points)."""
+    p = np.asarray(contour, np.float64).reshape(-1, 2)
+    if len(p) == 0:
+        return 0.0
+    q = np.roll(p, 1, axis=0)
+    return abs(float(np.sum(q[:, 0] * p[:, 1] - q[:, 1] * p[:, 0]))) * 0.5

@@ -30,7 +30,13 @@ PyTorch fixpoint on `box_iou_matrix`); the fake implementation gives the
 bool [B, k] shape to a tracer. `greedy_keep` calls the op, so serving,
 validation, streaming and every exported graph share one route to the
 kernel. `LAUNCHES` counts kernel calls (mask pass and scan together count
-one).
+one), in either mode; `LAUNCHES_DIOU` counts the DIoU ones alone.
+
+DIoU-NMS (`batched_nms(use_diou=True)`) runs on the same kernel: the op's
+`use_diou` flag picks the mask pass's DIoU instantiation, which sets a bit
+where IoU - d2 / c2 > thr in JAX's op order (`ops/nms._suppression_matrix`).
+JAX computes it with XLA even when the Pallas kernel is asked for; the Pallas
+kernel has no DIoU mode.
 """
 
 from __future__ import annotations
@@ -40,18 +46,18 @@ import ctypes
 import torch
 
 LAUNCHES = 0
+LAUNCHES_DIOU = 0
 SOURCE = "yololite_tpu_torch/csrc/nms_suppress.cu"
 
 _LIB = None
 
 
 def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
-                          iou_th: float) -> torch.Tensor:
+                          iou_th: float, use_diou: bool = False) -> torch.Tensor:
     """Plain PyTorch: boxes [B,k,4] (class-shifted, score-descending), valid
-    [B,k] bool -> exact greedy keep [B,k] bool."""
-    from yololite_tpu_torch.ops.boxes import box_iou_matrix
-    from yololite_tpu_torch.ops.nms import _greedy_keep
-    return _greedy_keep(box_iou_matrix(boxes, boxes), valid, iou_th)
+    [B,k] bool -> exact greedy keep [B,k] bool under IoU or DIoU."""
+    from yololite_tpu_torch.ops.nms import _greedy_keep, _suppression_matrix
+    return _greedy_keep(_suppression_matrix(boxes, use_diou), valid, iou_th)
 
 
 def library() -> ctypes.CDLL:
@@ -63,8 +69,8 @@ def library() -> ctypes.CDLL:
         from yololite_tpu_torch.csrc.build import load
         lib = load("nms_suppress")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.yl_nms_greedy_keep.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
-        lib.yl_nms_mask.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.yl_nms_greedy_keep.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, i32, ptr]
+        lib.yl_nms_mask.argtypes = [ptr, ptr, ptr, i32, i32, f32, i32, ptr]
         lib.yl_nms_scan.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
         for fn in (lib.yl_nms_greedy_keep, lib.yl_nms_mask, lib.yl_nms_scan):
             fn.restype = ctypes.c_int
@@ -78,26 +84,28 @@ def mask_words(k: int) -> int:
 
 
 def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
-                iou_th: float) -> torch.Tensor:
+                iou_th: float, use_diou: bool = False) -> torch.Tensor:
     """boxes [B,k,4] float32 (class-shifted, score-descending), valid [B,k]
-    bool -> keep [B,k] bool, through `torch.ops.yololite.nms_suppress`: CUDA
-    tensors launch the kernel, CPU tensors take `greedy_keep_reference`."""
+    bool -> keep [B,k] bool under IoU (or DIoU), through
+    `torch.ops.yololite.nms_suppress`: CUDA tensors launch the kernel, CPU
+    tensors take `greedy_keep_reference`."""
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_keep: unsupported device {boxes.device}")
-    return torch.ops.yololite.nms_suppress(boxes, valid, float(iou_th))
+    return torch.ops.yololite.nms_suppress(boxes, valid, float(iou_th), bool(use_diou))
 
 
 @torch.library.custom_op("yololite::nms_suppress", mutates_args=(), device_types="cpu")
-def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float) -> torch.Tensor:
+def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float,
+                 use_diou: bool = False) -> torch.Tensor:
     """The plain version (a fresh tensor: an op's output may not alias `valid`)."""
-    return greedy_keep_reference(boxes, valid, iou_th).clone()
+    return greedy_keep_reference(boxes, valid, iou_th, use_diou).clone()
 
 
 @nms_suppress.register_kernel("cuda")
-def _nms_suppress_cuda(boxes: torch.Tensor, valid: torch.Tensor,
-                       iou_th: float) -> torch.Tensor:
+def _nms_suppress_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float,
+                       use_diou: bool = False) -> torch.Tensor:
     """Launch the kernel on the current stream, or raise."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_DIOU
     if boxes.dtype != torch.float32 or boxes.ndim != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"greedy_keep: boxes must be float32 [B,k,4], got "
                          f"{boxes.dtype} {tuple(boxes.shape)}")
@@ -117,14 +125,15 @@ def _nms_suppress_cuda(boxes: torch.Tensor, valid: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = library().yl_nms_greedy_keep(boxes.data_ptr(), valid.data_ptr(),
                                            keep.data_ptr(), scratch.data_ptr(),
-                                           b, k, float(iou_th), stream)
+                                           b, k, float(iou_th), int(use_diou), stream)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_DIOU += bool(use_diou)
     return keep
 
 
 @nms_suppress.register_fake
-def _nms_suppress_fake(boxes: torch.Tensor, valid: torch.Tensor,
-                       iou_th: float) -> torch.Tensor:
+def _nms_suppress_fake(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float,
+                       use_diou: bool = False) -> torch.Tensor:
     return torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)

@@ -4,8 +4,9 @@
   2. class-aware suppression via the coordinate-offset trick (boxes of
      different classes are translated apart by `coord_bound` so they never
      overlap),
-  3. exact greedy suppression: on CUDA tensors the hand-written kernel
-     (`ops/cuda_nms.py`), on CPU tensors the plain fixpoint `_greedy_keep`,
+  3. exact greedy suppression under IoU or DIoU: on CUDA tensors the
+     hand-written kernel (`ops/cuda_nms.py`), on CPU tensors the plain
+     fixpoint `_greedy_keep` over `_suppression_matrix`,
   4. top `max_det` outputs, padded (score 0, class -1).
 
 Suppression is always exact greedy, equal to JAX `fixpoint_unroll=0`. The JAX
@@ -131,14 +132,7 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor
     top_scores, idx, boxes_k, cls_k, valid, shifted = select_candidates(
         boxes, scores, classes, conf_th=conf_th, k=k, class_aware=class_aware,
         coord_bound=coord_bound)
-    if use_diou:
-        if shifted.is_cuda:
-            # the suppression kernel (like the Pallas one) has no DIoU
-            raise NotImplementedError("DIoU-NMS has no CUDA kernel; run it on "
-                                      "CPU tensors")
-        keep = _greedy_keep(_suppression_matrix(shifted, True), valid, iou_th)
-    else:
-        keep = cuda_nms.greedy_keep(shifted.contiguous(), valid, iou_th)
+    keep = cuda_nms.greedy_keep(shifted.contiguous(), valid, iou_th, use_diou)
     return finalize_detections(keep, top_scores, idx, boxes_k, cls_k,
                                max_det=max_det)
 
