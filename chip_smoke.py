@@ -62,16 +62,21 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               mosaic and cutmix counted, finite mask loss, falling val loss,
               coco_segm, launches equal to the val batches), an fp32
               forward+loss card vs CPU, the step timed and split
- 11. codecs   the host image codecs (csrc/imgcodec.cpp, built in phase 2 by
-              this machine's C++ compiler): every fixture under
-              tests/data/codecs/ decodes to the SHA-256 of cv2.imread's
-              output recorded in its manifest; host decode ms per 640x480
-              image (baseline and progressive JPEG, PNG) on 1 and 8
-              threads; the loader's ms per b8 batch on a JPEG copy of the
-              set against the PNG set; edge_n trained 1 epoch at 640 b8 by
-              the recipe's defaults on the JPEG copy (nms_suppress launches
-              counted on validation); YoloLite.predict on a JPEG path and a
-              JPEG folder, boxes equal to the same frames as arrays
+ 11. codecs   the host image codecs (csrc/imgcodec.cpp and csrc/webpcodec.cpp,
+              built in phase 2 by this machine's C++ compiler): every
+              fixture under tests/data/codecs/ (JPEG, CMYK JPEG, BMP, PNG,
+              TIFF, WebP) decodes to the SHA-256 of cv2.imread's output
+              recorded in its manifest; host decode ms per 640x480 image
+              (baseline and progressive JPEG, PNG, TIFF as cv2.imwrite
+              writes it, lossy and lossless WebP) on 1 and 8 threads; the
+              loader's ms per b8 batch on a JPEG copy of the set against
+              the PNG set; edge_n trained 1 epoch at 640 b8 by the recipe's
+              defaults on the JPEG copy and on a TIFF copy written by the
+              port's TIFF writer (nms_suppress launches counted on
+              validation); YoloLite.predict on a JPEG path and a JPEG
+              folder, a TIFF path and a WebP path, boxes equal to the same
+              frames as arrays; pretrain_backbone 1 epoch on an imagefolder
+              of the WebP and CMYK JPEG fixtures
  12. stream   edge_n @640 bf16 over a 240-frame synthetic 480x640 clip:
               Predictor.infer_stream at depth 0-3 yields exactly
               infer_image's boxes, scores and classes on every frame, one
@@ -250,7 +255,7 @@ from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
 from yololite_tpu_torch.data import weather  # noqa: E402
 from yololite_tpu_torch.data.imwrite import (  # noqa: E402
-    JPEG_QUALITY, encode_jpeg, write_bmp, write_jpeg, write_png,
+    JPEG_QUALITY, encode_jpeg, write_bmp, write_jpeg, write_png, write_tiff,
 )
 from yololite_tpu_torch.data.dataset import (  # noqa: E402
     YoloDataset, parse_yolo_label_file, parse_yolo_seg_file,
@@ -435,7 +440,7 @@ KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
                            ("int8_conv_depthwise",
                             "yololite_tpu/ops/quant.py:48 (XLA, no Pallas)"))]
 KERNEL_SOURCES = ["nms_suppress", "int8_conv"]      # csrc/<name>.cu
-HOST_LIBS = ["imgcodec", "native"]   # host C++ (csrc/*.cpp): image codecs; NMS, matcher, pack
+HOST_LIBS = ["imgcodec", "webpcodec", "native"]   # host C++ (csrc/*.cpp): codecs; NMS, matcher, pack
 CODEC_FIXTURES = os.path.join(ROOT, "tests", "data", "codecs")
 
 
@@ -994,9 +999,10 @@ def phase_zoo(card: str):
 def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
                    h: int = 480, n_cls: int = 3, seed: int = 0, fmt: str = "png") -> str:
     """A learnable detection set from a seed: 1-4 coloured rectangles (one
-    colour per class) on dark noise, PNG images (or, with fmt="jpg", the same
-    pixels as baseline JPEGs of `write_jpeg`), YOLO txt labels and a
-    data.yaml. Returns the data.yaml path."""
+    colour per class) on dark noise, PNG images (or, with fmt="jpg" or "tif",
+    the same pixels as baseline JPEGs of `write_jpeg` or TIFFs of
+    `write_tiff`), YOLO txt labels and a data.yaml. Returns the data.yaml
+    path."""
     rng = np.random.RandomState(seed)
     colors = [(220, 30, 30), (30, 220, 30), (30, 30, 220)]
     for split, n in (("train", n_train), ("valid", n_val)):
@@ -1013,7 +1019,7 @@ def make_synth_set(root: str, n_train: int = 32, n_val: int = 8, w: int = 640,
                 canvas[y1:y1 + bh, x1:x1 + bw] = colors[cls]
                 lines.append(f"{cls} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
                              f"{bw / w:.6f} {bh / h:.6f}")
-            writer = write_jpeg if fmt == "jpg" else write_png
+            writer = {"jpg": write_jpeg, "tif": write_tiff}.get(fmt, write_png)
             writer(os.path.join(root, split, "images", f"{i:04d}.{fmt}"), canvas)
             with open(os.path.join(root, split, "labels", f"{i:04d}.txt"), "w") as f:
                 f.write("\n".join(lines) + "\n")
@@ -2029,19 +2035,23 @@ def _decode_ms(path: str, threads: int, n: int = 48) -> float:
 
 
 def phase_codecs(card: str, png_data: str, tmp: str):
-    """The host image codecs on the card's machine: (a) the library built
+    """The host image codecs on the card's machine: (a) the libraries built
     there by its own compiler (phase_build); (b) every committed fixture
     decoded to the SHA-256 that cv2.imread gave when it was written; (c) host
-    decode ms per 640x480 image on 1 and 8 threads and the loader's ms per
+    decode ms per 640x480 image on 1 and 8 threads (JPEG, PNG, a TIFF as
+    cv2.imwrite writes it, lossy and lossless WebP) and the loader's ms per
     b8 batch on a JPEG copy of the synthetic set against the PNG set; (d)
     edge_n trained one epoch at 640 b8 by the recipe's defaults on the JPEG
-    copy, validation through nms_suppress; (e) YoloLite.predict on a JPEG
-    path and a JPEG folder, boxes equal to the same frames passed as arrays."""
+    copy and on a TIFF copy, validation through nms_suppress; (e)
+    YoloLite.predict on a JPEG path, a JPEG folder, a TIFF path and a WebP
+    path, boxes equal to the same frames passed as arrays; (f)
+    pretrain_backbone one epoch on an imagefolder of WebPs and CMYK JPEGs."""
     cpu = _cpu_name()
-    out = {"cpu": cpu, "library": str(kbuild.library_path("imgcodec"))}
+    out = {"cpu": cpu, "library": [str(kbuild.library_path(n)) for n in ("imgcodec", "webpcodec")]}
     cxx = kbuild.cxx_path()
     version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
-    log(f"codecs: {out['library']} built by {cxx} ({version.splitlines()[0]}) on {cpu}")
+    log(f"codecs: {', '.join(out['library'])} built by {cxx} ({version.splitlines()[0]}) "
+        f"on {cpu}")
     # (b) fixtures against cv2's manifest
     with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
@@ -2059,9 +2069,16 @@ def phase_codecs(card: str, png_data: str, tmp: str):
         os.path.join(CODEC_FIXTURES, "progressive_640x480.jpg"))[..., ::-1])
     files = {"baseline JPEG 4:2:0 q90": os.path.join(tmp, "frame.jpg"),
              "progressive JPEG q75": os.path.join(CODEC_FIXTURES, "progressive_640x480.jpg"),
-             "PNG": os.path.join(tmp, "frame.png")}
+             "PNG": os.path.join(tmp, "frame.png"),
+             "TIFF LZW + predictor 2": os.path.join(tmp, "frame.tif"),
+             "lossy WebP q75": os.path.join(CODEC_FIXTURES, "webp_lossy_640x480.webp"),
+             "lossless WebP": os.path.join(CODEC_FIXTURES, "webp_lossless_640x480.webp")}
     write_jpeg(files["baseline JPEG 4:2:0 q90"], frame, quality=90)
     write_png(files["PNG"], frame)
+    write_tiff(files["TIFF LZW + predictor 2"], frame)       # cv2.imwrite's default layout
+    if not np.array_equal(host_codecs.imread_bgr(files["TIFF LZW + predictor 2"]),
+                          np.ascontiguousarray(frame[..., ::-1])):
+        raise AssertionError("codecs: the port's TIFF does not read back to its frame")
     out["decode_ms"] = {}
     for kind, path in files.items():
         ms = {t: _decode_ms(path, t) for t in (1, 8)}
@@ -2107,6 +2124,7 @@ def phase_codecs(card: str, png_data: str, tmp: str):
         raise AssertionError("codecs: JPEG validation did not go through the kernel")
     if not np.isfinite(hist["step_loss"] + hist["val_loss"]).all():
         raise AssertionError(f"codecs: non-finite loss {hist}")
+    out["train_tiff"] = _codecs_tiff_epoch(card, tmp, overrides)
     # (e) predict on JPEG sources against the same frames as arrays
     folder = os.path.join(os.path.dirname(jpg_data), "valid", "images")
     paths = sorted(glob.glob(os.path.join(folder, "*.jpg")))
@@ -2129,6 +2147,95 @@ def phase_codecs(card: str, png_data: str, tmp: str):
     log(f"codecs: YoloLite.predict on a JPEG path ({len(one['boxes'])} boxes) and a folder of "
         f"{len(paths)} ({out['predict_boxes']} boxes) equal to the frames as arrays; "
         f"nms_suppress launched {out['predict_launches']} times [{card}]")
+    tif_path = sorted(glob.glob(os.path.join(out["train_tiff"]["root"], "valid", "images",
+                                             "*.tif")))[0]
+    out["predict_tiff_webp"] = {}
+    for kind, path in (("TIFF", tif_path),
+                       ("WebP", os.path.join(CODEC_FIXTURES, "webp_lossy_640x480.webp"))):
+        cuda_nms.LAUNCHES = 0
+        got = api.predict(path, conf=0.001)[0]
+        launches = cuda_nms.LAUNCHES
+        want = api.predict(host_codecs.imread_bgr(path), conf=0.001)[0]
+        if not (np.array_equal(got["boxes"], want["boxes"])
+                and np.array_equal(got["classes"], want["classes"]) and launches == 1):
+            raise AssertionError(f"codecs: predict on a {kind} path differs from its array "
+                                 f"(or launched nms_suppress {launches} times)")
+        out["predict_tiff_webp"][kind] = len(got["boxes"])
+    log(f"codecs: YoloLite.predict on a TIFF path and a WebP path "
+        f"({out['predict_tiff_webp']} boxes) equal to the frames as arrays, one nms_suppress "
+        f"launch each [{card}]")
+    out["pretrain"] = _codecs_pretrain(card, tmp)
+    return out
+
+
+def _codecs_tiff_epoch(card: str, tmp: str, overrides: dict) -> dict:
+    """edge_n one epoch on a TIFF copy of the synthetic set (the port's TIFF
+    writer, cv2.imwrite's layout): validation's nms_suppress launches as
+    the JPEG run's."""
+    t0 = time.perf_counter()
+    data = make_synth_set(os.path.join(tmp, "synth_tif"), TRAIN_N, VAL_N, fmt="tif")
+    log(f"codecs: wrote the synthetic set's {TRAIN_N} + {VAL_N} images as TIFFs "
+        f"(LZW + predictor 2) in {time.perf_counter() - t0:.2f} s")
+    api = YoloLite("edge_n", device="cuda")
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = api.train(data=data, workers=8, run_dir=os.path.join(tmp, "runs_tif"), **overrides)
+    torch.cuda.synchronize()
+    hist = res["history"]
+    val_batches = -(-VAL_N // overrides["batch_size"])
+    expected = 2 * val_batches
+    out = {"root": os.path.dirname(data), "launches": cuda_nms.LAUNCHES,
+           "train_s": time.perf_counter() - t0, "step_loss": hist["step_loss"],
+           "val_loss": hist["val_loss"], "AP50": res["coco"]["AP50"]}
+    log(f"codecs: edge_n 1 epoch @640 b8 on the TIFF set in {out['train_s']:.1f} s, step losses "
+        f"{', '.join(f'{v:.3f}' for v in hist['step_loss'])}, val loss {hist['val_loss'][0]:.4f}, "
+        f"AP50 {res['coco']['AP50']:.4f}, nms_suppress launched {out['launches']} times "
+        f"(expected {expected}: {val_batches} val batch + {val_batches} in evaluate_model) "
+        f"[{card}]")
+    if out["launches"] != expected:
+        raise AssertionError("codecs: TIFF validation did not go through the kernel")
+    if not np.isfinite(hist["step_loss"] + hist["val_loss"]).all():
+        raise AssertionError(f"codecs: non-finite loss on the TIFF set {hist}")
+    return out
+
+
+CODECS_PRETRAIN = {"webp": ["webp_lossy_640x480.webp", "webp_lossless_640x480.webp",
+                            "webp_lossy_q90.webp", "webp_lossless_alpha.webp",
+                            "webp_exif6.webp", "webp_simple_filter.webp"],
+                   "cmyk": ["cmyk.jpg", "cmyk_progressive_420.jpg"] * 3}
+
+
+def _codecs_pretrain(card: str, tmp: str) -> dict:
+    """pretrain_backbone one epoch (b4 @64) on an imagefolder whose classes
+    are the WebP and the CMYK JPEG fixtures (train 6 a class, val 2): every
+    image read (none a zero image), the loss finite."""
+    root = os.path.join(tmp, "webp_cmyk_folder")
+    for split in ("train", "val"):
+        for cls, names in CODECS_PRETRAIN.items():
+            os.makedirs(os.path.join(root, split, cls), exist_ok=True)
+            for i, name in enumerate(names if split == "train" else names[:2]):
+                shutil.copy(os.path.join(CODEC_FIXTURES, name),
+                            os.path.join(root, split, cls, f"{i}_{name}"))
+    samples, _ = cli_pretrain.list_imagefolder(os.path.join(root, "train"))
+    imgs, _ = cli_pretrain.make_batch(samples, list(range(len(samples))), 64,
+                                      np.random.RandomState(0), train=False)
+    if not all(im.any() for im in imgs):
+        raise AssertionError("codecs: a WebP or CMYK JPEG was read as a zero image")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_pretrain.pretrain(root, backbone=PRETRAIN["backbone"],
+                              out=os.path.join(tmp, "webp_cmyk.ckpt"), epochs=1, batch_size=4,
+                              img_size=64, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in buf.getvalue().splitlines()
+              if " loss " in ln]
+    out = {"images": len(samples), "losses": losses, "seconds": time.perf_counter() - t0}
+    log(f"codecs: pretrain_backbone 1 epoch b4 @64 on {len(samples)} WebP and CMYK JPEG images "
+        f"in {out['seconds']:.1f} s, losses {', '.join(f'{v:.4f}' for v in losses)} [{card}]")
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"codecs: pretrain on WebP and CMYK JPEG: losses {losses}")
     return out
 
 
@@ -5241,6 +5348,7 @@ def main():
                                         for rel, r in phases["seg"]["serve"].items()},
                     launches_seg_train=phases["seg"]["train"]["launches"],
                     launches_jpeg_train=phases["codecs"]["train"]["launches"],
+                    launches_tiff_train=phases["codecs"]["train_tiff"]["launches"],
                     launches_stream=phases["stream"]["launches"],
                     launches_export=phases["export"]["launches"],
                     launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],

@@ -389,11 +389,11 @@ def test_infer_skips_what_cv2_cannot_read(world, tmp_path, monkeypatch, capsys):
     port_out = capsys.readouterr().out
     line = f"[skip] cannot read {bad}"
     assert line in jax_out.splitlines() and line in port_out.splitlines()
-    tiff = tmp_path / "frame.tif"
-    assert cv2.imwrite(str(tiff), np.zeros((8, 8, 3), np.uint8))
-    assert cv2.imread(str(tiff)) is not None
-    with pytest.raises(UnsupportedImage, match="TIFF"):
-        infer_tool.main(["--weights", ckpt, "--img", str(tiff), "--out_dir",
+    gif = tmp_path / "frame.gif"          # a format cv2 reads and the codecs do not
+    assert cv2.imwrite(str(gif), np.zeros((8, 8, 3), np.uint8))
+    assert cv2.imread(str(gif)) is not None
+    with pytest.raises(UnsupportedImage, match="GIF"):
+        infer_tool.main(["--weights", ckpt, "--img", str(gif), "--out_dir",
                          str(tmp_path / "port"), "--device", "cpu"])
 
 

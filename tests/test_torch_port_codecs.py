@@ -151,21 +151,25 @@ def test_damaged_jpeg_as_cv2(tmp_path):
         assert _same_as_cv2(_write(tmp_path, "g.jpg", blob)) is None
 
 
-def _sof_variant(marker: int, precision: int = 8, ncomp: int = 3) -> bytes:
-    """A baseline file's headers with its SOF0 replaced."""
+def _sof_variant(marker: int, precision: int = 8, ncomp: int = 3, adobe=None) -> bytes:
+    """A baseline file's headers with its SOF0 replaced (and an Adobe APP14
+    segment of that transform after SOI)."""
     ok, buf = cv2.imencode(".jpg", fixture_image(16, 16))
     data = buf.tobytes()
     i = data.index(b"\xff\xc0")
     length = struct.unpack(">H", data[i + 2:i + 4])[0]
     comps = b"".join(bytes([c + 1, 0x11, 0]) for c in range(ncomp))
     sof = struct.pack(">BBHBHHB", 0xFF, marker, 8 + 3 * ncomp, precision, 16, 16, ncomp) + comps
-    return data[:i] + sof + data[i + 2 + length:]
+    data = data[:i] + sof + data[i + 2 + length:]
+    if adobe is not None:
+        data = data[:2] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]) + data[2:]
+    return data
 
 
 @pytest.mark.parametrize("variant,match", [
     (dict(marker=0xC9), "arithmetic"), (dict(marker=0xCA), "arithmetic"),
     (dict(marker=0xC3), "lossless"), (dict(marker=0xC5), "hierarchical"),
-    (dict(marker=0xC1, precision=12), "12-bit"), (dict(marker=0xC0, ncomp=4), "CMYK"),
+    (dict(marker=0xC1, precision=12), "12-bit"), (dict(marker=0xC0, ncomp=4, adobe=2), "CMYK"),
 ])
 def test_unsupported_jpeg_variants_raise(variant, match):
     with pytest.raises(UnsupportedImage, match=match):
@@ -330,9 +334,9 @@ def test_png_larger_than_cv2_reads_raises_before_allocating(tmp_path, w, h):
 
 
 def test_other_formats_raise_unsupported_or_fail_as_cv2(tmp_path):
-    path = str(tmp_path / "a.tif")
+    path = str(tmp_path / "a.gif")
     assert cv2.imwrite(path, fixture_image(8, 8))
-    with pytest.raises(UnsupportedImage, match="TIFF"):
+    with pytest.raises(UnsupportedImage, match="GIF"):
         imread_bgr(path)
     with pytest.raises(ValueError):
         imread_bgr(str(tmp_path / "missing.jpg"))

@@ -219,16 +219,17 @@ def test_dataset_resize_and_npy_sources_match_jax(synth, tmp_path):
 
 
 def test_unsupported_images_raise_and_damaged_ones_go_black(synth, tmp_path):
-    """A TIFF split raises at construction naming the file; a JPEG split
-    builds and reads as JAX's; a damaged PNG or JPEG is a black sample with
-    no targets in both packages."""
+    """A split holding a format cv2 reads and the codecs do not (a GIF
+    under a .jpg name) raises naming the file when the sample is read; a
+    JPEG split builds and reads as JAX's; a damaged PNG or JPEG is a black
+    sample with no targets in both packages."""
     root, _ = synth
     imgs, labels = _split(root, "wide", "valid")
-    bad = tmp_path / "tif"
+    bad = tmp_path / "gif"
     bad.mkdir()
-    cv2.imwrite(str(bad / "a.tif"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(UnsupportedImage, match="a.tif"):
-        YoloDataset(str(bad), labels, img_size=64, is_train=False, augment=False)
+    (bad / "a.jpg").write_bytes(cv2.imencode(".gif", np.zeros((8, 8, 3), np.uint8))[1].tobytes())
+    with pytest.raises(UnsupportedImage, match="a.jpg"):
+        YoloDataset(str(bad), labels, img_size=64, is_train=False, augment=False).get(0)
     jpg = tmp_path / "jpg"
     jpg.mkdir()
     cv2.imwrite(str(jpg / "a.jpg"), (np.random.RandomState(0).rand(8, 8, 3) * 255).astype(np.uint8))

@@ -85,7 +85,7 @@ def test_jpeg_within_cv2_q95(tmp_path, ext, shape):
     assert_jpeg_like_cv2(path, img, tmp_path)
 
 
-@pytest.mark.parametrize("name", ["x.tif", "x.gif", "x.webp", "noext"])
+@pytest.mark.parametrize("name", ["x.jp2", "x.gif", "x.webp", "noext"])
 def test_other_extensions_raise_naming_them(tmp_path, name):
     ext = os.path.splitext(name)[1]
     with pytest.raises(ValueError, match=repr(ext) if ext else "without an extension"):

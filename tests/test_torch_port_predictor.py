@@ -92,9 +92,12 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path, monkeypatch):
     np.save(tmp_path / "f.npy", frames[0])
     one = model.predict(str(tmp_path / "f.npy"), conf=0.01)[0]
     np.testing.assert_allclose(one["boxes"], res[0]["boxes"], atol=1e-3)
-    cv2.imwrite(str(tmp_path / "f.tif"), frames[0])
-    with pytest.raises(UnsupportedImage, match="TIFF"):
-        model.predict(str(tmp_path / "f.tif"))
+    cv2.imwrite(str(tmp_path / "f.tif"), frames[0])          # TIFF is read as cv2 reads it
+    tif = model.predict(str(tmp_path / "f.tif"), conf=0.01)[0]
+    np.testing.assert_array_equal(tif["boxes"], one["boxes"])
+    cv2.imwrite(str(tmp_path / "f.gif"), frames[0])           # GIF is not decoded
+    with pytest.raises(UnsupportedImage, match="GIF"):
+        model.predict(str(tmp_path / "f.gif"))
     from yololite_tpu_torch.deploy.export import export_tflite
     with pytest.raises(NotImplementedError, match="TFLite"):
         export_tflite(ckpt)

@@ -125,9 +125,13 @@ def test_make_batch_equals_jax(folder, train):
 
 
 def test_make_batch_webp_raises(tmp_path):
-    img = np.zeros((16, 16, 3), np.uint8)
+    """WebP is read (tests/test_torch_port_codecs_tiff_webp.py); an animated
+    one, which cv2 composes to its first frame, raises naming it."""
+    from PIL import Image
+    frames = [Image.fromarray(np.full((16, 16, 3), v, np.uint8)) for v in (0, 255)]
     path = str(tmp_path / "a.webp")
-    assert cv2.imwrite(path, img) and cv2.imread(path) is not None
+    frames[0].save(path, "WEBP", save_all=True, append_images=frames[1:], duration=100)
+    assert cv2.imread(path) is not None
     with pytest.raises(UnsupportedImage, match="WebP"):
         pb.make_batch([(path, 0)], [0], 16, np.random.RandomState(0))
 

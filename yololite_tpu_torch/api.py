@@ -8,12 +8,12 @@
     results["speed"]   # {"preprocess_ms", "inference_ms", ..., "total_ms"}
     stats = model.val(data="data.yaml")        # {"map", "map_50", ...}
 
-Sources are decoded BGR uint8 arrays, JPEG, PNG or BMP files (read by the
-port's host codecs as `cv2.imread` reads them, `data/codecs.py`), `.npy`
+Sources are decoded BGR uint8 arrays, JPEG, PNG, BMP, TIFF or WebP files
+(read by the port's host codecs as `cv2.imread` reads them, `data/codecs.py`), `.npy`
 files of BGR arrays, or a folder of them; datasets take the same files
 (`data/dataset.py`). A file that cannot be decoded raises
-`FileNotFoundError` naming it, as in the JAX API; a TIFF raises
-`UnsupportedImage`. `draw=True` adds the drawn detections as an RGB
+`FileNotFoundError` naming it, as in the JAX API; a format cv2 reads and
+the codecs do not (GIF, JPEG 2000, ...) raises `UnsupportedImage`. `draw=True` adds the drawn detections as an RGB
 "plot"; `save_dir=` also writes it under the source's basename (an array
 as `pred_{n}.jpg`), encoded by the extension (`data/imwrite.py`).
 A model name or yaml resolves as in the JAX API (configs/models, then
@@ -62,8 +62,8 @@ class YoloLite:
                 draw: bool = False, save_dir: Optional[str] = None,
                 **_ignored) -> List[Dict[str, Any]]:
         """Detections (and, for a segmentation model, uint8 masks of each
-        frame's shape under "masks") for BGR arrays, JPEG, PNG, BMP or `.npy`
-        files, or a folder of them. A file that does not decode raises
+        frame's shape under "masks") for BGR arrays, image files (JPEG, PNG,
+        BMP, TIFF, WebP) or `.npy` files, or a folder of them. A file that does not decode raises
         `FileNotFoundError(path)`, as JAX's does where cv2.imread gives None."""
         from yololite_tpu_torch.data.dataset import read_image_rgb
         pred = self.predictor

@@ -21,11 +21,13 @@
 //     otherwise; rows beyond the component's last replicate it;
 //   - jdcolor.c's fixed-point YCbCr->RGB tables (SCALEBITS 16), the Adobe
 //     APP14 transform flag and component-id colour space guess;
+//   - 4-component CMYK (Adobe transform 0, or no Adobe marker), converted
+//     to BGR as OpenCV's icvCvt_CMYK2BGR converts libjpeg's CMYK output;
 //   - the EXIF orientation (tag 0x0112 of the first APP1 segment; of a PNG's
 //     eXIf chunk) that cv2.imread applies after decoding, read here and
 //     applied by the caller (data/codecs.py).
-// Arithmetic coding, lossless, hierarchical, 12-bit and 4-component JPEGs
-// are reported as unsupported.
+// Arithmetic coding, lossless, hierarchical, 12-bit and YCCK JPEGs are
+// reported as unsupported.
 //
 // BMP follows OpenCV's grfmt_bmp.cpp: 24-bit, 8-bit palette, 32-bit BI_RGB
 // and BI_BITFIELDS (bytes taken as B, G, R, A whatever the masks), rows
@@ -37,8 +39,9 @@
 // OpenCV's transforms: 16-bit keeps the high byte, gray of 1/2/4 bits is
 // scaled to 8, palettes expand (with tRNS as alpha).
 //
-// The C interface returns 0 on success, 1 for damaged data (cv2.imread would
-// give None) and 2 for a variant this file does not decode, with a message.
+// The decoders' C interface returns 0 on success, 1 for damaged data
+// (cv2.imread would give None) and 2 for a variant this file does not
+// decode, with a message. One encoder is here too: TIFF's LZW.
 
 #include <algorithm>
 #include <cstdint>
@@ -228,6 +231,7 @@ struct Jpeg {
   int scans = 0;
   int next_restart_num = 0;
   int last_good_imcu_row = 0;     // of the last scan: the last iMCU row begun with data
+  int colour = -1;                // -1: from the markers; 0: none (RGB); 1: YCbCr (TIFF)
 
   explicit Jpeg(const uint8_t* d, int64_t n) { src.data = d; src.n = n; }
 };
@@ -676,8 +680,11 @@ void initial_setup(Jpeg& j) {
   if ((int64_t)j.width * j.height > (int64_t)1 << 30) damaged("JPEG image too big");
   if (j.precision != 8)
     unsupported(std::to_string(j.precision) + "-bit JPEG (only 8-bit samples are read)");
-  if (j.ncomp == 4) unsupported("4-component (CMYK/YCCK) JPEG");
-  if (j.ncomp != 1 && j.ncomp != 3) damaged("JPEG with " + std::to_string(j.ncomp) + " components");
+  if (j.ncomp == 4 && j.saw_adobe && j.adobe_transform != 0)
+    unsupported("YCCK JPEG (Adobe transform " + std::to_string(j.adobe_transform) +
+                "; CMYK is read)");
+  if (j.ncomp != 1 && j.ncomp != 3 && j.ncomp != 4)
+    damaged("JPEG with " + std::to_string(j.ncomp) + " components");
   j.hmax = j.vmax = 1;
   for (int i = 0; i < j.ncomp; i++) {
     Component& c = j.comp[i];
@@ -1175,8 +1182,20 @@ std::vector<uint8_t> jpeg_decode_bgr(Jpeg& j) {
     for (size_t i = 0; i < n; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[0][i];
     return out;
   }
+  if (j.ncomp == 4) {             // CMYK as libjpeg gives it (Adobe-inverted), then OpenCV's
+    const uint8_t *c = full[0].data(), *m = full[1].data(), *y = full[2].data(),
+                  *k = full[3].data();
+    for (size_t i = 0; i < n; i++) {
+      const int kk = k[i];
+      out[3 * i] = (uint8_t)(kk - (((255 - y[i]) * kk) >> 8));
+      out[3 * i + 1] = (uint8_t)(kk - (((255 - m[i]) * kk) >> 8));
+      out[3 * i + 2] = (uint8_t)(kk - (((255 - c[i]) * kk) >> 8));
+    }
+    return out;
+  }
   bool rgb;
-  if (j.saw_jfif) rgb = false;
+  if (j.colour >= 0) rgb = j.colour == 0;
+  else if (j.saw_jfif) rgb = false;
   else if (j.saw_adobe) rgb = j.adobe_transform == 0;
   else rgb = j.comp[0].id == 82 && j.comp[1].id == 71 && j.comp[2].id == 66;
   const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
@@ -1405,6 +1424,570 @@ void png_unfilter(const uint8_t* raw, int64_t n, int w, int h, int depth, int ct
   }
 }
 
+// ------------------------------------------------------------------------ //
+// TIFF: the first IFD, decoded to what libtiff's TIFFReadRGBAStrip/Tile give
+// OpenCV's TiffDecoder (IMREAD_COLOR), as probed on OpenCV 5.0 / libtiff 4.7
+// ------------------------------------------------------------------------ //
+//
+// Layouts: II/MM, classic and BigTIFF; strips or tiles; PlanarConfiguration
+// 1 and 2; FillOrder 2 (bit-reversed data). Compression 1, 5 (LZW, MSB-first),
+// 32773 (PackBits), 7 (JPEG, with JPEGTables, through the decoder above) and
+// 8/32946 (Deflate: the caller inflates each chunk with zlib and hands the
+// bytes in). Predictor 2 at 8 and 16 bits (LZW and Deflate only: libtiff's
+// PackBits and raw codecs ignore the tag). Samples become 8-bit RGB as
+// libtiff's RGBA interface makes them:
+//   - gray (MinIsBlack/MinIsWhite, the first sample of any count): 1-bit ->
+//     0/255, 8-bit as is, 16-bit its high byte; MinIsWhite inverted;
+//   - RGB (3 or 4 samples): 16-bit rounded as (x + 128) / 257; unassociated
+//     alpha (ExtraSamples 2) premultiplied as (a * c + 127) / 255;
+//   - palette (1, 4, 8 bits): a colormap whose entries all fit in 8 bits is
+//     taken as 8-bit, else its high bytes;
+//   - CMYK (8-bit, InkSet 1): c = (255 - K) * (255 - C) / 255;
+//   - YCbCr only under JPEG (libjpeg converts, JPEGCOLORMODE_RGB).
+// SampleFormat 2 (signed) reads as its unsigned bits, as cv2 reads it.
+// Orientation 2-4 is applied as TIFFReadRGBA* applies it (a horizontal flip
+// within each tile column); 5-8 give None in cv2 (a transposed read fails its
+// own check), so they are damaged here. What cv2 gives None for is damaged;
+// CCITT, old-style JPEG, raw YCbCr, unknown codecs and bilevel depths beyond
+// these are unsupported.
+
+struct Tiff {
+  const uint8_t* d;
+  int64_t n;
+  bool le = true, big = false;
+  int64_t width = -1, height = -1;
+  int bps = 1, spp = 1, compression = 1, photometric = -1, planar = 1, predictor = 1;
+  int orientation = 1, fillorder = 1, inkset = 1, sample_format = 1, alpha = -1;
+  int64_t rows_per_strip = -1, tile_w = 0, tile_h = 0;
+  bool tiled = false;
+  int ycc_h = -1, ycc_v = -1;
+  std::vector<uint64_t> offsets, counts;
+  std::vector<uint16_t> colormap;
+  std::vector<uint8_t> jpeg_tables;
+  // derived
+  int64_t chunk_w = 0, chunk_h = 0, across = 1, down = 1, planes = 1, per = 1;
+  int64_t row_bytes = 0;
+};
+
+uint64_t tiff_uint(const Tiff& t, int64_t off, int size) {
+  if (off < 0 || off + size > t.n) damaged("truncated TIFF directory");
+  uint64_t v = 0;
+  for (int i = 0; i < size; i++) {
+    uint64_t b = t.d[off + i];
+    v |= t.le ? b << (8 * i) : b << (8 * (size - 1 - i));
+  }
+  return v;
+}
+
+int tiff_type_size(int type) {
+  switch (type) {
+    case 1: case 2: case 6: case 7: return 1;
+    case 3: case 8: return 2;
+    case 4: case 9: case 11: case 13: return 4;
+    case 5: case 10: case 12: case 16: case 17: case 18: return 8;
+  }
+  return 0;
+}
+
+// The values of one directory entry as unsigned integers (BYTE, SHORT, LONG,
+// LONG8, IFD types; signed types as their bits).
+std::vector<uint64_t> tiff_values(const Tiff& t, int64_t entry) {
+  const int type = (int)tiff_uint(t, entry + 2, 2);
+  const uint64_t count = tiff_uint(t, entry + 4, t.big ? 8 : 4);
+  const int size = tiff_type_size(type);
+  if (size == 0 || type == 5 || type == 10 || type == 11 || type == 12)
+    damaged("unexpected TIFF field type " + std::to_string(type));
+  if (count > (uint64_t)t.n) damaged("TIFF field count out of range");
+  const int inline_bytes = t.big ? 8 : 4;
+  int64_t at = entry + (t.big ? 12 : 8);
+  if (count * size > (uint64_t)inline_bytes) at = (int64_t)tiff_uint(t, at, t.big ? 8 : 4);
+  if (at < 0 || (uint64_t)at + count * size > (uint64_t)t.n) damaged("TIFF field data out of the file");
+  std::vector<uint64_t> v((size_t)count);
+  for (uint64_t i = 0; i < count; i++) v[i] = tiff_uint(t, at + (int64_t)(i * size), size);
+  return v;
+}
+
+Tiff tiff_parse(const uint8_t* d, int64_t n) {
+  Tiff t;
+  t.d = d;
+  t.n = n;
+  if (n < 8 || !((d[0] == 'I' && d[1] == 'I') || (d[0] == 'M' && d[1] == 'M')))
+    damaged("not a TIFF file");
+  t.le = d[0] == 'I';
+  const int magic = (int)tiff_uint(t, 2, 2);
+  int64_t ifd;
+  if (magic == 42) {
+    ifd = (int64_t)tiff_uint(t, 4, 4);
+  } else if (magic == 43) {
+    t.big = true;
+    if (tiff_uint(t, 4, 2) != 8 || tiff_uint(t, 6, 2) != 0) damaged("bad BigTIFF header");
+    ifd = (int64_t)tiff_uint(t, 8, 8);
+  } else {
+    damaged("not a TIFF file");
+  }
+  const int64_t count = (int64_t)tiff_uint(t, ifd, t.big ? 8 : 2);
+  const int64_t esize = t.big ? 20 : 12, first = ifd + (t.big ? 8 : 2);
+  if (count <= 0 || first + count * esize > n) damaged("truncated TIFF directory");
+  bool have_photometric = false;
+  std::vector<uint64_t> bps_all;
+  for (int64_t e = 0; e < count; e++) {
+    const int64_t at = first + e * esize;
+    const int tag = (int)tiff_uint(t, at, 2);
+    auto one = [&]() {
+      std::vector<uint64_t> v = tiff_values(t, at);
+      if (v.empty()) damaged("empty TIFF field " + std::to_string(tag));
+      return v[0];
+    };
+    switch (tag) {
+      case 256: t.width = (int64_t)one(); break;
+      case 257: t.height = (int64_t)one(); break;
+      case 258: bps_all = tiff_values(t, at); break;
+      case 259: t.compression = (int)one(); break;
+      case 262: t.photometric = (int)one(); have_photometric = true; break;
+      case 266: t.fillorder = (int)one(); break;
+      case 273: case 324: t.offsets = tiff_values(t, at); break;
+      case 274: t.orientation = (int)one(); break;
+      case 277: t.spp = (int)one(); break;
+      case 278: t.rows_per_strip = (int64_t)one(); break;
+      case 279: case 325: t.counts = tiff_values(t, at); break;
+      case 284: t.planar = (int)one(); break;
+      case 317: t.predictor = (int)one(); break;
+      case 320: {
+        std::vector<uint64_t> v = tiff_values(t, at);
+        t.colormap.assign(v.begin(), v.end());
+        break;
+      }
+      case 322: t.tile_w = (int64_t)one(); t.tiled = true; break;
+      case 323: t.tile_h = (int64_t)one(); t.tiled = true; break;
+      case 332: t.inkset = (int)one(); break;
+      case 338: t.alpha = (int)one(); break;
+      case 339: t.sample_format = (int)one(); break;
+      case 347: {
+        std::vector<uint64_t> v = tiff_values(t, at);
+        t.jpeg_tables.assign(v.begin(), v.end());
+        break;
+      }
+      case 530: {
+        std::vector<uint64_t> v = tiff_values(t, at);
+        if (v.size() >= 2) {
+          t.ycc_h = (int)v[0];
+          t.ycc_v = (int)v[1];
+        }
+        break;
+      }
+      default: break;
+    }
+  }
+  if (!bps_all.empty()) t.bps = (int)bps_all[0];
+  if (t.width <= 0 || t.height <= 0) damaged("TIFF without an image size");
+  if (t.width > (1 << 20) || t.height > (1 << 20) || t.width * t.height > ((int64_t)1 << 30))
+    damaged("TIFF image too big");
+  if (t.spp < 1 || t.spp > 4) damaged("TIFF with " + std::to_string(t.spp) + " samples per pixel");
+  if (t.orientation < 1 || t.orientation > 8) t.orientation = 1;
+  if (t.orientation >= 5) damaged("TIFF orientation " + std::to_string(t.orientation) +
+                                  " (cv2.imread gives None)");
+  if (!have_photometric) damaged("TIFF without a photometric interpretation");
+  if (t.photometric == 3 && t.colormap.size() != (size_t)3 << t.bps) {
+    // libtiff drops a colormap of the wrong length and reads 8-bit and
+    // deeper palette images without one as RGB (3 samples) or gray
+    if (t.bps < 8) damaged("TIFF palette without a colormap");
+    t.photometric = t.spp == 3 ? 2 : 1;
+    t.colormap.clear();
+  }
+  if (t.sample_format != 1 && t.sample_format != 2)
+    damaged("TIFF sample format " + std::to_string(t.sample_format));
+  switch (t.compression) {
+    case 1: case 5: case 7: case 8: case 32773: case 32946: break;
+    case 2: case 3: case 4: unsupported("CCITT-compressed TIFF (compression " +
+                                        std::to_string(t.compression) + ")");
+    case 6: unsupported("old-style JPEG TIFF (compression 6)");
+    case 9: case 10: case 32908: case 32947: case 34712:
+      unsupported("TIFF compression " + std::to_string(t.compression));
+    case 32809: case 32909: case 34676: case 34677: case 34892:
+      unsupported("TIFF compression " + std::to_string(t.compression));
+    case 34661: case 34887: case 34925: case 50000: case 50001:
+      damaged("TIFF compression " + std::to_string(t.compression) +
+              " (not configured in cv2's libtiff: cv2.imread gives None)");
+    default: unsupported("TIFF compression " + std::to_string(t.compression));
+  }
+  const int b = t.bps, ph = t.photometric;
+  if (b != 1 && b != 8 && b != 10 && b != 12 && b != 14 && b != 16 && b != 32 && b != 64 &&
+      !(b == 4 && ph == 3))
+    damaged("TIFF with " + std::to_string(b) + "-bit samples (cv2.imread gives None)");
+  if (b > 16 || b == 10 || b == 12 || b == 14)
+    damaged("TIFF with " + std::to_string(b) + "-bit samples (libtiff's RGBA reader refuses them)");
+  if (t.planar != 1 && t.planar != 2) damaged("bad TIFF planar configuration");
+  if (t.fillorder != 1 && t.fillorder != 2) t.fillorder = 1;
+  switch (ph) {
+    case 0: case 1:
+      if (b == 1 && t.planar == 1 && t.spp != 1) damaged("bilevel TIFF with extra samples");
+      break;
+    case 2:
+      if (t.spp < 3) damaged("RGB TIFF with fewer than 3 samples");
+      if (b != 8 && b != 16) damaged("RGB TIFF with " + std::to_string(b) + "-bit samples");
+      break;
+    case 3: {
+      if (t.spp != 1) unsupported("palette TIFF with " + std::to_string(t.spp) + " samples");
+      break;
+    }
+    case 5:
+      if (t.inkset != 1) damaged("separated TIFF with InkSet " + std::to_string(t.inkset));
+      if (t.spp != 4 || b != 8) damaged("CMYK TIFF other than 8-bit, 4 samples");
+      break;
+    case 6:
+      if (t.compression != 7) unsupported("uncompressed or non-JPEG YCbCr TIFF");
+      break;
+    default:
+      unsupported("TIFF photometric interpretation " + std::to_string(ph));
+  }
+  if (t.compression == 7) {
+    if (b != 8) damaged("JPEG TIFF with " + std::to_string(b) + "-bit samples");
+    if (t.planar != 1) unsupported("planar JPEG TIFF");
+    if (ph == 3 || ph == 5 || (ph == 6 && t.spp != 3) || (ph == 2 && t.spp != 3) ||
+        ((ph == 0 || ph == 1) && t.spp != 1))
+      unsupported("JPEG TIFF of photometric " + std::to_string(ph) + " with " +
+                  std::to_string(t.spp) + " samples");
+  }
+  if (t.predictor == 3) damaged("floating-point predictor on integer TIFF samples");
+  const bool coded = t.compression == 5 || t.compression == 8 || t.compression == 32946;
+  if (!coded || t.predictor != 2) t.predictor = 1;
+  if (t.predictor == 2 && b != 8 && b != 16)
+    damaged("TIFF horizontal predictor with " + std::to_string(b) + "-bit samples");
+  // chunk geometry
+  t.planes = t.planar == 2 ? t.spp : 1;
+  t.per = t.planar == 2 ? 1 : t.spp;
+  if (t.tiled) {
+    if (t.tile_w <= 0 || t.tile_h <= 0 || t.tile_w > (1 << 24) || t.tile_h > (1 << 24))
+      damaged("bad TIFF tile size");
+    t.chunk_w = t.tile_w;
+    t.chunk_h = t.tile_h;
+    t.across = (t.width + t.tile_w - 1) / t.tile_w;
+  } else {
+    if (t.rows_per_strip == 0) damaged("TIFF with zero rows per strip");
+    t.chunk_w = t.width;
+    t.chunk_h = t.rows_per_strip < 0 || t.rows_per_strip > t.height ? t.height : t.rows_per_strip;
+    t.across = 1;
+  }
+  t.down = (t.height + t.chunk_h - 1) / t.chunk_h;
+  if ((uint64_t)t.chunk_w * t.chunk_h * t.per * std::max(1, b / 8) >= ((uint64_t)1 << 30))
+    damaged("TIFF tile size is too large");
+  t.row_bytes = (t.chunk_w * t.per * b + 7) / 8;
+  const int64_t chunks = t.planes * t.across * t.down;
+  if ((int64_t)t.offsets.size() < chunks || (int64_t)t.counts.size() < chunks)
+    damaged("TIFF strip or tile offsets missing");
+  if (t.compression == 1 && !t.tiled) {
+    // libtiff distrusts the byte counts of uncompressed strips (a single
+    // strip's that is zero, past the end of the file or short of the image;
+    // chunky strips whose first two differ) and sets each strip to
+    // rows * row bytes, rows = height / strips per image
+    const uint64_t c0 = t.counts[0], c1 = chunks > 1 ? t.counts[1] : 0;
+    const int64_t full_row = (t.width * t.per * b + 7) / 8;
+    bool bad = false;
+    if (chunks == 1)
+      bad = t.offsets[0] != 0 && (c0 == 0 || (t.offsets[0] <= (uint64_t)n && c0 > n - t.offsets[0]) ||
+                                  c0 < (uint64_t)(full_row * t.height));
+    else
+      bad = t.planar == 1 && chunks > 2 && c0 != c1 && c0 && c1;
+    if (bad)
+      for (int64_t i = 0; i < chunks; i++) t.counts[i] = (uint64_t)(full_row * (t.height / t.down));
+  }
+  return t;
+}
+
+int64_t tiff_chunks(const Tiff& t) { return t.planes * t.across * t.down; }
+
+// Rows held by chunk i (a short last strip; tiles are always whole).
+int64_t tiff_chunk_rows(const Tiff& t, int64_t i) {
+  if (t.tiled) return t.chunk_h;
+  const int64_t row = (i % t.down) * t.chunk_h;
+  return std::min(t.chunk_h, t.height - row);
+}
+
+uint8_t bit_reverse(uint8_t b) {
+  b = (uint8_t)((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+  b = (uint8_t)((b & 0xCC) >> 2 | (b & 0x33) << 2);
+  return (uint8_t)((b & 0xAA) >> 1 | (b & 0x55) << 1);
+}
+
+// libtiff's LZWDecode (MSB-first codes, early change) into `out` (`occ`
+// bytes, zeroed by the caller). Returns false where libtiff's decode fails,
+// the bytes before the fault written.
+bool lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t occ) {
+  const int kClear = 256, kEoi = 257, kMaxEntries = 4096 + 1024;
+  std::vector<int32_t> prefix(kMaxEntries), length(kMaxEntries);
+  std::vector<uint8_t> suffix(kMaxEntries), first(kMaxEntries);
+  for (int i = 0; i < 256; i++) {
+    prefix[i] = -1;
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  int64_t bitpos = 0, o = 0;
+  int nbits = 9, free_ent = 258, old = -1;
+  auto next = [&]() -> int {
+    if (bitpos + nbits > n * 8) return kEoi;    // ran out: not terminated with EOI
+    const int64_t at = bitpos >> 3;             // the code lies in these 3 bytes
+    uint32_t w = (uint32_t)in[at] << 16;
+    if (at + 1 < n) w |= (uint32_t)in[at + 1] << 8;
+    if (at + 2 < n) w |= in[at + 2];
+    const int v = (int)((w >> (24 - nbits - (int)(bitpos & 7))) & ((1u << nbits) - 1));
+    bitpos += nbits;
+    return v;
+  };
+  auto emit = [&](int code) {
+    const int64_t end = o + length[code];
+    int c = code;
+    for (int64_t p = end - 1; p >= o; p--) {
+      if (p < occ) out[p] = suffix[c];
+      c = prefix[c];
+    }
+    o = std::min(end, occ);
+  };
+  while (o < occ) {
+    int code = next();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      do {
+        free_ent = 258;
+        nbits = 9;
+        code = next();
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return false;          // corrupted LZW table
+      out[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (old < 0 || code > free_ent || free_ent >= kMaxEntries) return false;
+    prefix[free_ent] = old;
+    first[free_ent] = first[old];
+    length[free_ent] = length[old] + 1;
+    suffix[free_ent] = code < free_ent ? first[code] : first[old];
+    free_ent++;
+    if (free_ent > (1 << nbits) - 2 && nbits < 12) nbits++;
+    emit(code);
+    old = code;
+  }
+  return o == occ;
+}
+
+// libtiff's PackBitsDecode: false when the data runs out (a literal run
+// that does not fit in what is left is not copied).
+bool packbits_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t occ) {
+  int64_t i = 0, o = 0;
+  while (i < n && o < occ) {
+    const int c = (int8_t)in[i++];
+    if (c == -128) continue;
+    if (c < 0) {
+      const int64_t k = std::min<int64_t>(1 - c, occ - o);
+      if (i >= n) break;
+      memset(out + o, in[i++], (size_t)k);
+      o += k;
+    } else {
+      const int64_t k = std::min<int64_t>(c + 1, occ - o);
+      if (n - i < k) break;
+      memcpy(out + o, in + i, (size_t)k);
+      i += k;
+      o += k;
+    }
+  }
+  return o == occ;
+}
+
+// The JPEG tables of a JPEGTables field copied into a strip's decoder.
+void tiff_jpeg_tables(const Tiff& t, Jpeg& j) {
+  if (t.jpeg_tables.empty()) return;
+  Jpeg tj(t.jpeg_tables.data(), (int64_t)t.jpeg_tables.size());
+  if (tj.src.byte() != 0xFF || tj.src.byte() != M_SOI) damaged("bad TIFF JPEGTables");
+  if (read_markers(tj)) damaged("TIFF JPEGTables holds an image");
+  memcpy(j.dc, tj.dc, sizeof(j.dc));
+  memcpy(j.ac, tj.ac, sizeof(j.ac));
+  memcpy(j.qtab, tj.qtab, sizeof(j.qtab));
+  memcpy(j.qdefined, tj.qdefined, sizeof(j.qdefined));
+  j.restart_interval = tj.restart_interval;
+}
+
+// One JPEG strip or tile as RGB (or gray) 8-bit samples into S; a strip that
+// does not decode stays zero.
+void tiff_jpeg_chunk(const Tiff& t, const uint8_t* src, int64_t cnt, int64_t rows, int64_t x0,
+                     int64_t y0, int64_t vcols, int64_t vrows, std::vector<uint16_t>& S) {
+  std::vector<uint8_t> bgr;
+  try {
+    Jpeg j(src, cnt);
+    j.colour = t.photometric == 6 ? 1 : 0;
+    tiff_jpeg_tables(t, j);
+    bgr = jpeg_decode_bgr(j);
+    if (t.photometric != 6 && j.ncomp == 3 && (j.hmax != 1 || j.vmax != 1))
+      unsupported("subsampled JPEG TIFF that is not YCbCr");
+    if (j.width != t.chunk_w || j.height != rows || (j.ncomp == 1) != (t.spp == 1) ||
+        (t.photometric == 6 && t.ycc_h > 0 && (j.comp[0].h != t.ycc_h || j.comp[0].v != t.ycc_v)))
+      damaged("TIFF JPEG strip of another size, components or sampling");
+  } catch (const CodecError& e) {
+    if (e.kind == UNSUPPORTED) throw;
+    return;
+  }
+  const int64_t W = t.width, spp = t.spp;
+  for (int64_t y = 0; y < vrows; y++)
+    for (int64_t x = 0; x < vcols; x++) {
+      const uint8_t* p = &bgr[(size_t)(y * t.chunk_w + x) * 3];
+      uint16_t* s = &S[(size_t)(((y0 + y) * W + x0 + x) * spp)];
+      if (spp == 1) {
+        s[0] = p[0];
+      } else {
+        s[0] = p[2];
+        s[1] = p[1];
+        s[2] = p[0];
+      }
+    }
+}
+
+// Decodes every chunk into 16-bit samples S [height, width, spp] (8-bit
+// values for JPEG), as TIFFReadRGBAStrip/Tile read them with stop_on_error
+// off: a chunk of the first plane that lies outside the file fails the read;
+// one that fails to decode keeps what was decoded before the fault, the rest
+// zero, with no predictor and no byte swap applied (libtiff runs both only
+// after a decode that succeeds). `inflated` holds the zlib output of each
+// Deflate chunk at inflated_offs[i], and inflated_ok[i] whether zlib
+// finished it.
+std::vector<uint16_t> tiff_samples(const Tiff& t, const uint8_t* inflated,
+                                   const int64_t* inflated_offs, const uint8_t* inflated_ok) {
+  const int64_t W = t.width, H = t.height, spp = t.spp;
+  std::vector<uint16_t> S((size_t)(W * H * spp), 0);
+  std::vector<uint8_t> buf, raw;
+  for (int64_t i = 0; i < tiff_chunks(t); i++) {
+    const int64_t plane = i / (t.across * t.down), k = i % (t.across * t.down);
+    const int64_t y0 = (k / t.across) * t.chunk_h, x0 = (k % t.across) * t.chunk_w;
+    const int64_t rows = tiff_chunk_rows(t, i);
+    const int64_t vrows = std::min(rows, H - y0), vcols = std::min(t.chunk_w, W - x0);
+    const uint64_t off = t.offsets[i], cnt64 = t.counts[i];
+    if (cnt64 == 0 || cnt64 > (uint64_t)t.n || off > (uint64_t)t.n - cnt64) {
+      if (plane == 0) damaged("TIFF strip or tile " + std::to_string(i) + " lies outside the file");
+      continue;
+    }
+    const uint8_t* src = t.d + off;
+    const int64_t cnt = (int64_t)cnt64;
+    if (t.compression == 7) {
+      tiff_jpeg_chunk(t, src, cnt, rows, x0, y0, vcols, vrows, S);
+      continue;
+    }
+    const int64_t occ = rows * t.row_bytes;
+    buf.assign((size_t)occ, 0);
+    const uint8_t* data = src;
+    if (t.fillorder == 2 && t.compression != 8 && t.compression != 32946) {
+      raw.assign(src, src + cnt);
+      for (auto& c : raw) c = bit_reverse(c);
+      data = raw.data();
+    }
+    bool ok = true;
+    switch (t.compression) {
+      case 1:
+        ok = cnt >= occ;
+        if (ok) memcpy(buf.data(), data, (size_t)occ);
+        break;
+      case 5:
+        if (cnt >= 2 && data[0] == 0 && (data[1] & 1)) unsupported("old-style (LSB-first) TIFF LZW");
+        ok = lzw_decode(data, cnt, buf.data(), occ);
+        break;
+      case 32773: ok = packbits_decode(data, cnt, buf.data(), occ); break;
+      default: {
+        if (!inflated) damaged("Deflate TIFF data was not inflated");
+        const int64_t have = std::min(inflated_offs[i + 1] - inflated_offs[i], occ);
+        memcpy(buf.data(), inflated + inflated_offs[i], (size_t)have);
+        ok = inflated_ok[i] && have == occ;
+      }
+    }
+    const int per = (int)t.per, b = t.bps;
+    const bool file_order = ok || t.le;           // a failed chunk is read in host (LE) order
+    std::vector<uint16_t> v((size_t)(t.chunk_w * per));
+    for (int64_t y = 0; y < vrows; y++) {
+      const uint8_t* row = buf.data() + y * t.row_bytes;
+      const int64_t nsamp = t.chunk_w * per;
+      for (int64_t s = 0; s < nsamp; s++) {
+        if (b == 8) v[s] = row[s];
+        else if (b == 16) v[s] = file_order == t.le ? (uint16_t)(row[2 * s] | row[2 * s + 1] << 8)
+                                                    : (uint16_t)(row[2 * s] << 8 | row[2 * s + 1]);
+        else v[s] = (uint16_t)((row[(s * b) >> 3] >> (8 - b - (int)((s * b) & 7))) & ((1 << b) - 1));
+      }
+      if (ok && t.predictor == 2) {
+        const uint16_t mask = b == 8 ? 0xFF : 0xFFFF;
+        for (int64_t s = per; s < nsamp; s++) v[s] = (uint16_t)((v[s] + v[s - per]) & mask);
+      }
+      for (int64_t x = 0; x < vcols; x++) {
+        uint16_t* o = &S[(size_t)(((y0 + y) * W + x0 + x) * spp)];
+        if (t.planar == 2) o[plane] = v[x];
+        else for (int c = 0; c < per; c++) o[c] = v[x * per + c];
+      }
+    }
+  }
+  return S;
+}
+
+// TIFF -> BGR [height, width, 3], orientation applied.
+std::vector<uint8_t> tiff_decode_bgr(const Tiff& t, const uint8_t* inflated,
+                                     const int64_t* inflated_offs, const uint8_t* inflated_ok) {
+  std::vector<uint16_t> S = tiff_samples(t, inflated, inflated_offs, inflated_ok);
+  const int64_t W = t.width, H = t.height, spp = t.spp, npix = W * H;
+  const int b = t.compression == 7 ? 8 : t.bps, ph = t.photometric;
+  std::vector<uint8_t> out((size_t)npix * 3);
+  auto to8 = [&](uint16_t v) -> int { return b == 16 ? (v + 128) / 257 : v; };
+  bool cmap8 = true;
+  for (uint16_t c : t.colormap) cmap8 &= c < 256;
+  const size_t ncolors = t.colormap.size() / 3;
+  for (int64_t i = 0; i < npix; i++) {
+    const uint16_t* s = &S[(size_t)(i * spp)];
+    uint8_t* o = &out[(size_t)i * 3];
+    int r, g, bl;
+    if (ph == 0 || ph == 1) {
+      int v = b == 16 ? s[0] >> 8 : (b == 1 ? s[0] * 255 : s[0]);
+      if (ph == 0) v = 255 - v;
+      r = g = bl = v;
+    } else if (ph == 3) {
+      const size_t k = s[0];
+      r = t.colormap[k];
+      g = t.colormap[ncolors + k];
+      bl = t.colormap[2 * ncolors + k];
+      if (!cmap8) {
+        r >>= 8;
+        g >>= 8;
+        bl >>= 8;
+      }
+    } else if (ph == 5) {
+      const int k = 255 - s[3];
+      r = k * (255 - s[0]) / 255;
+      g = k * (255 - s[1]) / 255;
+      bl = k * (255 - s[2]) / 255;
+    } else {
+      r = to8(s[0]);
+      g = to8(s[1]);
+      bl = to8(s[2]);
+      if (spp >= 4 && t.alpha == 2) {
+        const int a = to8(s[3]);
+        r = (a * r + 127) / 255;
+        g = (a * g + 127) / 255;
+        bl = (a * bl + 127) / 255;
+      }
+    }
+    o[0] = (uint8_t)bl;
+    o[1] = (uint8_t)g;
+    o[2] = (uint8_t)r;
+  }
+  const int ori = t.orientation;
+  if (ori == 2 || ori == 3) {       // mirrored within each tile column
+    const int64_t cw = t.tiled ? t.chunk_w : W;
+    for (int64_t y = 0; y < H; y++)
+      for (int64_t x0 = 0; x0 < W; x0 += cw) {
+        uint8_t* a = &out[(size_t)(y * W + x0) * 3];
+        const int64_t w = std::min(cw, W - x0);
+        for (int64_t x = 0; x < w / 2; x++)
+          for (int c = 0; c < 3; c++) std::swap(a[x * 3 + c], a[(w - 1 - x) * 3 + c]);
+      }
+  }
+  if (ori == 3 || ori == 4)
+    for (int64_t y = 0; y < H / 2; y++)
+      std::swap_ranges(&out[(size_t)y * W * 3], &out[(size_t)(y + 1) * W * 3],
+                       &out[(size_t)(H - 1 - y) * W * 3]);
+  return out;
+}
+
 }  // namespace
 
 // ------------------------------------------------------------------------ //
@@ -1492,6 +2075,124 @@ int yl_png_unfilter(const uint8_t* raw, int64_t n, int32_t w, int32_t h, int32_t
   } catch (const std::bad_alloc&) {
     return report(CodecError{DAMAGED, "out of memory"}, msg, msglen);
   }
+}
+
+// TIFF: [height, width, orientation, compression, chunks, fillorder] in info.
+int yl_tiff_header(const uint8_t* data, int64_t n, int64_t* info, char* msg, int msglen) {
+  try {
+    Tiff t = tiff_parse(data, n);
+    info[0] = t.height;
+    info[1] = t.width;
+    info[2] = t.orientation;
+    info[3] = t.compression;
+    info[4] = tiff_chunks(t);
+    info[5] = t.fillorder;
+    return OK;
+  } catch (const CodecError& e) {
+    return report(e, msg, msglen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{DAMAGED, "out of memory"}, msg, msglen);
+  }
+}
+
+// Each chunk's file offset, byte count and decoded size, for the caller's
+// inflate of Deflate data.
+int yl_tiff_chunks(const uint8_t* data, int64_t n, int64_t* offs, int64_t* counts,
+                   int64_t* sizes, char* msg, int msglen) {
+  try {
+    Tiff t = tiff_parse(data, n);
+    for (int64_t i = 0; i < tiff_chunks(t); i++) {
+      offs[i] = (int64_t)t.offsets[i];
+      counts[i] = (int64_t)t.counts[i];
+      sizes[i] = tiff_chunk_rows(t, i) * t.row_bytes;
+    }
+    return OK;
+  } catch (const CodecError& e) {
+    return report(e, msg, msglen);
+  }
+}
+
+// TIFF -> BGR uint8 [H, W, 3] into `out`, orientation applied. `inflated`
+// (NULL unless Deflate) holds chunk i at inflated_offs[i]..inflated_offs[i+1],
+// inflated_ok[i] saying whether zlib finished it.
+int yl_tiff_decode(const uint8_t* data, int64_t n, const uint8_t* inflated,
+                   const int64_t* inflated_offs, const uint8_t* inflated_ok, uint8_t* out,
+                   int64_t out_size, char* msg, int msglen) {
+  try {
+    Tiff t = tiff_parse(data, n);
+    std::vector<uint8_t> bgr = tiff_decode_bgr(t, inflated, inflated_offs, inflated_ok);
+    if ((int64_t)bgr.size() != out_size) damaged("TIFF shape changed between calls");
+    memcpy(out, bgr.data(), bgr.size());
+    return OK;
+  } catch (const CodecError& e) {
+    return report(e, msg, msglen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{DAMAGED, "out of memory"}, msg, msglen);
+  }
+}
+
+// TIFF LZW encoding for the TIFF writer (data/imwrite.py): MSB-first codes,
+// a Clear first and whenever the table fills, early change as libtiff's
+// decoder expects. Returns the bytes written, or -1 if `cap` is too small.
+int64_t yl_lzw_encode(const uint8_t* in, int64_t n, uint8_t* out, int64_t cap) {
+  const int kClear = 256, kEoi = 257;
+  const int kHash = 1 << 14;
+  std::vector<int32_t> key(kHash), val(kHash);
+  int64_t o = 0;
+  uint64_t acc = 0;
+  int nacc = 0, nbits = 9, free_ent = 258;
+  auto emit = [&](int code) -> bool {
+    acc = (acc << nbits) | (uint64_t)code;
+    nacc += nbits;
+    while (nacc >= 8) {
+      if (o >= cap) return false;
+      nacc -= 8;
+      out[o++] = (uint8_t)(acc >> nacc);
+    }
+    return true;
+  };
+  auto reset = [&]() {
+    std::fill(key.begin(), key.end(), -1);
+    free_ent = 258;
+    nbits = 9;
+  };
+  reset();
+  if (!emit(kClear)) return -1;
+  int w = -1;
+  for (int64_t i = 0; i < n; i++) {
+    const int c = in[i];
+    if (w < 0) {
+      w = c;
+      continue;
+    }
+    const int32_t k = (w << 8) | c;
+    uint32_t h = ((uint32_t)k * 2654435761u) >> 18;
+    while (key[h] >= 0 && key[h] != k) h = (h + 1) & (kHash - 1);
+    if (key[h] == k) {
+      w = val[h];
+      continue;
+    }
+    if (!emit(w)) return -1;
+    key[h] = k;
+    val[h] = free_ent++;
+    if (free_ent > (1 << nbits) - 1 && nbits < 12) nbits++;
+    if (free_ent >= 4094) {
+      if (!emit(kClear)) return -1;
+      reset();
+    }
+    w = c;
+  }
+  if (w >= 0) {
+    if (!emit(w)) return -1;
+    free_ent++;
+    if (free_ent > (1 << nbits) - 1 && nbits < 12) nbits++;
+  }
+  if (!emit(kEoi)) return -1;
+  if (nacc) {
+    if (o >= cap) return -1;
+    out[o++] = (uint8_t)(acc << (8 - nacc));
+  }
+  return o;
 }
 
 }  // extern "C"

@@ -9,11 +9,15 @@ as `cv2.imwrite` does.
     edge pixels, as libjpeg pads);
   - `.png`: 8-bit RGB, each row's filter chosen as libpng's heuristic does,
     zlib (`write_png`);
-  - `.bmp`: 24-bit, bottom-up rows padded to 4 bytes (`write_bmp`).
+  - `.bmp`: 24-bit, bottom-up rows padded to 4 bytes (`write_bmp`);
+  - `.tif` / `.tiff`: what cv2.imwrite writes by default (`write_tiff`):
+    chunky 8-bit RGB, LZW with horizontal differencing (Predictor 2), strips
+    of 8 KiB of rows, little-endian; the LZW coder is the host codec
+    library's (`csrc/imgcodec.cpp`, built at first use).
 
 Any other extension raises `ValueError` naming it. The files decode with
-`cv2.imread` and with the port's own codecs (`data/codecs.py`): PNG and BMP
-to the array written, JPEG within its quantization.
+`cv2.imread` and with the port's own codecs (`data/codecs.py`): PNG, BMP and
+TIFF to the array written, JPEG within its quantization.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ def imwrite_bgr(path: str, img: np.ndarray) -> None:
         write_png(path, rgb)
     elif ext == ".bmp":
         write_bmp(path, rgb)
+    elif ext in (".tif", ".tiff"):
+        write_tiff(path, rgb)
     else:
         raise ValueError(f"{path}: cannot write {ext or 'a file without an extension'!r} "
-                         f"images (the port writes .jpg, .jpeg, .png and .bmp)")
+                         f"images (the port writes .jpg, .jpeg, .png, .bmp, .tif and .tiff)")
 
 
 def write_bmp(path: str, rgb: np.ndarray) -> None:
@@ -56,6 +62,47 @@ def write_bmp(path: str, rgb: np.ndarray) -> None:
     info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
     with open(path, "wb") as f:
         f.write(head + info + rows.tobytes())
+
+
+def _lzw(data: bytes) -> bytes:
+    from yololite_tpu_torch.data.codecs import library
+    out = np.empty(2 * len(data) + 16, np.uint8)      # 12-bit codes never need more
+    n = library().yl_lzw_encode(data, len(data), out.ctypes.data, out.size)
+    return out[:n].tobytes()
+
+
+def write_tiff(path: str, rgb: np.ndarray) -> None:
+    """TIFF of an RGB uint8 [H, W, 3] image as cv2.imwrite writes one by
+    default: LZW, Predictor 2, chunky RGB, rows per strip 8192 // row bytes."""
+    h, w, _ = rgb.shape
+    rps = max(1, min(h, 8192 // (3 * w)))
+    strips = []
+    for y in range(0, h, rps):
+        rows = rgb[y:y + rps].reshape(-1, 3 * w).astype(np.int16)
+        rows[:, 3:] -= rows[:, :-3].copy()
+        strips.append(_lzw((rows & 0xFF).astype(np.uint8).tobytes()))
+    offsets, pos = [], 8
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s) + (len(s) & 1)
+    extra = pos                                  # arrays that do not fit in an entry
+    fields = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [5]), (262, 3, [2]),
+              (273, 4, offsets), (277, 3, [3]), (278, 4, [rps]), (279, 4, [len(s) for s in strips]),
+              (284, 3, [1]), (317, 3, [2]), (339, 3, [1, 1, 1])]
+    blobs, entries = b"", b""
+    for tag, typ, vals in fields:
+        data = struct.pack("<" + ("H" if typ == 3 else "I") * len(vals), *vals)
+        if len(data) <= 4:
+            entries += struct.pack("<HHI", tag, typ, len(vals)) + data.ljust(4, b"\0")
+        else:
+            entries += struct.pack("<HHII", tag, typ, len(vals), extra + len(blobs))
+            blobs += data
+    ifd = extra + len(blobs)
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", ifd))
+        for s in strips:
+            f.write(s + b"\0" * (len(s) & 1))
+        f.write(blobs + struct.pack("<H", len(fields)) + entries + b"\0\0\0\0")
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:

@@ -3,13 +3,13 @@
     python -m yololite_tpu_torch.tools.infer --weights best.ckpt --img image_or_dir \
         [--save_txt] [--save_json] [--out_dir DIR] [--device cuda]
 
-Reads each image with the port's codecs (`data/codecs.imread_bgr`, JPEG, PNG
-and BMP as `cv2.imread` reads them), runs `Predictor.infer_image_profiled`
+Reads each image with the port's codecs (`data/codecs.imread_bgr`, JPEG, PNG,
+BMP, TIFF and WebP as `cv2.imread` reads them), runs `Predictor.infer_image_profiled`
 and writes the drawn detections (`{stem}_pred.jpg`), YOLO-txt labels and
 JSON per image into runs/infer/<n> (or --out_dir) in the JAX CLI's
 formats. A file cv2 could not read is skipped with JAX's "[skip] cannot
-read" line; a format the codecs do not decode (TIFF) raises
-`UnsupportedImage`.
+read" line; a format the codecs do not decode (GIF, JPEG 2000, ...)
+raises `UnsupportedImage`.
 """
 
 from __future__ import annotations

@@ -27,9 +27,10 @@ As in the JAX tool:
     `np.random.RandomState(seed)` in the same order, so the batches are the
     same crops (pixels within one level: the resize matches cv2's within
     one level).
-Images are read by the port's codecs as `cv2.imread` reads them; a file cv2
-gives None for becomes a zero image, as there. WebP, which cv2 reads and the
-codecs do not, raises (ROADMAP, "When a user needs them"). The weights start
+Images (WebP and CMYK JPEG among them) are read by the port's codecs as
+`cv2.imread` reads them; a file cv2 gives None for becomes a zero image, as
+there. A format cv2 reads and the codecs do not (animated WebP, GIF under
+an image name) raises `UnsupportedImage`. The weights start
 from `init_weights(seed)`, not flax's initializers.
 """
 
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yololite_tpu_torch.convert import to_flax
-from yololite_tpu_torch.data.codecs import UnsupportedImage, imread_bgr
+from yololite_tpu_torch.data.codecs import imread_bgr
 from yololite_tpu_torch.models.backbones.zoo import build_backbone
 from yololite_tpu_torch.models.detector import init_weights
 from yololite_tpu_torch.ops.letterbox import resize_image
@@ -73,15 +74,7 @@ def list_imagefolder(root):
 
 def _read_rgb(path: str, img_size: int) -> np.ndarray:
     """`cv2.cvtColor(cv2.imread(path), BGR2RGB)`, a zero image where imread
-    gives None."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(16)
-    except OSError:
-        head = b""
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise UnsupportedImage(f"{path}: WebP is not decoded by this package (ROADMAP, "
-                               f"'When a user needs them')")
+    gives None (a format the codecs do not decode raises UnsupportedImage)."""
     try:
         img = imread_bgr(path)
     except ValueError:
