@@ -142,16 +142,30 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               encoders on a 640x480 frame and of each weather effect;
               YoloLite.predict(draw=True, save_dir=) on a PNG folder, a JPEG
               folder and an array; infer's *_pred.jpg; infer_exported --out on
-              the "nms" .pt2; tracker over the stream phase's 240-frame clip
-              (a BMP sequence) without --out, to a Motion-JPEG .avi and to a
-              JPEG sequence (frames/s of each); a 6-epoch run on 8 + 8 images
+              the "nms" .pt2; tracker over 60 frames of the stream phase's
+              clip (a BMP sequence) without --out, to an mp4v .avi (luma at
+              VIDEO_LUMA_PSNR_DB or more of each drawn frame) and to a JPEG
+              sequence (frames/s of each); a 6-epoch run on 8 + 8 images
               (sanity_check.jpg, last_b0/1.jpg of epoch 6); augment_weather over
               the training images in YOLO and COCO layout and one epoch on the
               YOLO copy's JPEGs. Every file written decodes with the port's
               codecs to the canvas drawn (JPEG byte for byte the encoder's
               output, re-encoded for 1 in DRAW_REENCODE_EVERY, and at least
               DRAW_PSNR_DB of it), nms_suppress launched as each step implies
- 17. tools    the remaining user tools through their entry points, on the
+ 17. video    video files on the card's host (data/video.py, csrc/videocodec.cpp;
+              no cv2 there): every clip of tests/data/video decoded, its
+              packets, fps, frame count, size and each frame's SHA-256 equal
+              to cv2's in the manifest (the truncated clip's concealed last
+              frame by count only; the WebM raises); make_clip's 240 frames
+              at 480x640 written as .mp4 by the port's writer and read back
+              (count and rate exact, luma at VIDEO_LUMA_PSNR_DB or more);
+              tracker --device cuda on that .mp4 and on the same decoded
+              frames as a PNG sequence, each without and with --out out.mp4:
+              equal tracks, nms_suppress launched a frame and once for the
+              warmup; host ms to decode a 640x480 I-VOP, P-VOP and
+              Motion-JPEG frame and to encode a frame, the .mp4's size, and
+              the tracker's frames/s of each run
+ 18. tools    the remaining user tools through their entry points, on the
               same PNG set: model_info --all (12 configs @640) on the card,
               its table logged, parameters and FLOPs equal to the CPU's;
               pretrain_backbone (MobileNetV4-Conv-S-050, 25 epochs b32 @224)
@@ -165,7 +179,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               predicted; its batched img/s beside serve's); the loop's
               profile flag on a 2-epoch run (one trace, holding CUDA kernel
               events)
- 18. synth    the dataset generators on the card's host (numpy, through
+ 19. synth    the dataset generators on the card's host (numpy, through
               each tool's main(argv)): make_hard_synth 32 + 8 at base 640
               (boxes) and 16 + 8 (--seg), make_synth_dataset 32 + 8 at 320
               (plain and --seg_polygons), make_crop_corpus of the HardSynth
@@ -183,7 +197,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               on the same tensors on the CPU, then batched_nms on the card
               (launches counted, DIoU apart) bit for bit the plain
               detections
- 19. ddp      data-parallel training, edge_n @640 at full width: two ranks
+ 20. ddp      data-parallel training, edge_n @640 at full width: two ranks
               spawned on this one card over gloo (NCCL refuses two ranks on
               one device) against one process at the same global batch and
               weights: a b16 step (8 a rank) in fp32 (TF32 off) and bf16,
@@ -200,7 +214,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               final COCO equal to one process's evaluate_model of the best
               checkpoint); with 2 cards the same over NCCL, else a world-1
               NCCL group
- 20. spatial  spatial parallelism (the image height split over ranks),
+ 21. spatial  spatial parallelism (the image height split over ranks),
               yololite_l + P6 @1280 at full width and depth on a 1280x1280
               PNG set, seeded weights with calibrated BatchNorm statistics:
               n_data 1 x n_spatial 2 ranks on this card over gloo against
@@ -253,6 +267,7 @@ from yololite_tpu_torch.data import augment as host_aug  # noqa: E402
 from yololite_tpu_torch.data import codecs as host_codecs  # noqa: E402
 from yololite_tpu_torch.data import device_augment as dev_aug  # noqa: E402
 from yololite_tpu_torch.data import imgops  # noqa: E402
+from yololite_tpu_torch.data import video as host_video  # noqa: E402
 from yololite_tpu_torch.data import weather  # noqa: E402
 from yololite_tpu_torch.data.imwrite import (  # noqa: E402
     JPEG_QUALITY, encode_jpeg, write_bmp, write_jpeg, write_png, write_tiff,
@@ -440,7 +455,8 @@ KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
                            ("int8_conv_depthwise",
                             "yololite_tpu/ops/quant.py:48 (XLA, no Pallas)"))]
 KERNEL_SOURCES = ["nms_suppress", "int8_conv"]      # csrc/<name>.cu
-HOST_LIBS = ["imgcodec", "webpcodec", "native"]   # host C++ (csrc/*.cpp): codecs; NMS, matcher, pack
+HOST_LIBS = ["imgcodec", "webpcodec", "videocodec", "native"]   # host C++ (csrc/*.cpp):
+#   image and video codecs; NMS, matcher, pack
 CODEC_FIXTURES = os.path.join(ROOT, "tests", "data", "codecs")
 
 
@@ -3579,6 +3595,8 @@ DRAW_TRAIN_N, DRAW_VAL_N = 8, 8  # the 6-epoch run's set
 DRAW_PSNR_DB = 20.0              # floor of a JPEG file against its canvas (q95, 4:2:0)
 DRAW_REENCODE_EVERY = 24         # JPEG files re-encoded for the byte check: 1 in this
 DRAW_REPS = 5                    # host timings: median of this many
+DRAW_TRACK_FRAMES = 60           # the tracker runs over this many frames of the clip
+VIDEO_LUMA_PSNR_DB = 40.0        # floor of an mp4v file's luma against its canvas
 
 
 @contextlib.contextmanager
@@ -3636,24 +3654,6 @@ def _check_written(seen: dict, what: str) -> dict:
     if not seen:
         raise AssertionError(f"draw: {what} wrote no image")
     return {"files": len(seen), "jpeg_min_psnr_db": min(psnrs) if psnrs else None}
-
-
-def _avi_frames(path: str):
-    """The JPEG of each '00dc' chunk of a Motion-JPEG AVI, checked against
-    its idx1 index."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
-        raise AssertionError(f"draw: {path} is not a RIFF AVI")
-    at, frames = data.index(b"movi") + 4, []
-    while data[at:at + 4] == b"00dc":
-        n = struct.unpack("<I", data[at + 4:at + 8])[0]
-        frames.append(data[at + 8:at + 8 + n])
-        at += 8 + n + (n & 1)
-    if data[at:at + 4] != b"idx1" or struct.unpack("<I", data[at + 4:at + 8])[0] != \
-            16 * len(frames):
-        raise AssertionError(f"draw: {path} has no index of its {len(frames)} frames")
-    return frames
 
 
 def _median_ms(fn, reps: int = DRAW_REPS) -> float:
@@ -3809,9 +3809,10 @@ def _draw_tools(card: str, ckpt: str, pt2: str, conf: float, val_dir: str, work:
 
 def _draw_tracker(card: str, ckpt: str, conf: float, frames, work: str, launches: dict,
                   secs: dict) -> dict:
-    """tracker over the stream phase's clip (a BMP sequence): without --out,
-    to a Motion-JPEG .avi and to a JPEG sequence; frames/s of each, every
-    written frame its drawn canvas."""
+    """tracker over the first DRAW_TRACK_FRAMES frames of the stream phase's
+    clip (a BMP sequence): without --out, to an mp4v .avi and to a JPEG
+    sequence; frames/s of each, every written frame its drawn canvas."""
+    frames = frames[:DRAW_TRACK_FRAMES]
     seq = os.path.join(work, "seq")
     os.makedirs(seq)
     for i, f in enumerate(frames):
@@ -3842,12 +3843,12 @@ def _draw_tracker(card: str, ckpt: str, conf: float, frames, work: str, launches
             raise AssertionError(f"draw tracker {name}: {len(tracks)} frames, "
                                  f"{len(drawn)} drawn")
         if name == "avi":
-            chunks = _avi_frames(extra[1])
-            if len(chunks) != n:
-                raise AssertionError(f"draw tracker: {len(chunks)} AVI frames of {n}")
-            psnr = [_check_jpeg(c, d[0], k % DRAW_REENCODE_EVERY == 0, f"AVI frame {k}")
-                    for k, (c, d) in enumerate(zip(chunks, drawn))]
-            out[name]["jpeg_min_psnr_db"] = min(psnr)
+            reader = host_video.VideoReader(extra[1])
+            if (reader.codec, reader.frame_count, reader.fps) != \
+                    ("mp4v", n, cli_tracker.SEQUENCE_FPS):
+                raise AssertionError(f"draw tracker: {extra[1]} holds {reader.codec} "
+                                     f"{reader.frame_count} frames at {reader.fps} fps")
+            out[name]["luma_min_psnr_db"] = _luma_psnr_min(extra[1], [d[0] for d in drawn])
         elif name == "pattern":
             want = [os.path.join(work, "track", "%04d.jpg" % k) for k in range(1, n + 1)]
             if sorted(seen) != want or any(not np.array_equal(seen[p], d[0])
@@ -3955,7 +3956,7 @@ def phase_draw(card: str, data: str, tmp: str, cli: dict):
     """Drawing and the offline weather tool through the user entry points,
     edge_n @640 with the cli phase's sharpened checkpoint and "nms" .pt2:
     YoloLite.predict(draw=, save_dir=), infer, infer_exported --out, tracker
-    --out (.avi and a sequence) over the 240-frame clip, a 6-epoch run's
+    --out (.avi and a sequence) over 60 frames of the clip, a 6-epoch run's
     sanity and val-debug images, and augment_weather (YOLO and COCO) with
     an epoch on its JPEGs. Every written file decodes with the port's codecs
     to the canvas drawn; nms_suppress launches as each step implies."""
@@ -3989,6 +3990,175 @@ def phase_draw(card: str, data: str, tmp: str, cli: dict):
     out["seconds"], out["launches"] = secs, launches
     log(f"draw: nms_suppress launches {json.dumps(launches)}, each as predicted; seconds "
         f"{json.dumps({k: round(v, 2) for k, v in secs.items()})} [{card}]")
+    return out
+
+
+# video phase: the committed clips, the writer's round trip and the tracker
+# on a video file
+VIDEO_FIXTURES = os.path.join(ROOT, "tests", "data", "video")
+VIDEO_TIMING_640 = "mp4v_640x480.mp4"      # an I-VOP and 5 P-VOPs at 640x480
+VIDEO_FPS = 30.0
+
+
+def _luma_psnr_min(path: str, canvases) -> float:
+    """The lowest PSNR of an mp4v file's decoded luma (the decoder's own
+    plane) against the BT.601 luma of each canvas (BGR); the file must hold
+    exactly these frames and none may fall below VIDEO_LUMA_PSNR_DB."""
+    reader = host_video.VideoReader(path)
+    dec = host_video.Mpeg4Decoder(reader.track.extradata)
+    w, h = reader.size
+    psnrs = []
+    for pkt, canvas in zip(reader.packets(), canvases):
+        y = dec.decode(pkt, planes=True)[:w * h].reshape(h, w).astype(np.int32)
+        c = canvas[:h, :w].astype(np.int32)
+        want = ((66 * c[..., 2] + 129 * c[..., 1] + 25 * c[..., 0] + 128) >> 8) + 16
+        psnrs.append(_psnr(y, want))
+    dec.close()
+    if len(psnrs) != len(canvases) or min(psnrs) < VIDEO_LUMA_PSNR_DB:
+        raise AssertionError(f"video: {path} holds {len(psnrs)} of {len(canvases)} frames, "
+                             f"luma at {min(psnrs):.2f} dB (floor {VIDEO_LUMA_PSNR_DB})")
+    return min(psnrs)
+
+
+def _video_fixtures(card: str) -> dict:
+    """Every committed clip decoded here, held to cv2's manifest."""
+    with open(os.path.join(VIDEO_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    sha = lambda b: hashlib.sha256(bytes(b)).hexdigest()
+    out = {}
+    for name, want in sorted(manifest.items()):
+        t0 = time.perf_counter()
+        reader = host_video.VideoReader(os.path.join(VIDEO_FIXTURES, name))
+        meta = [reader.fps, reader.frame_count, list(reader.size)]
+        packets = [sha(p) for p in reader.packets()]
+        frames = [sha(np.ascontiguousarray(f)) for f in reader]
+        secs = time.perf_counter() - t0
+        exact = len(frames) - len(reader.damaged)
+        if (meta != [want["fps"], want["frame_count"], want["size"]]
+                or packets != want["packets"] or len(frames) != len(want["frames"])
+                or frames[:exact] != want["frames"][:exact]
+                or reader.damaged not in ([], [len(frames) - 1])):
+            raise AssertionError(f"video: {name} differs from cv2's manifest: {meta} vs "
+                                 f"{[want['fps'], want['frame_count'], want['size']]}, "
+                                 f"{len(frames)} frames, damaged {reader.damaged}")
+        out[name] = {"frames": len(frames), "codec": reader.codec, "seconds": secs,
+                     "concealed": reader.damaged, "stop": reader.stop_reason}
+    try:
+        host_video.VideoReader(os.path.join(VIDEO_FIXTURES, "vp80_64x48.webm"))
+        raise AssertionError("video: the WebM clip did not raise")
+    except host_video.UnsupportedVideo as e:
+        out["vp80_64x48.webm"] = {"raised": str(e)[:60]}
+    log(f"video fixtures: {len(manifest)} clips, every packet, fps, frame count, size and "
+        f"frame SHA-256 equal to cv2's manifest (the truncated clip's last, concealed "
+        f"frame by count); the WebM raises UnsupportedVideo [{_cpu_name()}]")
+    return out
+
+
+def _video_timings(card: str, frame) -> dict:
+    """Host ms (1 thread) to decode a 640x480 I-VOP, a P-VOP and a
+    Motion-JPEG frame, median of DRAW_REPS."""
+    reader = host_video.VideoReader(os.path.join(VIDEO_FIXTURES, VIDEO_TIMING_640))
+    packets = list(reader.packets())
+    kinds = ["IPBS"[p[p.find(b"\x00\x00\x01\xb6") + 4] >> 6] for p in packets]
+
+    def decode_all():
+        dec = host_video.Mpeg4Decoder(reader.track.extradata)
+        times = []
+        for p in packets:
+            t0 = time.perf_counter()
+            dec.decode(p)
+            times.append(time.perf_counter() - t0)
+        dec.close()
+        return times
+    runs = [decode_all() for _ in range(DRAW_REPS)]
+    ms = {k: float(np.median([r[i] for r in runs for i in range(len(kinds)) if kinds[i] == k])
+                   * 1e3) for k in set(kinds)}
+    jpeg = encode_jpeg(frame[..., ::-1])
+    ms["mjpeg"] = _median_ms(lambda: host_video.decode_mjpeg(jpeg))
+    log(f"video host decode ms a 640x480 frame (1 thread): I-VOP {ms['I']:.2f}, P-VOP "
+        f"{ms['P']:.2f} (mp4v from cv2's encoder, {''.join(kinds)}), Motion-JPEG "
+        f"{ms['mjpeg']:.2f} ({frame.shape[1]}x{frame.shape[0]} q95 4:2:0, {len(jpeg)} bytes) "
+        f"[{_cpu_name()}]")
+    return ms
+
+
+def _video_tracker(card: str, ckpt: str, conf: float, mp4: str, frames, work: str,
+                   launches: dict, secs: dict) -> dict:
+    """tracker --device cuda on the .mp4 and on its decoded frames written as
+    a PNG sequence, each without and with --out out.mp4: equal tracks."""
+    seq = os.path.join(work, "seq")
+    os.makedirs(seq)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda kf: write_png(os.path.join(seq, "%04d.png" % kf[0]),
+                                           kf[1][..., ::-1]), enumerate(frames)))
+    key = lambda per_frame: [[(t["track_id"], t["cls"], t["score"], t["bbox"].tolist())
+                              for t in ts] for ts in per_frame]
+    n, out, runs = len(frames), {}, {}
+    for src, video in (("mp4", mp4), ("png", os.path.join(seq, "%04d.png"))):
+        for written in (False, True):
+            name = f"tracker_{src}" + ("_out" if written else "")
+            target = os.path.join(work, f"{name}.mp4")
+            argv = ["--weights", ckpt, "--video", video, "--conf", str(conf), "--device",
+                    "cuda"] + (["--out", target] if written else [])
+            with contextlib.redirect_stdout(io.StringIO()):
+                tracks = _counted(name, n + 1, launches, secs, lambda: cli_tracker.main(argv))
+            runs[name] = key(tracks)
+            out[name] = {"frames_per_s": n / secs[name], "tracks": sum(map(len, tracks))}
+            if len(tracks) != n:
+                raise AssertionError(f"video {name}: {len(tracks)} frames of {n}")
+            if written:
+                reader = host_video.VideoReader(target)
+                if (reader.frame_count, reader.fps) != (n, VIDEO_FPS if src == "mp4"
+                                                        else cli_tracker.SEQUENCE_FPS):
+                    raise AssertionError(f"video {name}: --out holds {reader.frame_count} "
+                                         f"frames at {reader.fps} fps")
+            log(f"video {name}: {n} frames {frames[0].shape[0]}x{frames[0].shape[1]} in "
+                f"{secs[name]:.2f} s, "
+                f"{out[name]['frames_per_s']:.1f} frames/s, {out[name]['tracks']} tracks, "
+                f"{launches[name]} nms_suppress launches (a frame and the warmup) "
+                f"[{_cpu_name()}; {card}]")
+    if len({json.dumps(r) for r in runs.values()}) != 1 or not out["tracker_mp4"]["tracks"]:
+        raise AssertionError("video: the tracks on the .mp4 differ from those on its frames "
+                             "as a PNG sequence (or none were reported)")
+    return out
+
+
+def phase_video(card: str, tmp: str, cli: dict, draw: dict):
+    """Video files on the card's host and the tracker on one, edge_n @640
+    with the cli phase's sharpened checkpoint at the draw phase's conf."""
+    work = os.path.join(tmp, "video")
+    os.makedirs(work)
+    launches, secs = {}, {}
+    out = {"fixtures": _video_fixtures(card)}
+    frames = make_clip(STREAM_FRAMES)
+    out["decode_ms"] = _video_timings(card, frames[0])
+    mp4 = os.path.join(work, "clip.mp4")
+    t0 = time.perf_counter()
+    with host_video.VideoWriter(mp4, VIDEO_FPS, (frames[0].shape[1], frames[0].shape[0])) as w:
+        for f in frames:
+            w.write(f)
+    enc_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    reader = host_video.VideoReader(mp4)
+    t0 = time.perf_counter()
+    decoded = list(reader)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    if (len(decoded), reader.frame_count, reader.fps) != (len(frames),) * 2 + (VIDEO_FPS,):
+        raise AssertionError(f"video: the written .mp4 reads back as {len(decoded)} frames "
+                             f"({reader.frame_count} in the index) at {reader.fps} fps")
+    luma = _luma_psnr_min(mp4, frames)
+    size_mb = os.path.getsize(mp4) / 1e6
+    out["round_trip"] = {"encode_ms": enc_ms, "decode_ms": dec_ms, "mb": size_mb,
+                         "luma_min_psnr_db": luma, "quant": host_video.WRITER_QUANT}
+    log(f"video writer: {len(frames)} frames {frames[0].shape[0]}x{frames[0].shape[1]} as "
+        f"mp4v I-VOPs (quantizer "
+        f"{host_video.WRITER_QUANT}) in {enc_ms:.2f} ms a frame, {size_mb:.2f} MB; read back "
+        f"{len(decoded)} frames at {reader.fps} fps in {dec_ms:.2f} ms a frame, luma >= "
+        f"{luma:.2f} dB of each canvas [{_cpu_name()}]")
+    out["tracker"] = _video_tracker(card, cli["sharpened"], draw["conf"], mp4, decoded, work,
+                                    launches, secs)
+    out["seconds"], out["launches"] = secs, launches
+    log(f"video: nms_suppress launches {json.dumps(launches)}, each as predicted [{card}]")
     return out
 
 
@@ -5324,6 +5494,8 @@ def main():
                          ("quant", lambda: phase_quant(card, data, tmp)),
                          ("cli", lambda: phase_cli(card, data, tmp)),
                          ("draw", lambda: phase_draw(card, data, tmp, phases["cli"])),
+                         ("video", lambda: phase_video(card, tmp, phases["cli"],
+                                                       phases["draw"])),
                          ("tools", lambda: phase_tools(card, data, tmp, serve)),
                          ("synth", lambda: phase_synth(card, tmp)),
                          ("ddp", lambda: phase_ddp(card, data, tmp)),
@@ -5354,6 +5526,7 @@ def main():
                     launches_int8_serve=phases["quant"]["int8"]["launches"]["nms_suppress"],
                     launches_cli=phases["cli"]["launches"],
                     launches_draw=phases["draw"]["launches"],
+                    launches_video=phases["video"]["launches"],
                     launches_tools=phases["tools"]["launches"],
                     launches_synth=phases["synth"]["launches"],
                     launches_diou=phases["synth"]["launches_diou"],

@@ -60,6 +60,7 @@ from yololite_tpu_torch.config import (
     apply_overrides, build_argparser, load_configs, read_yaml,
 )
 from yololite_tpu_torch.data.codecs import UnsupportedImage
+from yololite_tpu_torch.data.video import UnsupportedVideo
 from yololite_tpu_torch.deploy.predictor import Predictor
 from yololite_tpu_torch.tools import evaluate as evaluate_tool
 from yololite_tpu_torch.tools import export as export_tool
@@ -501,29 +502,56 @@ def test_sequence_reader_rejects_what_it_cannot_open(tmp_path):
     assert not cv2.VideoCapture(pattern).isOpened()
     with pytest.raises(SystemExit, match="Cannot open video source"):
         list(tracker_tool.read_frames(pattern))
-    for source in ("clip.mp4", "0", str(tmp_path / "0005.png")):
-        with pytest.raises(NotImplementedError, match="video files for the tracker"):
-            list(tracker_tool.read_frames(source))
+    missing = str(tmp_path / "clip.mp4")
+    assert not cv2.VideoCapture(missing).isOpened()
+    with pytest.raises(SystemExit, match="Cannot open video source"):
+        list(tracker_tool.read_frames(missing))
+    with pytest.raises(NotImplementedError, match="camera 0"):
+        list(tracker_tool.read_frames("0"))
+    stub = tmp_path / "h264.mp4"                    # an mp4v clip relabelled avc1
+    clip = str(tmp_path / "mp4v.mp4")
+    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 48))
+    vw.write(np.zeros((48, 64, 3), np.uint8))
+    vw.release()
+    stub.write_bytes(open(clip, "rb").read().replace(b"mp4v\x00\x00", b"avc1\x00\x00"))
+    with pytest.raises(UnsupportedVideo, match="H.264"):
+        list(tracker_tool.read_frames(str(stub)))
+    one = str(tmp_path / "0005.png")                # one image: a clip of one frame, as cv2
+    np.testing.assert_array_equal(list(tracker_tool.read_frames(one)), _cv2_frames(one))
 
 
-def test_tracker_matches_jax(world, tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("source", ["sequence", "mp4v"])
+def test_tracker_matches_jax(world, tmp_path, monkeypatch, capsys, source):
+    """The port's tracker against JAX's Predictor + KalmanSortTracker fed
+    with cv2's frames of the same source: a PNG sequence, or an mp4v .mp4
+    written by cv2 (which the port decodes as cv2 does, exactly)."""
     _, ckpt = world
     frames = chip_smoke.make_clip(12, h=48, w=64, seed=3)
-    pattern = _write_sequence(str(tmp_path / "seq"), range(1, 13), frames)
+    if source == "sequence":
+        video = _write_sequence(str(tmp_path / "seq"), range(1, 13), frames)
+    else:
+        video = str(tmp_path / "clip.mp4")
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 48))
+        for f in frames:
+            vw.write(f)
+        vw.release()
     _fp32(monkeypatch, tracker_tool)
     kw = dict(conf=0.05, iou=0.45)
-    got = tracker_tool.main(["--weights", ckpt, "--video", pattern, "--device", "cpu",
-                             "--conf", "0.05", "--min_hits", "1"])
+    out = str(tmp_path / "o.mp4")
+    got = tracker_tool.main(["--weights", ckpt, "--video", video, "--device", "cpu",
+                             "--conf", "0.05", "--min_hits", "1", "--out", out])
     assert capsys.readouterr().out.splitlines()[-1].startswith("Processed 12 frames @ ")
     pred = jax_predictor.Predictor(ckpt)
     tracker = JaxTracker(iou_threshold=0.3, max_age=15, min_hits=1)
     want = [tracker.update(r["boxes"], r["scores"], r["classes"])
-            for r in pred.infer_stream(_cv2_frames(pattern), **kw)]
+            for r in pred.infer_stream(_cv2_frames(video), **kw)]
     assert len(got) == len(want) == 12 and sum(map(len, want)) > 0
     for g_frame, w_frame in zip(got, want):
         assert [(t["track_id"], t["cls"]) for t in g_frame] == \
             [(t["track_id"], t["cls"]) for t in w_frame]
         for g, w in zip(g_frame, w_frame):
             np.testing.assert_allclose(g["bbox"], w["bbox"], atol=1e-2)
-    with pytest.raises(NotImplementedError, match="video files for the tracker"):
-        tracker_tool.main(["--weights", ckpt, "--video", pattern, "--out", "o.mp4"])
+    cap = cv2.VideoCapture(out)          # mp4v at the source's rate, as JAX's writer
+    assert cap.get(cv2.CAP_PROP_FPS) == (tracker_tool.SEQUENCE_FPS if source == "sequence"
+                                         else 30.0)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 12

@@ -19,8 +19,10 @@ test_torch_port_imwrite.py, PNG exactly.
     own detections (the boxes of the two packages differ within fp32
     rounding, so each side draws its own): `YoloLite.predict(draw=,
     save_dir=)` on a JPEG, a PNG and arrays, the infer CLI's
-    `*_pred.jpg`, the tracker's `--out` as an .avi and as an image
-    sequence, and the training loop's sanity and val-debug images.
+    `*_pred.jpg`, the tracker's `--out` as an .avi (mp4v, as the JAX
+    tool's writer: read back by cv2 equal to the port's decoder, luma at
+    40 dB PSNR or more) and as an image sequence, and the training loop's
+    sanity and val-debug images.
 """
 
 import os
@@ -39,6 +41,7 @@ from tests.test_torch_port_predictor import ckpt  # noqa: F401 fixture
 from yololite_tpu_torch.api import YoloLite
 from yololite_tpu_torch.data import imgops
 from yololite_tpu_torch.data import imwrite
+from yololite_tpu_torch.data.video import VideoReader
 from yololite_tpu_torch.tools import infer as infer_tool
 from yololite_tpu_torch.tools import tracker as tracker_tool
 from yololite_tpu_torch.train import loop as train_loop
@@ -317,8 +320,8 @@ def test_tracker_out_draws_like_jax(ckpt, tmp_path, monkeypatch, capsys, out):  
         fps_seen.append(fps)
         draw(frame, tracks, fps)
 
-    def record_writer(path, size):
-        w = open_writer(path, size)
+    def record_writer(path, size, fps):
+        w = open_writer(path, size, fps)
         write = w.write
         w.write = lambda frame: (written.append(frame.copy()), write(frame))
         return w
@@ -333,15 +336,18 @@ def test_tracker_out_draws_like_jax(ckpt, tmp_path, monkeypatch, capsys, out):  
     assert fps_seen[:9] == [0.0] * 9 and fps_seen[9] > 0
     for k, (f, ts, fps) in enumerate(zip(frames, tracks, fps_seen)):
         np.testing.assert_array_equal(written[k], _jax_tracker_overlay(f, ts, fps))
-    if out.endswith(".avi"):
-        cap = cv2.VideoCapture(target, cv2.CAP_OPENCV_MJPEG)
+    if out.endswith(".avi"):       # mp4v (FMP4), as the JAX tool's cv2.VideoWriter
+        cap = cv2.VideoCapture(target)
         assert cap.get(cv2.CAP_PROP_FPS) == tracker_tool.SEQUENCE_FPS == 25.0
-        for want in written:
+        ycap = cv2.VideoCapture(target, cv2.CAP_FFMPEG, [cv2.CAP_PROP_CONVERT_RGB, 0])
+        for want, port in zip(written, VideoReader(target)):
             ok, got = cap.read()
             assert ok
-            dec = cv2.imdecode(np.frombuffer(imwrite.encode_jpeg(want[..., ::-1]),
-                                             np.uint8), 1)
-            np.testing.assert_array_equal(got, dec)
+            np.testing.assert_array_equal(port, got)
+            y = ycap.read()[1][:want.shape[0]].astype(np.float64)
+            w = want.astype(np.int32)
+            w_luma = ((66 * w[..., 2] + 129 * w[..., 1] + 25 * w[..., 0] + 128) >> 8) + 16
+            assert 10 * np.log10(255.0 ** 2 / np.mean((y - w_luma) ** 2)) >= 40.0
         assert not cap.read()[0]
     else:           # numbered from 1, as cv2's image-sequence writer numbers
         for k, want in enumerate(written, 1):
@@ -358,8 +364,8 @@ def test_tracker_refuses_what_it_cannot_write(ckpt, tmp_path):  # noqa: F811
     seq.mkdir()
     cv2.imwrite(str(seq / "0000.png"), _frame(1, 48, 64))
     argv = ["--weights", ckpt, "--video", str(seq / "%04d.png"), "--device", "cpu"]
-    for out in ("o.mp4", "o.mkv", "out_dir"):
-        with pytest.raises(NotImplementedError, match="video files for the tracker"):
+    for out in ("o.mkv", "out_dir"):
+        with pytest.raises(NotImplementedError, match="other containers are not written"):
             tracker_tool.main(argv + ["--out", str(tmp_path / out)])
     with pytest.raises(NotImplementedError, match="--show"):
         tracker_tool.main(argv + ["--show"])

@@ -10,8 +10,8 @@ current stream.
 Flags: sm_90a only; -O3; --fmad=false and no fast math, because the kernels'
 outputs are compared bit for bit with plain fp32 PyTorch.
 
-Each `csrc/<name>.cpp` is host code (the image codecs; NMS, IoU, the COCO
-matcher and the s2d pack) compiled by the host C++ compiler (`$CXX`, else
+Each `csrc/<name>.cpp` is host code (the image and video codecs; NMS, IoU,
+the COCO matcher and the s2d pack) compiled by the host C++ compiler (`$CXX`, else
 `c++` or `g++` on PATH) with `HOST_FLAGS`, into the same directory under
 the same kind of key. `-ffp-contract=off` keeps every `a*b + c` two rounded
 operations, as numpy computes them (an FMA would differ in the last bit).

@@ -1215,6 +1215,97 @@ std::vector<uint8_t> jpeg_decode_bgr(Jpeg& j) {
   return out;
 }
 
+// ---- Motion-JPEG frames as FFmpeg's mjpeg decoder gives them ----
+// Planar Y/Cb/Cr without upsampling (yuvj420p/yuvj422p), each block through
+// FFmpeg's simple IDCT (8-bit constants, rows then columns), the DC offset by
+// 1024 as its DC predictor starts there. The colour conversion that
+// cv2.VideoCapture applies to these planes is in csrc/videocodec.cpp.
+
+// Out of range it behaves as the x86 build's (as csrc/videocodec.cpp's):
+// sums modulo 2^32, the row pass saturated to 16 bits but for its DC-only
+// shortcut, which wraps, and the column rounding bias added in 16 bits.
+void simple_idct_put(int16_t* b, uint8_t* dst, int stride) {
+  typedef uint32_t U;
+  const U W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873, W6 = 8867, W7 = 4520;
+  auto sat = [](U v) {
+    int x = (int)(int32_t)v >> 11;
+    return (int16_t)(x < -32768 ? -32768 : (x > 32767 ? 32767 : x));
+  };
+  for (int i = 0; i < 8; i++) {
+    int16_t* r = b + 8 * i;
+    if (!(r[1] | r[2] | r[3] | r[4] | r[5] | r[6] | r[7])) {
+      int16_t v = (int16_t)(r[0] * 8);
+      for (int k = 0; k < 8; k++) r[k] = v;
+      continue;
+    }
+    U a0 = W4 * r[0] + (1u << 10), a1 = a0, a2 = a0, a3 = a0;
+    a0 += W2 * r[2] + W4 * r[4] + W6 * r[6];
+    a1 += W6 * r[2] - W4 * r[4] - W2 * r[6];
+    a2 += -W6 * r[2] - W4 * r[4] + W2 * r[6];
+    a3 += -W2 * r[2] + W4 * r[4] - W6 * r[6];
+    U b0 = W1 * r[1] + W3 * r[3] + W5 * r[5] + W7 * r[7];
+    U b1 = W3 * r[1] - W7 * r[3] - W1 * r[5] - W5 * r[7];
+    U b2 = W5 * r[1] - W1 * r[3] + W7 * r[5] + W3 * r[7];
+    U b3 = W7 * r[1] - W5 * r[3] + W3 * r[5] - W1 * r[7];
+    r[0] = sat(a0 + b0); r[7] = sat(a0 - b0);
+    r[1] = sat(a1 + b1); r[6] = sat(a1 - b1);
+    r[2] = sat(a2 + b2); r[5] = sat(a2 - b2);
+    r[3] = sat(a3 + b3); r[4] = sat(a3 - b3);
+  }
+  for (int x = 0; x < 8; x++) {
+    const int16_t* c = b + x;
+    U a0 = W4 * (int16_t)(c[0] + ((1 << 19) / 16383)), a1 = a0, a2 = a0, a3 = a0;
+    a0 += W2 * c[16] + W4 * c[32] + W6 * c[48];
+    a1 += W6 * c[16] - W4 * c[32] - W2 * c[48];
+    a2 += -W6 * c[16] - W4 * c[32] + W2 * c[48];
+    a3 += -W2 * c[16] + W4 * c[32] - W6 * c[48];
+    U b0 = W1 * c[8] + W3 * c[24] + W5 * c[40] + W7 * c[56];
+    U b1 = W3 * c[8] - W7 * c[24] - W1 * c[40] - W5 * c[56];
+    U b2 = W5 * c[8] - W1 * c[24] + W7 * c[40] + W3 * c[56];
+    U b3 = W7 * c[8] - W5 * c[24] + W3 * c[40] - W1 * c[56];
+    U v[8] = {a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+    for (int y = 0; y < 8; y++) dst[(size_t)y * stride + x] = clamp8((int)(int32_t)v[y] >> 20);
+  }
+}
+
+// The planes of a 3-component YCbCr JPEG whose chroma is 2x1 or 2x2
+// subsampled, into `out`: Y [H, W], then Cb and Cr [ch, cw].
+void jpeg_planes(Jpeg& j, uint8_t* out, int64_t out_size) {
+  if (j.src.byte() != 0xFF || j.src.byte() != M_SOI) damaged("not a JPEG file");
+  if (!read_markers(j)) damaged("JPEG has no image");
+  for (;;) {
+    Scan s;
+    start_scan(j, s);
+    decode_scan(j, s);
+    if (!j.progressive && s.n == j.ncomp && j.scans == 1) break;
+    if (!read_markers(j)) break;
+  }
+  const int W = j.width, H = j.height;
+  const int cw = (W + 1) / 2, ch = j.vmax == 2 ? (H + 1) / 2 : H;
+  if (out_size != (int64_t)W * H + 2 * (int64_t)cw * ch) damaged("JPEG shape changed between calls");
+  uint8_t* dst[3] = {out, out + (size_t)W * H, out + (size_t)W * H + (size_t)cw * ch};
+  const int pw_[3] = {W, cw, cw}, ph_[3] = {H, ch, ch};
+  for (int ci = 0; ci < 3; ci++) {
+    Component& c = j.comp[ci];
+    int pw = c.bw * 8, ph = c.bh * 8;
+    std::vector<uint8_t> plane((size_t)pw * ph);
+    uint16_t zero_q[64] = {0};
+    const uint16_t* q = c.quant_latched ? c.quant : zero_q;
+    for (int by = 0; by < c.bh; by++)
+      for (int bx = 0; bx < c.bw; bx++) {
+        const int16_t* in = block_at(&c, bx, by);
+        int16_t blk[64];
+        int dc = 1024 + in[0] * q[0];
+        blk[0] = (int16_t)std::min(32767, std::max(-32768, dc));
+        for (int k = 1; k < 64; k++) blk[k] = (int16_t)(in[k] * q[k]);
+        simple_idct_put(blk, &plane[(size_t)by * 8 * pw + bx * 8], pw);
+      }
+    for (int y = 0; y < ph_[ci]; y++)
+      memcpy(dst[ci] + (size_t)y * pw_[ci], &plane[(size_t)std::min(y, ph - 1) * pw],
+             (size_t)std::min(pw_[ci], pw));
+  }
+}
+
 // ------------------------------------------------------------------------ //
 // BMP (OpenCV's grfmt_bmp.cpp, read as IMREAD_COLOR)
 // ------------------------------------------------------------------------ //
@@ -2024,6 +2115,46 @@ int yl_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_siz
     std::vector<uint8_t> bgr = jpeg_decode_bgr(j);
     if ((int64_t)bgr.size() != out_size) damaged("JPEG shape changed between calls");
     memcpy(out, bgr.data(), bgr.size());
+    return OK;
+  } catch (const CodecError& e) {
+    return report(e, msg, msglen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{DAMAGED, "out of memory"}, msg, msglen);
+  }
+}
+
+// Motion-JPEG: the layout of the planes that yl_jpeg_planes writes, in
+// info[0..2]: height, width, chroma height (the chroma width is (W + 1) / 2).
+// Only 3-component YCbCr frames with 2x1 (4:2:2) or 2x2 (4:2:0) chroma are
+// planar in FFmpeg's sense; any other layout is UNSUPPORTED.
+int yl_jpeg_planes_header(const uint8_t* data, int64_t n, int32_t* info, char* msg, int msglen) {
+  try {
+    Jpeg j(data, n);
+    if (j.src.byte() != 0xFF || j.src.byte() != M_SOI) damaged("not a JPEG file");
+    if (!read_markers(j)) damaged("JPEG has no image");
+    initial_setup(j);
+    bool ok = j.ncomp == 3 && j.hmax == 2 && j.comp[0].h == 2 && j.comp[0].v == j.vmax &&
+              (j.vmax == 1 || j.vmax == 2);
+    for (int c = 1; ok && c < 3; c++) ok = j.comp[c].h == 1 && j.comp[c].v == 1;
+    if (!ok || j.progressive)
+      throw CodecError{UNSUPPORTED, "Motion-JPEG frames other than baseline YCbCr 4:2:0 or "
+                                    "4:2:2 are not decoded"};
+    info[0] = j.height;
+    info[1] = j.width;
+    info[2] = j.vmax == 2 ? (j.height + 1) / 2 : j.height;
+    return OK;
+  } catch (const CodecError& e) {
+    return report(e, msg, msglen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{DAMAGED, "out of memory"}, msg, msglen);
+  }
+}
+
+int yl_jpeg_planes(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, char* msg,
+                   int msglen) {
+  try {
+    Jpeg j(data, n);
+    jpeg_planes(j, out, out_size);
     return OK;
   } catch (const CodecError& e) {
     return report(e, msg, msglen);

@@ -27,6 +27,10 @@ in parallel. Each decoder gives the pixels of `cv2.imread(path)`
   - WebP: lossy (VP8) and lossless (VP8L), with or without alpha, as
     libwebp's WebPDecodeBGR gives them, the EXIF orientation applied.
 
+`jpeg_planes` gives a Motion-JPEG video frame's Y/Cb/Cr planes as FFmpeg's
+mjpeg decoder does (its IDCT, no upsampling), which `data/video.py`
+converts to BGR as cv2.VideoCapture does: not `imread`'s pixels.
+
 A file cv2 would give `None` for (damaged, truncated before any image data,
 not an image, a TIFF with Orientation 5-8 or 32-bit samples) raises
 `ValueError`; a variant this package does not decode (arithmetic-coded,
@@ -72,6 +76,8 @@ def library() -> ctypes.CDLL:
         for kind in ("jpeg", "bmp"):
             getattr(lib, f"yl_{kind}_header").argtypes = [buf, i64, ptr, buf, ctypes.c_int]
             getattr(lib, f"yl_{kind}_decode").argtypes = [buf, i64, ptr, i64, buf, ctypes.c_int]
+        lib.yl_jpeg_planes_header.argtypes = [buf, i64, ptr, buf, ctypes.c_int]
+        lib.yl_jpeg_planes.argtypes = [buf, i64, ptr, i64, buf, ctypes.c_int]
         lib.yl_exif_orientation.argtypes = [buf, i64]
         lib.yl_tiff_header.argtypes = [buf, i64, ptr, buf, ctypes.c_int]
         lib.yl_tiff_chunks.argtypes = [buf, i64, ptr, ptr, ptr, buf, ctypes.c_int]
@@ -80,7 +86,8 @@ def library() -> ctypes.CDLL:
         lib.yl_lzw_encode.restype = i64
         lib.yl_png_unfilter.argtypes = [buf, i64, i32, i32, i32, i32, i32, buf, buf, ptr, i32,
                                         buf, ctypes.c_int]
-        for fn in (lib.yl_jpeg_header, lib.yl_jpeg_decode, lib.yl_bmp_header,
+        for fn in (lib.yl_jpeg_header, lib.yl_jpeg_decode, lib.yl_jpeg_planes_header,
+                   lib.yl_jpeg_planes, lib.yl_bmp_header,
                    lib.yl_bmp_decode, lib.yl_exif_orientation, lib.yl_png_unfilter,
                    lib.yl_tiff_header, lib.yl_tiff_chunks, lib.yl_tiff_decode):
             fn.restype = ctypes.c_int
@@ -135,6 +142,27 @@ def _decode(kind: str, data: bytes) -> np.ndarray:
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> BGR uint8 [H, W, 3], EXIF orientation applied."""
     return _decode("jpeg", data)
+
+
+def jpeg_planes(data: bytes):
+    """A Motion-JPEG frame's planes as FFmpeg's mjpeg decoder gives them:
+    Y [H, W], Cb and Cr [h, (W + 1) // 2] (h = (H + 1) // 2 for 4:2:0, H for
+    4:2:2), each block through FFmpeg's simple IDCT, no upsampling. Other
+    layouts raise `UnsupportedImage`, a damaged frame `ValueError`."""
+    lib, msg = library(), ctypes.create_string_buffer(_MSG_LEN)
+    data = bytes(data)
+    info = np.zeros(3, np.int32)
+    _check(lib.yl_jpeg_planes_header(data, len(data), info.ctypes.data, msg, _MSG_LEN),
+           msg, "Motion-JPEG")
+    h, w, ch = (int(v) for v in info)
+    cw = (w + 1) // 2
+    out = np.empty(w * h + 2 * cw * ch, np.uint8)
+    _check(lib.yl_jpeg_planes(data, len(data), out.ctypes.data, out.size, msg, _MSG_LEN),
+           msg, "Motion-JPEG")
+    y = out[:w * h].reshape(h, w)
+    u = out[w * h:w * h + cw * ch].reshape(ch, cw)
+    v = out[w * h + cw * ch:].reshape(ch, cw)
+    return y, u, v
 
 
 def _riff_chunks(data: bytes):

@@ -323,17 +323,20 @@ def encode_jpeg(rgb: np.ndarray, quality: int = JPEG_QUALITY) -> bytes:
 
 
 # --------------------------------------------------------------------------- #
-# Motion-JPEG in a RIFF AVI
+# a video stream in a RIFF AVI (Motion-JPEG by default; mp4v for data/video.py)
 # --------------------------------------------------------------------------- #
 
 class AviWriter:
-    """Motion-JPEG video in an AVI 1.0 file (one video stream, an idx1
-    index), frames encoded by `encode_jpeg` at quality 95 as they come; the
-    headers' sizes and counts are filled in by `close`."""
+    """One video stream in an AVI 1.0 file (an idx1 index), each frame
+    encoded as it comes: by default Motion-JPEG (`encode_jpeg` at quality
+    95), else by `encode` (BGR frame -> bytes) under `fourcc`; the headers'
+    sizes and counts are filled in by `close`."""
 
-    def __init__(self, path: str, fps: float, size):
+    def __init__(self, path: str, fps: float, size, fourcc: bytes = b"MJPG", encode=None):
         self.w, self.h = int(size[0]), int(size[1])
         self.fps = float(fps)
+        self.fourcc = fourcc
+        self.encode = encode or (lambda frame: encode_jpeg(frame[..., ::-1]))
         self.f = open(path, "wb")
         self.index = []                 # (offset from the 'movi' fourcc, size)
         self.f.write(self._headers(0, 0, 0))
@@ -344,9 +347,9 @@ class AviWriter:
         rate, scale = int(round(self.fps * 1000)), 1000
         avih = struct.pack("<IIIIIIIIII16x", int(round(1e6 / self.fps)), 0, 0, 0x10,
                            frames, 0, 1, w * h * 3, w, h)
-        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0, 0, scale,
+        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", self.fourcc, 0, 0, 0, 0, scale,
                            rate, 0, frames, w * h * 3, 0xFFFFFFFF, 0, 0, 0, w, h)
-        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0,
+        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, self.fourcc, w * h * 3, 0, 0,
                            0, 0)
         strl = (b"LIST" + struct.pack("<I", 4 + 8 + len(strh) + 8 + len(strf)) + b"strl"
                 + b"strh" + struct.pack("<I", len(strh)) + strh
@@ -360,7 +363,7 @@ class AviWriter:
         if frame_bgr.shape[:2] != (self.h, self.w):
             raise ValueError(f"frame {frame_bgr.shape[:2]} differs from the video's "
                              f"{(self.h, self.w)}")
-        data = encode_jpeg(frame_bgr[..., ::-1])
+        data = self.encode(frame_bgr)
         self.index.append((self.f.tell() - self.movi, len(data)))
         self.f.write(b"00dc" + struct.pack("<I", len(data)) + data
                      + b"\x00" * (len(data) & 1))

@@ -1,27 +1,41 @@
-"""Multi-object tracking over an image sequence (port of `tools/tracker.py`).
+"""Multi-object tracking over a video (port of `tools/tracker.py`).
 
     python -m yololite_tpu_torch.tools.tracker --weights best.ckpt \
-        --video frames/%04d.png [--out out.avi | --out out/%04d.jpg] \
+        --video input.mp4 [--out out.mp4 | --out out/%04d.jpg] \
         [--max_frames N] [--device cuda]
 
 `Predictor.infer_stream` (two graph calls in flight) feeds a
-`KalmanSortTracker`; prints "Processed N frames @ F FPS". The port has no
-video decoder: `--video` takes what `cv2.VideoCapture` reads as an image
-sequence, a printf pattern of JPEG, PNG or BMP files (`frames/%04d.png`),
-decoded by the port's codecs from the first index in 0-4 that exists up to
-the first index missing, as OpenCV 5.0 does (a frame OpenCV cannot decode
-ends the sequence there too; frames must share one size). A container file
-or a camera index raises `NotImplementedError` (ROADMAP, "When a user needs
-them": video files for the tracker).
+`KalmanSortTracker`; prints "Processed N frames @ F FPS".
+
+`--video` takes what `cv2.VideoCapture` opens, decoded as it decodes:
+
+  - a video file (`data/video.py`): MP4/MOV or AVI holding MPEG-4 Part 2
+    (what the JAX tool's writer produces: mp4v, XVID, FMP4, DIVX) or
+    Motion-JPEG, read by the port's host decoders frame for frame as
+    OpenCV 5.0's FFmpeg gives them. A sample cut short by the end of the
+    file is the last (its picture concealed where its data stops), and a
+    packet that does not decode ends the stream; either prints a `[stop]`
+    line. H.264/HEVC, VP8/VP9/AV1, WebM, fragmented MP4 and the MPEG-4 tools
+    past Simple Profile raise `UnsupportedVideo` naming them;
+  - a printf pattern of JPEG, PNG or BMP files (`frames/%04d.png`), decoded
+    by the port's codecs from the first index in 0-4 that exists up to the
+    first index missing, as OpenCV 5.0 does (a frame OpenCV cannot decode
+    ends the sequence there too; frames must share one size), or one image
+    file, a sequence of one frame.
+
+A missing file or one that is no video gives `SystemExit("Cannot open video
+source ...")`, as the JAX tool's `cap.isOpened()` check does; a camera index
+raises `NotImplementedError` (the card's machine has no camera).
 
 `--out` draws each frame as the JAX tool does (track boxes and labels in
-the class colour, the FPS line) and writes it, with no video encoder (the
-JAX tool's `cv2.VideoWriter(..., "mp4v")`): a printf pattern as a sequence
-of image files numbered from 1 (as OpenCV's image-sequence writer numbers
-them), encoded by their extension; an `.avi` as Motion-JPEG at the JAX
-tool's rate, `cap.get(CAP_PROP_FPS) or 30`, which OpenCV 5.0 reports as 25
-for an image sequence. Any other container raises `NotImplementedError`
-naming the same ROADMAP entry; `--show` (a window) raises as well.
+the class colour, the FPS line) and writes it: `.mp4`, `.m4v`, `.mov` or
+`.avi` as MPEG-4 Part 2 (the JAX tool's `cv2.VideoWriter(..., "mp4v")`; the
+port's writer codes I-VOPs at a fixed quantizer, `data/video.VideoWriter`)
+at the source's rate, `cap.get(CAP_PROP_FPS) or 30`, which OpenCV 5.0
+reports as 25 for an image sequence; a printf pattern as a sequence of image
+files numbered from 1 (as OpenCV's image-sequence writer numbers them),
+encoded by their extension. Any other container raises
+`NotImplementedError`; `--show` (a window) raises as well.
 """
 
 from __future__ import annotations
@@ -33,9 +47,10 @@ import re
 import time
 from collections import deque
 
-from yololite_tpu_torch.data import imgops
+from yololite_tpu_torch.data import codecs, imgops
 from yololite_tpu_torch.data.codecs import imread_bgr
-from yololite_tpu_torch.data.imwrite import AviWriter, imwrite_bgr
+from yololite_tpu_torch.data.imwrite import imwrite_bgr
+from yololite_tpu_torch.data.video import VideoReader, VideoWriter
 from yololite_tpu_torch.deploy.predictor import Predictor
 from yololite_tpu_torch.track import KalmanSortTracker
 from yololite_tpu_torch.utils.viz import class_color
@@ -47,15 +62,19 @@ FIRST_INDICES = range(5)
 # the frame rate cv2.VideoCapture reports for an image sequence (OpenCV 5.0),
 # which the JAX tool's writer takes
 SEQUENCE_FPS = 25.0
+# the JAX tool's writer rate when its source reports none
+DEFAULT_FPS = 30.0
+VIDEO_OUT = (".mp4", ".m4v", ".mov", ".avi")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--weights", required=True)
     ap.add_argument("--video", required=True,
-                    help="printf pattern of image files, e.g. frames/%%04d.png")
+                    help="video file (.mp4/.mov/.avi) or printf pattern of image files, "
+                         "e.g. frames/%%04d.png")
     ap.add_argument("--out", default=None,
-                    help="output: out.avi (Motion-JPEG) or a pattern out/%%04d.jpg")
+                    help="output: out.mp4 (or .m4v/.mov/.avi; mp4v) or a pattern out/%%04d.jpg")
     ap.add_argument("--conf", type=float, default=0.35)
     ap.add_argument("--iou", type=float, default=0.45)
     ap.add_argument("--track_iou", type=float, default=0.3)
@@ -72,13 +91,7 @@ def _is_pattern(path: str) -> bool:
 
 
 def sequence_paths(pattern: str):
-    """The files `cv2.VideoCapture(pattern)` reads, in order. A pattern with
-    no printf integer field (a container file) or a camera index raises."""
-    if pattern.isdigit() or not _is_pattern(pattern):
-        raise NotImplementedError(
-            f"--video {pattern!r}: the port reads image sequences given as one printf "
-            f"pattern (frames/%04d.png); camera indices and video files need a video "
-            f"decoder: ROADMAP, 'When a user needs them' (video files for the tracker)")
+    """The files `cv2.VideoCapture(pattern)` reads, in order."""
     first = next((i for i in FIRST_INDICES if os.path.exists(pattern % i)), None)
     if first is None:
         raise SystemExit(f"Cannot open video source {pattern}")
@@ -88,22 +101,67 @@ def sequence_paths(pattern: str):
         i += 1
 
 
-def read_frames(pattern: str, max_frames: int = 0):
-    """BGR frames of the sequence (at most `max_frames`, 0 = all)."""
-    size = None
-    for k, path in enumerate(sequence_paths(pattern)):
-        if max_frames and k >= max_frames:
+class Source:
+    """What `--video` names, opened as `cv2.VideoCapture` opens it: `fps`
+    (as CAP_PROP_FPS reports it), `frames(max_frames)` and, after the
+    frames, `stop` (why they ended early, or None)."""
+
+    def __init__(self, source: str):
+        self.source, self.stop, self.reader, self.paths = source, None, None, None
+        if source.isdigit():
+            raise NotImplementedError(
+                f"--video {source}: camera {source}: the port reads video files and image "
+                f"sequences; there is no camera on the card's machine")
+        if _is_pattern(source):
+            self.paths = sequence_paths(source)
+            self.fps = SEQUENCE_FPS
+            return
+        if not os.path.isfile(source):
+            raise SystemExit(f"Cannot open video source {source}")
+        with open(source, "rb") as f:
+            head = f.read(codecs.SNIFF_BYTES)
+        if codecs.sniff(head):                  # one image: a sequence of one frame
+            self.paths, self.fps = iter([source]), SEQUENCE_FPS
             return
         try:
-            frame = imread_bgr(path)
-        except ValueError:              # cv2's read fails here and the stream ends
-            print(f"[stop] cannot read {path}")
-            return
-        if size is not None and frame.shape != size:
-            raise ValueError(f"{path}: frame shape {frame.shape} differs from the first "
-                             f"frame's {size}")
-        size = frame.shape
-        yield frame
+            self.reader = VideoReader(source)
+        except ValueError as e:
+            raise SystemExit(f"Cannot open video source {source} ({e})") from e
+        self.fps = self.reader.fps
+
+    def frames(self, max_frames: int = 0):
+        """BGR frames (at most `max_frames`, 0 = all); prints a `[stop]` line
+        where the source ends before its last frame."""
+        it = self._video() if self.reader is not None else self._sequence()
+        for k, frame in enumerate(it):
+            if max_frames and k >= max_frames:
+                return
+            yield frame
+        if self.stop:
+            print(f"[stop] {self.stop}")
+
+    def _video(self):
+        yield from self.reader
+        self.stop = self.reader.stop_reason
+
+    def _sequence(self):
+        size = None
+        for path in self.paths:
+            try:
+                frame = imread_bgr(path)
+            except ValueError:              # cv2's read fails here and the stream ends
+                self.stop = f"cannot read {path}"
+                return
+            if size is not None and frame.shape != size:
+                raise ValueError(f"{path}: frame shape {frame.shape} differs from the first "
+                                 f"frame's {size}")
+            size = frame.shape
+            yield frame
+
+
+def read_frames(source: str, max_frames: int = 0):
+    """BGR frames of `--video` (at most `max_frames`, 0 = all)."""
+    yield from Source(source).frames(max_frames)
 
 
 class SequenceWriter:
@@ -123,21 +181,22 @@ class SequenceWriter:
 
 
 def check_out(out: str) -> None:
-    """`--out` must be a printf pattern of image files or an .avi."""
-    if not (_is_pattern(out) or out.lower().endswith(".avi")):
+    """`--out` must be a printf pattern of image files or a video file the
+    writer writes (VIDEO_OUT)."""
+    if not (_is_pattern(out) or out.lower().endswith(VIDEO_OUT)):
         raise NotImplementedError(
-            f"--out {out!r}: the port writes an image sequence (out/%04d.jpg) or "
-            f"Motion-JPEG in an .avi; other containers need a video encoder: ROADMAP, "
-            f"'When a user needs them' (video files for the tracker)")
+            f"--out {out!r}: the port writes an image sequence (out/%04d.jpg) or MPEG-4 "
+            f"Part 2 in {', '.join(VIDEO_OUT)}; other containers are not written")
 
 
-def open_writer(out: str, size):
-    """The writer for `--out` (`check_out`) for frames of `size` (w, h)."""
+def open_writer(out: str, size, fps: float):
+    """The writer for `--out` (`check_out`) for frames of `size` (w, h) at
+    `fps` (the source's)."""
     check_out(out)
     if _is_pattern(out):
         return SequenceWriter(out)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    return AviWriter(out, SEQUENCE_FPS, size)
+    return VideoWriter(out, fps, size)
 
 
 def draw_tracks(frame, tracks, fps: float) -> None:
@@ -160,8 +219,9 @@ def run(args):
                                   "does not have: ROADMAP Queue 3 (the tracker's output)")
     if args.out:
         check_out(args.out)             # before the model loads
-    frames = read_frames(args.video, args.max_frames)
-    first = next(frames, None)          # opens the source before the model loads
+    source = Source(args.video)         # opens the source before the model loads
+    frames = source.frames(args.max_frames)
+    first = next(frames, None)
     pred = Predictor(args.weights, device=args.device)
     pred.warmup(conf=args.conf, iou=args.iou)
     tracker = KalmanSortTracker(iou_threshold=args.track_iou, max_age=args.max_age,
@@ -190,7 +250,8 @@ def run(args):
                 frame = frame.copy()
                 draw_tracks(frame, tracks, fps)
                 if writer is None:
-                    writer = open_writer(args.out, (frame.shape[1], frame.shape[0]))
+                    writer = open_writer(args.out, (frame.shape[1], frame.shape[0]),
+                                         source.fps or DEFAULT_FPS)
                 writer.write(frame)
     finally:
         if writer is not None:
