@@ -77,7 +77,7 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               folder, a TIFF path and a WebP path, boxes equal to the same
               frames as arrays; pretrain_backbone 1 epoch on an imagefolder
               of the WebP and CMYK JPEG fixtures
- 12. stream   edge_n @640 bf16 over a 240-frame synthetic 480x640 clip:
+ 12. stream   edge_n @640 bf16 over a 120-frame synthetic 480x640 clip:
               Predictor.infer_stream at depth 0-3 yields exactly
               infer_image's boxes, scores and classes on every frame, one
               nms_suppress launch a frame; KalmanSortTracker over the
@@ -156,15 +156,22 @@ at 640x480, 1-4 coloured rectangles on dark noise):
               no cv2 there): every clip of tests/data/video decoded, its
               packets, fps, frame count, size and each frame's SHA-256 equal
               to cv2's in the manifest (the truncated clip's concealed last
-              frame by count only; the WebM raises); make_clip's 240 frames
-              at 480x640 written as .mp4 by the port's writer and read back
+              frame by count only; the WebM raises); 60 of make_clip's
+              frames at 480x640 written as .mp4 by the port's writer and read back
               (count and rate exact, luma at VIDEO_LUMA_PSNR_DB or more);
               tracker --device cuda on that .mp4 and on the same decoded
               frames as a PNG sequence, each without and with --out out.mp4:
               equal tracks, nms_suppress launched a frame and once for the
               warmup; host ms to decode a 640x480 I-VOP, P-VOP and
               Motion-JPEG frame and to encode a frame, the .mp4's size, and
-              the tracker's frames/s of each run
+              the tracker's frames/s of each run. H.264 (csrc/h264dec.cpp):
+              every clip of tests/data/video/h264 (libx264's, 12 decoded, 6
+              refused kinds) held to cv2's manifest the same way, each
+              refused kind raising UnsupportedVideo naming its tool; host ms
+              a picture by type (I, P, B) at 640x480 and 1920x1080 and to
+              convert one to BGR; tracker --device cuda on the 640x480 H.264
+              .mp4 with --out out.mp4 and on its frames as a PNG sequence:
+              equal tracks, nms_suppress launched a frame and for the warmup
  18. tools    the remaining user tools through their entry points, on the
               same PNG set: model_info --all (12 configs @640) on the card,
               its table logged, parameters and FLOPs equal to the CPU's;
@@ -360,8 +367,8 @@ ZOO_PARAMS = {
     "configs/custom/custom.yaml": 5_338_840,
 }
 # fp32 card vs CPU, two checks. (1) Both are fp32 evaluations of one
-# function, so each is held against the CPU's fp64 forward of the same
-# weights and image: the card's max abs error there must stay within
+# function, so each is held against an fp64 forward (on the card) of the
+# same weights and image: the card's max abs error there must stay within
 # ZOO_FP32_FACTOR times the CPU fp32 forward's own (cuDNN may pick other conv
 # algorithms, such as Winograd, whose rounding differs by a small factor; a
 # wrong op or weight errs by the outputs' scale). (2) Card vs CPU directly,
@@ -433,7 +440,7 @@ SEG_TRAIN_OVERRIDES = dict(TRAIN_OVERRIDES, save_optimizer=False)
 # stream phase: a synthetic 480x640 clip from seed 0, infer_stream at each
 # depth; the tracker takes each frame's TRACK_TOP best detections (this
 # seeded net has no confident ones to threshold on)
-STREAM_FRAMES = 240
+STREAM_FRAMES = 120                 # 240 before, cut for the time limit
 STREAM_DEPTHS = (0, 1, 2, 3)
 TRACK_TOP = 32
 # export phase: fp32 artifacts against the eager graph (TF32 off) within
@@ -455,8 +462,8 @@ KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
                            ("int8_conv_depthwise",
                             "yololite_tpu/ops/quant.py:48 (XLA, no Pallas)"))]
 KERNEL_SOURCES = ["nms_suppress", "int8_conv"]      # csrc/<name>.cu
-HOST_LIBS = ["imgcodec", "webpcodec", "videocodec", "native"]   # host C++ (csrc/*.cpp):
-#   image and video codecs; NMS, matcher, pack
+HOST_LIBS = ["imgcodec", "webpcodec", "videocodec", "h264dec", "native"]   # host C++
+#   (csrc/*.cpp): image and video codecs (H.264 in h264dec); NMS, matcher, pack
 CODEC_FIXTURES = os.path.join(ROOT, "tests", "data", "codecs")
 
 
@@ -889,8 +896,9 @@ def _zoo_model(cfg, images_u8: torch.Tensor):
 
 def zoo_fp32(model, meta, img: torch.Tensor, kw):
     """One image at 640, TF32 off: the card's fp32 level maps against the
-    CPU's, and each against the CPU's fp64 forward (see ZOO_FP32_FACTOR and
-    ZOO_FP32_RTOL); batched_nms of
+    CPU's, and each against an fp64 forward on the card (see ZOO_FP32_FACTOR
+    and ZOO_FP32_RTOL; on the CPU that forward took most of the zoo's
+    time); batched_nms of
     the CPU's decoded outputs on the card (kernel) and the CPU (plain
     version) bit-exact."""
     torch.backends.cudnn.allow_tf32 = False
@@ -900,13 +908,15 @@ def zoo_fp32(model, meta, img: torch.Tensor, kw):
         triple = (model, model.state_dict(), meta)
         gpu = Predictor(triple, device="cuda", dtype=torch.float32)
         cpu = Predictor(triple, device="cpu", dtype=torch.float32)
-        cpu64 = Predictor(triple, device="cpu", dtype=torch.float64)
+        card64 = Predictor(triple, device="cuda", dtype=torch.float64)
         with torch.inference_mode():
             og = [o.cpu() for o in gpu.forward(img.cuda())]
             t1 = time.perf_counter()
             oc = cpu.forward(img)
             t_cpu = time.perf_counter() - t1
-            o64 = cpu64.forward(img)
+            t1 = time.perf_counter()
+            o64 = [o.cpu() for o in card64.forward(img.cuda())]
+            t_fp64 = time.perf_counter() - t1
 
             def max_err(outs):
                 return max(float((a.double() - b).abs().max()) for a, b in zip(outs, o64))
@@ -926,7 +936,7 @@ def zoo_fp32(model, meta, img: torch.Tensor, kw):
         return {"fwd_max_abs_err": err, "card_vs_fp64": err_card, "cpu_vs_fp64": err_cpu,
                 "scale": scale, "anchors": int(dec[0].shape[1]),
                 "nms_kept": int(want[3].sum()), "cpu_forward_s": t_cpu,
-                "s": time.perf_counter() - t0}
+                "fp64_forward_s": t_fp64, "s": time.perf_counter() - t0}
     finally:
         torch.backends.cudnn.allow_tf32 = True
 
@@ -997,10 +1007,11 @@ def phase_zoo(card: str):
         log(f"zoo {rel} ({cfg['model']['backbone']}): {params} params; fp32 card vs CPU "
             f"max abs err {fp32['fwd_max_abs_err']:.3e} over |x| <= {fp32['scale']:.2f} "
             f"(tolerance {ZOO_FP32_RTOL:g} x scale); "
-            f"against CPU fp64: card {fp32['card_vs_fp64']:.3e}, CPU fp32 "
+            f"against fp64: card {fp32['card_vs_fp64']:.3e}, CPU fp32 "
             f"{fp32['cpu_vs_fp64']:.3e} (card must stay within {ZOO_FP32_FACTOR:g}x); "
             f"batched_nms over {fp32['anchors']} anchors bit-exact ({fp32['nms_kept']} "
-            f"kept); CPU fp32 forward {fp32['cpu_forward_s']:.2f} s")
+            f"kept); CPU fp32 forward {fp32['cpu_forward_s']:.2f} s, card fp64 "
+            f"{fp32['fp64_forward_s']:.2f} s, the check {fp32['s']:.2f} s")
         ips = ", ".join(f"{v:.1f}" for v in serve["img_s"])
         log(f"zoo {rel}: bf16 b{BATCH} img/s {ips}"
             f"; forward {serve['forward_ms']:.3f} ms; nms_suppress launches "
@@ -2306,7 +2317,7 @@ def _op_host_us(iters: int = 200):
 
 def phase_stream(card: str):
     """Streaming video on the card: edge_n @640 bf16 (seeded heads, bundled
-    backbone) over a 240-frame synthetic 480x640 clip. infer_stream at each
+    backbone) over a 120-frame synthetic 480x640 clip. infer_stream at each
     depth yields exactly infer_image's boxes, scores and classes per frame,
     with one nms_suppress launch a frame; the tracker fed from the stream
     gives infer_image's tracks. Prints frames/s a depth, serial infer_image
@@ -3998,6 +4009,11 @@ def phase_draw(card: str, data: str, tmp: str, cli: dict):
 VIDEO_FIXTURES = os.path.join(ROOT, "tests", "data", "video")
 VIDEO_TIMING_640 = "mp4v_640x480.mp4"      # an I-VOP and 5 P-VOPs at 640x480
 VIDEO_FPS = 30.0
+H264_FIXTURES = os.path.join(VIDEO_FIXTURES, "h264")   # libx264's clips, cv2's manifest
+H264_TIMED = ("d_high_640x480.mp4", "e_high_1920x1080.mp4")
+H264_TRACKED = "d_high_640x480.mp4"         # 48 frames, High with B-frames, 25 fps
+H264_FPS = 25.0
+VIDEO_FRAMES = 60                           # of make_clip's, written and tracked (cut for the time limit)
 
 
 def _luma_psnr_min(path: str, canvases) -> float:
@@ -4052,6 +4068,135 @@ def _video_fixtures(card: str) -> dict:
         f"frame SHA-256 equal to cv2's manifest (the truncated clip's last, concealed "
         f"frame by count); the WebM raises UnsupportedVideo [{_cpu_name()}]")
     return out
+
+
+def _h264_fixtures(card: str) -> dict:
+    """Every committed H.264 clip decoded on this host, held to cv2's
+    manifest (packets, fps, frame count, size, every frame's SHA-256); each
+    refused kind raises UnsupportedVideo naming its tool."""
+    with open(os.path.join(H264_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    sha = lambda b: hashlib.sha256(bytes(b)).hexdigest()
+    out = {}
+    for name, want in sorted(manifest.items()):
+        path = os.path.join(H264_FIXTURES, name)
+        if "refused" in want:
+            try:
+                host_video.VideoReader(path)
+            except host_video.UnsupportedVideo as e:
+                if want["refused"] not in str(e):
+                    raise AssertionError(f"video: {name} raised {e!r}, not naming "
+                                         f"{want['refused']!r}")
+                out[name] = {"refused": str(e).split(": ROADMAP")[0]}
+                continue
+            raise AssertionError(f"video: {name} ({want['refused']}) did not raise")
+        t0 = time.perf_counter()
+        reader = host_video.VideoReader(path)
+        meta = [reader.fps, reader.frame_count, list(reader.size)]
+        packets = [sha(p) for p in reader.packets()]
+        frames = [sha(np.ascontiguousarray(f)) for f in reader]
+        secs = time.perf_counter() - t0
+        if (meta != [want["fps"], want["frame_count"], want["size"]]
+                or packets != want["packets"] or frames != want["frames"]):
+            bad = next((k for k, (a, b) in enumerate(zip(frames, want["frames"])) if a != b),
+                       None)
+            raise AssertionError(f"video: {name} differs from cv2's manifest: {meta} vs "
+                                 f"{[want['fps'], want['frame_count'], want['size']]}, "
+                                 f"packets equal {packets == want['packets']}, {len(frames)} "
+                                 f"frames of {len(want['frames'])}, first differing {bad}")
+        out[name] = {"frames": len(frames), "seconds": secs, "stop": reader.stop_reason}
+    decoded = [n for n, r in out.items() if "frames" in r]
+    log(f"video H.264 fixtures: {len(decoded)} clips ({sum(out[n]['frames'] for n in decoded)} "
+        f"frames; Baseline/Main/High, CAVLC/CABAC, B-pyramid, weighted prediction, JVT "
+        f"matrices, slices, full-range BT.709, AVI, avc3 open GOPs, QP 8 noise, an edit "
+        f"list, a truncated file) every packet, fps, frame count, size and frame SHA-256 "
+        f"equal to cv2's manifest; {len(out) - len(decoded)} refused kinds raise "
+        f"UnsupportedVideo naming {sorted({r['refused'] for r in out.values() if 'refused' in r})} "
+        f"[{_cpu_name()}]")
+    return out
+
+
+def _h264_timings(card: str) -> dict:
+    """Host ms (1 thread) a picture to decode H.264 by picture type (the
+    planes, no conversion) and to convert a frame to BGR, at 640x480 and
+    1920x1080, median over DRAW_REPS passes of the clip."""
+    out = {}
+    for name in H264_TIMED:
+        reader = host_video.VideoReader(os.path.join(H264_FIXTURES, name))
+        samples = list(reader.samples())
+        kinds, runs, conv = [], [], []
+        for rep in range(DRAW_REPS):
+            dec = host_video.H264Decoder(reader.track.extradata)
+            times, got = [], []
+            for k, sample in enumerate(samples):
+                t0 = time.perf_counter()
+                got += dec.decode(sample, k, planes=True)
+                times.append(time.perf_counter() - t0)
+                if rep == 0:
+                    kinds.append("PBI"[dec.last_type])
+            got += dec.flush(planes=True)
+            dec.close()
+            runs.append(times)
+        w, h = reader.size
+        lib = host_video.library()
+        bgr = np.empty((h, w, 3), np.uint8)
+        for planes, _ in got[:DRAW_REPS]:
+            t0 = time.perf_counter()
+            lib.yl_yuv_to_bgr(planes.ctypes.data, w, h, h // 2, 0, 2, bgr.ctypes.data)
+            conv.append(time.perf_counter() - t0)
+        ms = {k: float(np.median([r[i] for r in runs for i in range(len(kinds))
+                                  if kinds[i] == k]) * 1e3) for k in sorted(set(kinds))}
+        ms["to_bgr"] = float(np.median(conv) * 1e3)
+        ms["frames_per_s"] = len(samples) / float(np.median([sum(r) for r in runs]))
+        out[name] = {"size": [w, h], "kinds": "".join(kinds), "ms": ms}
+        log(f"video H.264 host decode ms a {w}x{h} picture (1 thread): "
+            + ", ".join(f"{k} {ms[k]:.2f}" for k in sorted(set(kinds)))
+            + f"; to BGR {ms['to_bgr']:.2f}; {ms['frames_per_s']:.1f} pictures/s over the clip "
+            f"({''.join(kinds)}, {name}) [{_cpu_name()}]")
+    return out
+
+
+def _h264_tracker(card: str, ckpt: str, conf: float, work: str, launches: dict,
+                  secs: dict) -> dict:
+    """tracker --device cuda --video <H.264 .mp4> --out out.mp4: a frame's
+    nms_suppress launch each (and the warmup's), every frame written at the
+    clip's rate; the tracks equal those on the frames as a PNG sequence."""
+    clip = os.path.join(H264_FIXTURES, H264_TRACKED)
+    frames = list(host_video.VideoReader(clip))
+    n = len(frames)
+    target = os.path.join(work, "tracker_h264_out.mp4")
+    key = lambda per_frame: [[(t["track_id"], t["cls"], t["score"], t["bbox"].tolist())
+                              for t in ts] for ts in per_frame]
+    argv = ["--weights", ckpt, "--video", clip, "--conf", str(conf), "--device", "cuda",
+            "--out", target]
+    with contextlib.redirect_stdout(io.StringIO()):
+        tracks = _counted("tracker_h264_out", n + 1, launches, secs,
+                          lambda: cli_tracker.main(argv))
+    seq = os.path.join(work, "seq_h264")
+    os.makedirs(seq)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda kf: write_png(os.path.join(seq, "%04d.png" % kf[0]),
+                                           kf[1][..., ::-1]), enumerate(frames)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        png = _counted("tracker_h264_png", n + 1, launches, secs, lambda: cli_tracker.main(
+            ["--weights", ckpt, "--video", os.path.join(seq, "%04d.png"), "--conf", str(conf),
+             "--device", "cuda"]))
+    reader = host_video.VideoReader(target)
+    if len(tracks) != n or (reader.frame_count, reader.fps) != (n, H264_FPS):
+        raise AssertionError(f"video tracker_h264_out: {len(tracks)} frames of {n}, --out "
+                             f"holds {reader.frame_count} frames at {reader.fps} fps")
+    if key(tracks) != key(png) or not sum(map(len, tracks)):
+        raise AssertionError("video: the tracks on the H.264 .mp4 differ from those on its "
+                             "frames as a PNG sequence (or none were reported)")
+    fps = n / secs["tracker_h264_out"]
+    log(f"video tracker_h264_out: {n} frames {frames[0].shape[1]}x{frames[0].shape[0]} of "
+        f"{H264_TRACKED} with --out out.mp4 in {secs['tracker_h264_out']:.2f} s, {fps:.1f} "
+        f"frames/s, {sum(map(len, tracks))} tracks, {launches['tracker_h264_out']} "
+        f"nms_suppress launches (a frame and the warmup; predicted {n + 1}), equal to the PNG "
+        f"sequence's [{_cpu_name()}; {card}]")
+    return {"frames_per_s": fps, "tracks": sum(map(len, tracks)),
+            "png_frames_per_s": n / secs["tracker_h264_png"]}
 
 
 def _video_timings(card: str, frame) -> dict:
@@ -4130,9 +4275,10 @@ def phase_video(card: str, tmp: str, cli: dict, draw: dict):
     work = os.path.join(tmp, "video")
     os.makedirs(work)
     launches, secs = {}, {}
-    out = {"fixtures": _video_fixtures(card)}
-    frames = make_clip(STREAM_FRAMES)
+    out = {"fixtures": _video_fixtures(card), "h264_fixtures": _h264_fixtures(card)}
+    frames = make_clip(VIDEO_FRAMES)
     out["decode_ms"] = _video_timings(card, frames[0])
+    out["h264_decode_ms"] = _h264_timings(card)
     mp4 = os.path.join(work, "clip.mp4")
     t0 = time.perf_counter()
     with host_video.VideoWriter(mp4, VIDEO_FPS, (frames[0].shape[1], frames[0].shape[0])) as w:
@@ -4157,6 +4303,8 @@ def phase_video(card: str, tmp: str, cli: dict, draw: dict):
         f"{luma:.2f} dB of each canvas [{_cpu_name()}]")
     out["tracker"] = _video_tracker(card, cli["sharpened"], draw["conf"], mp4, decoded, work,
                                     launches, secs)
+    out["tracker_h264"] = _h264_tracker(card, cli["sharpened"], draw["conf"], work, launches,
+                                        secs)
     out["seconds"], out["launches"] = secs, launches
     log(f"video: nms_suppress launches {json.dumps(launches)}, each as predicted [{card}]")
     return out

@@ -520,15 +520,24 @@ def test_sequence_reader_rejects_what_it_cannot_open(tmp_path):
     np.testing.assert_array_equal(list(tracker_tool.read_frames(one)), _cv2_frames(one))
 
 
-@pytest.mark.parametrize("source", ["sequence", "mp4v"])
+@pytest.mark.parametrize("source", ["sequence", "mp4v", "h264"])
 def test_tracker_matches_jax(world, tmp_path, monkeypatch, capsys, source):
     """The port's tracker against JAX's Predictor + KalmanSortTracker fed
-    with cv2's frames of the same source: a PNG sequence, or an mp4v .mp4
-    written by cv2 (which the port decodes as cv2 does, exactly)."""
+    with cv2's frames of the same source: a PNG sequence, an mp4v .mp4
+    written by cv2, or a High/CABAC/B-frame H.264 .mp4 written by libx264
+    (each of which the port decodes as cv2 does, exactly)."""
     _, ckpt = world
     frames = chip_smoke.make_clip(12, h=48, w=64, seed=3)
     if source == "sequence":
         video = _write_sequence(str(tmp_path / "seq"), range(1, 13), frames)
+    elif source == "h264":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import h264_fixtures
+        if not h264_fixtures.available():
+            pytest.skip("no system libavcodec 59 with libx264")
+        video = str(tmp_path / "clip.mp4")
+        h264_fixtures.write_mp4(video, h264_fixtures.encode(
+            frames, profile="high", params="bframes=3:b-pyramid=normal"))
     else:
         video = str(tmp_path / "clip.mp4")
         vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 48))
@@ -552,6 +561,6 @@ def test_tracker_matches_jax(world, tmp_path, monkeypatch, capsys, source):
         for g, w in zip(g_frame, w_frame):
             np.testing.assert_allclose(g["bbox"], w["bbox"], atol=1e-2)
     cap = cv2.VideoCapture(out)          # mp4v at the source's rate, as JAX's writer
-    assert cap.get(cv2.CAP_PROP_FPS) == (tracker_tool.SEQUENCE_FPS if source == "sequence"
-                                         else 30.0)
+    assert cap.get(cv2.CAP_PROP_FPS) == {"sequence": tracker_tool.SEQUENCE_FPS, "mp4v": 30.0,
+                                         "h264": 25.0}[source]
     assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 12

@@ -41,8 +41,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import mpeg4_streams  # noqa: E402
 from video_fixtures import DIR, manifest  # noqa: E402
 
-FIXTURES = sorted(n for n in os.listdir(DIR) if not n.endswith((".json", ".webm")))
+FIXTURES = sorted(n for n in os.listdir(DIR) if not n.endswith((".json", ".webm"))
+                  and os.path.isfile(os.path.join(DIR, n)))        # h264/ has its own tests
 MIN_LUMA_PSNR = 40.0
+
+
+@pytest.fixture(autouse=True)
+def _restore_threads():
+    """The tracker tests run on one thread; later tests in this worker get
+    the count back (the fp32-vs-fp64 gradient test of
+    tests/test_torch_port_train.py, for one, depends on it)."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,7 +112,8 @@ def test_fixture_manifest_is_cv2s():
     """The committed manifest is cv2's reading of the committed clips."""
     with open(os.path.join(DIR, "manifest.json")) as f:
         assert json.load(f) == manifest()
-    total = sum(os.path.getsize(os.path.join(DIR, n)) for n in os.listdir(DIR))
+    total = sum(os.path.getsize(os.path.join(DIR, n)) for n in os.listdir(DIR)
+                if os.path.isfile(os.path.join(DIR, n)))
     assert total < 420 * 1024
 
 
@@ -157,7 +169,7 @@ def _stub(tmp_path, src, old, new, name):
 
 @pytest.mark.parametrize("case,match", [
     ("webm", "WebM"), ("avc1", "H.264"), ("hev1", "HEVC"), ("vp09", "VP9"),
-    ("moof", "fragmented MP4"), ("avi_h264", "H.264"), ("avix", "OpenDML"),
+    ("moof", "fragmented MP4"), ("avi_hevc", "HEVC"), ("avix", "OpenDML"),
     ("avi_div3", "MS-MPEG4"),
 ])
 def test_containers_that_raise(tmp_path, case, match):
@@ -171,11 +183,11 @@ def test_containers_that_raise(tmp_path, case, match):
         path.write_bytes(open(os.path.join(DIR, "mp4v_320x240_30.mp4"), "rb").read()
                          + struct.pack(">I4s", 8, b"moof"))
         path = str(path)
-    elif case == "avi_h264":
+    elif case == "avi_hevc":             # H.264 in AVI is read (test_torch_port_h264.py)
         path = _stub(tmp_path, "xvid_320x240.avi", b"strf(\x00\x00\x00(\x00\x00\x00@\x01\x00\x00"
                      b"\xf0\x00\x00\x00\x01\x00\x18\x00XVID",
                      b"strf(\x00\x00\x00(\x00\x00\x00@\x01\x00\x00\xf0\x00\x00\x00\x01\x00"
-                     b"\x18\x00H264", "h264.avi")
+                     b"\x18\x00HEVC", "hevc.avi")
     elif case == "avi_div3":
         path = _stub(tmp_path, "xvid_320x240.avi", b"\x18\x00XVID", b"\x18\x00DIV3", "div3.avi")
     else:
@@ -335,7 +347,7 @@ def test_flat_block_conversion_probe(tmp_path):
         planes = dec.decode(pkt, planes=True)
         np.testing.assert_array_equal(planes, np.concatenate([y.ravel(), u.ravel(), v.ravel()]))
         got = np.empty(w.shape, np.uint8)
-        lib.yl_yuv_to_bgr(planes.ctypes.data, y.shape[1], y.shape[0], u.shape[0], 0,
+        lib.yl_yuv_to_bgr(planes.ctypes.data, y.shape[1], y.shape[0], u.shape[0], 0, 2,
                           got.ctypes.data)
         np.testing.assert_array_equal(got, w)
 
@@ -479,6 +491,33 @@ def test_tracker_on_mp4_equals_png_sequence(ckpt, tmp_path, capsys):
                               for t in fr] for fr in b]
     cap = cv2.VideoCapture(out)                     # the source's rate, every frame
     assert cap.get(cv2.CAP_PROP_FPS) == 30.0 and int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 10
+
+
+def test_tracker_on_h264_mp4_equals_png_sequence(ckpt, tmp_path, capsys):
+    """The tracker on an H.264 .mp4 (High, CABAC, B-frames; libx264 through
+    the system's libavcodec) and on a PNG sequence of cv2's frames of it:
+    the same tracks, frame for frame."""
+    import h264_fixtures
+    if not h264_fixtures.available():
+        pytest.skip("no system libavcodec 59 with libx264")
+    torch.set_num_threads(1)
+    frames = chip_smoke.make_clip(10, h=48, w=64, seed=3)
+    clip = str(tmp_path / "clip.mp4")
+    h264_fixtures.write_mp4(clip, h264_fixtures.encode(frames, profile="high",
+                                                       params="bframes=3:b-pyramid=normal"))
+    os.makedirs(tmp_path / "seq")
+    for k, f in enumerate(cv2_frames(clip)):
+        cv2.imwrite(str(tmp_path / "seq" / ("%04d.png" % k)), f)
+    argv = ["--weights", ckpt, "--device", "cpu", "--conf", "0.05", "--min_hits", "1"]
+    a = tracker_tool.main(argv + ["--video", clip, "--out", str(tmp_path / "out.mp4")])
+    assert capsys.readouterr().out.splitlines()[-1].startswith("Processed 10 frames @ ")
+    b = tracker_tool.main(argv + ["--video", str(tmp_path / "seq" / "%04d.png")])
+    assert len(a) == len(b) == 10 and sum(map(len, a)) > 0
+    assert [[(t["track_id"], t["cls"], t["bbox"].tolist(), t["score"]) for t in fr]
+            for fr in a] == [[(t["track_id"], t["cls"], t["bbox"].tolist(), t["score"])
+                              for t in fr] for fr in b]
+    cap = cv2.VideoCapture(str(tmp_path / "out.mp4"))      # the source's 25 fps
+    assert cap.get(cv2.CAP_PROP_FPS) == 25.0 and int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 10
 
 
 def test_tracker_stops_where_cv2_stops(ckpt, capsys):

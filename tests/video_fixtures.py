@@ -121,7 +121,7 @@ def manifest() -> dict:
     out = {}
     for path in sorted(glob.glob(os.path.join(DIR, "*"))):
         name = os.path.basename(path)
-        if name.endswith((".json", ".webm")):
+        if name.endswith((".json", ".webm")) or not os.path.isfile(path):   # h264/: its own
             continue
         fps, count, size, packets, frames = cv2_read(path)
         out[name] = {"fps": fps, "frame_count": count, "size": list(size),
@@ -133,7 +133,8 @@ def manifest() -> dict:
 def main():
     os.makedirs(DIR, exist_ok=True)
     for old in glob.glob(os.path.join(DIR, "*")):
-        os.remove(old)
+        if os.path.isfile(old):
+            os.remove(old)
     full = write("mp4v_320x240_30.mp4", "mp4v", 30, (320, 240), 24)
     write("mp4v_320x240_2997.mp4", "mp4v", 29.97, (320, 240), 24)
     write("mp4v_328x244.mp4", "mp4v", 30, (328, 244), 24)

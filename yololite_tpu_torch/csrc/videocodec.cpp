@@ -1175,13 +1175,25 @@ struct Decoder {
 // planar YUV -> BGR24 as swscale's unscaled yuv2rgb converts on x86 (its
 // SSSE3 loop): 16-bit products kept to their high half, summed per channel,
 // then saturated. Each chroma sample covers 2 columns and 2 rows (4:2:0) or
-// 1 row (4:2:2). Limited range (yuv420p) or full range (yuvj*), BT.601.
+// 1 row (4:2:2). Limited range (yuv420p) or full range (yuvj*), with the
+// coefficients of the stream's matrix_coefficients (H.264 Table E-5) as
+// swscale picks them: BT.709 (1), FCC (4), SMPTE 240M (7) and BT.2020
+// non-constant luminance (9) their own, every other value BT.601.
 // --------------------------------------------------------------------------
+
+// ff_yuv2rgb_coeffs: crv, cbu, cgu, cgv by matrix_coefficients 0..10
+const int32_t kYuvCoeffs[11][4] = {
+    {117489, 138438, 13975, 34925}, {117489, 138438, 13975, 34925}, {104597, 132201, 25675, 53279},
+    {104597, 132201, 25675, 53279}, {104448, 132798, 24759, 53109}, {104597, 132201, 25675, 53279},
+    {104597, 132201, 25675, 53279}, {117579, 136230, 16907, 35559}, {104597, 132201, 25675, 53279},
+    {110013, 140363, 12277, 42626}, {110013, 140363, 12277, 42626}};
 
 struct Yuv2Rgb {
   int y_coeff, y_offset, vr, ub, ug, vg;
-  explicit Yuv2Rgb(bool full) {
-    int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;   // ITU-R BT.601
+  Yuv2Rgb(bool full, int matrix) {
+    if (matrix <= 0 || matrix > 10 || matrix == 8) matrix = 5;     // SWS_CS_DEFAULT
+    const int32_t* m = kYuvCoeffs[matrix];
+    int64_t crv = m[0], cbu = m[1], cgu = -m[2], cgv = -m[3];
     int64_t cy = 1 << 16, oy = 0;
     if (!full) {
       cy = (cy * 255) / 219;
@@ -1201,9 +1213,8 @@ struct Yuv2Rgb {
 inline int mulhi(int a, int b) { return (a * b) >> 16; }
 
 void yuv_to_bgr(const uint8_t* py, int ys, const uint8_t* pu, const uint8_t* pv, int cs, int w,
-                int h, int vshift, bool full, uint8_t* out) {
-  static const Yuv2Rgb lim(false), fr(true);
-  const Yuv2Rgb& k = full ? fr : lim;
+                int h, int vshift, bool full, uint8_t* out, int matrix = 2) {
+  const Yuv2Rgb k(full, matrix);
   for (int y = 0; y < h; y++) {
     const uint8_t* yr = py + (size_t)y * ys;
     const uint8_t* ur = pu + (size_t)(y >> vshift) * cs;
@@ -1520,11 +1531,13 @@ int yl_m4v_frame(void* h, uint8_t* out, int64_t out_size, int32_t planes) {
 }
 
 // planar Y, Cb, Cr (chroma (w+1)/2 wide, ch = h or (h+1)/2 high) -> BGR [h, w, 3]
-void yl_yuv_to_bgr(const uint8_t* planes, int32_t w, int32_t h, int32_t ch, int32_t full, uint8_t* out) {
+// with the coefficients of matrix_coefficients `matrix`
+void yl_yuv_to_bgr(const uint8_t* planes, int32_t w, int32_t h, int32_t ch, int32_t full,
+                   int32_t matrix, uint8_t* out) {
   int cw = (w + 1) / 2;
   const uint8_t* u = planes + (size_t)w * h;
   const uint8_t* v = u + (size_t)cw * ch;
-  yuv_to_bgr(planes, w, u, v, cw, w, h, ch == h ? 0 : 1, full != 0, out);
+  yuv_to_bgr(planes, w, u, v, cw, w, h, ch == h ? 0 : 1, full != 0, out, matrix);
 }
 
 // VOS/VO/VOL headers into out (capacity cap); returns their length

@@ -6,32 +6,45 @@ Containers are parsed here, in the standard library:
   - ISO BMFF (`ftyp`: `.mp4`, `.m4v`, `.mov`): the first video track of
     `moov` (which may come after `mdat`), its sample description (`mp4v`
     with the `esds` DecoderSpecificInfo, the VOL; `jpeg`/`mjpa`, or `mp4v`
-    whose object type is JPEG, for Motion-JPEG) and its sample table
-    (`stts`, `stsc`, `stsz`, `stco`/`co64`);
+    whose object type is JPEG, for Motion-JPEG; `avc1`/`avc3` with `avcC`
+    for H.264), its sample table (`stts`, `ctts`, `stss`, `stsc`, `stsz`,
+    `stco`/`co64`) and its edit list (`edts/elst`), applied as FFmpeg's
+    mov demuxer applies one edit: samples from the last key frame at or
+    before the edit's start, pictures shown from its start to its end;
   - RIFF AVI: `hdrl/avih/strl/strh/strf`, then the video stream's
     `##dc`/`##db` chunks of `movi`, by `idx1` where present and else by
     walking `movi`; FMP4/XVID/DIVX/DX50/MP4V as MPEG-4 Part 2, MJPG as
-    Motion-JPEG.
+    Motion-JPEG, H264/X264/avc1 as H.264 in Annex B.
 
 The reader reports `fps` (`CAP_PROP_FPS`: the track's frame count over its
-duration in an MP4, `rate / scale` of the stream in an AVI), `frame_count`
-(`CAP_PROP_FRAME_COUNT`: the samples of the track, the stream's length in an
-AVI), `size` (w, h) and `codec`. Its packets are the container's samples,
-byte for byte what cv2 yields with `CAP_PROP_FORMAT = -1`.
+`stts` duration in an MP4, `rate / scale` of the stream in an AVI),
+`frame_count` (`CAP_PROP_FRAME_COUNT`: the samples of the track, the
+stream's length in an AVI), `size` (w, h, H.264's cropped) and `codec`. Its
+packets are byte for byte what cv2 yields with `CAP_PROP_FORMAT = -1`: the
+container's samples, and for H.264 in an MP4 those samples in Annex B as
+FFmpeg's `h264_mp4toannexb` filter writes them (the `avcC` parameter sets
+before each IDR picture that does not carry its own).
 
 Frames decode on the host in C++ (`csrc/videocodec.cpp` for MPEG-4 Part 2,
-`csrc/imgcodec.cpp` for the planes of a Motion-JPEG frame), built at first
-use (`csrc/build.py`), to BGR uint8 as cv2.VideoCapture gives them: FFmpeg's
-decoders (simple IDCT, its MPEG-4 prediction and motion compensation) and
+`csrc/imgcodec.cpp` for the planes of a Motion-JPEG frame, `csrc/h264dec.cpp`
+for progressive 8-bit 4:2:0 H.264 of the Baseline, Main and High profiles),
+built at first use (`csrc/build.py`), to BGR uint8 as cv2.VideoCapture gives
+them: FFmpeg's decoders (simple IDCT, its MPEG-4 prediction and motion
+compensation; H.264's normative decoding and FFmpeg's output order) and
 swscale's YUV -> BGR24 conversion (limited range for MPEG-4, full range for
-Motion-JPEG, chroma not interpolated). A sample that is missing from the
-file or does not decode ends the stream, where cv2's `read` returns False.
+Motion-JPEG, H.264's signalled range and matrix, chroma not interpolated). A
+sample that is missing from the file or does not decode ends the stream,
+where cv2's `read` returns False; an H.264 decoder hands out the pictures it
+still holds first.
 
-What is not read raises `UnsupportedVideo` naming it: H.264 (`avc1`/`avc3`)
-and HEVC (`hvc1`/`hev1`), VP8/VP9/AV1 and WebM/Matroska, fragmented MP4
-(`moof`), OpenDML AVI beyond the first RIFF, any other codec, and within
+What is not read raises `UnsupportedVideo` naming it: HEVC (`hvc1`/`hev1`),
+VP8/VP9/AV1 and WebM/Matroska, fragmented MP4 (`moof`), several edits in
+one edit list, OpenDML AVI beyond the first RIFF, any other codec; within
 MPEG-4 Part 2 B-VOPs, quarter-pel, GMC, interlace, data partitioning and
-RVLC (ROADMAP, "When a user needs them": video codecs).
+RVLC; within H.264 interlaced coding (fields, MBAFF), bit depths above 8,
+chroma other than 4:2:0, lossless coding, SP/SI slices, data partitioning,
+slice groups and colour matrices swscale does not convert (ROADMAP, "When a
+user needs them": video codecs).
 
 `VideoWriter` encodes each BGR frame as an MPEG-4 Part 2 I-VOP (Simple
 Profile, H.263 quantization at a fixed quantizer, BT.601 limited range,
@@ -60,9 +73,8 @@ _MSG_LEN = 256
 MPEG4_TAGS = {b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V", b"mp4v", b"xvid", b"divx",
               b"fmp4", b"M4S2", b"3IV2", b"DIV5"}
 MJPEG_TAGS = {b"MJPG", b"mjpg", b"jpeg", b"mjpa", b"AVRn", b"dmb1"}
+H264_TAGS = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1"}
 NAMED_CODECS = {
-    b"avc1": "H.264", b"avc3": "H.264", b"H264": "H.264", b"h264": "H.264",
-    b"X264": "H.264", b"x264": "H.264",
     b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"H265": "HEVC",
     b"vp08": "VP8", b"VP80": "VP8", b"vp09": "VP9", b"VP90": "VP9", b"av01": "AV1",
     b"AV01": "AV1", b"DIV3": "MS-MPEG4 v3", b"MP43": "MS-MPEG4 v3", b"MP42": "MS-MPEG4 v2",
@@ -74,6 +86,7 @@ _OTI = {0x20: "mp4v", 0x6C: "mjpeg", 0x21: "H.264", 0x23: "HEVC", 0x6A: "MPEG-1 
         0x63: "MPEG-2 video", 0x64: "MPEG-2 video", 0x65: "MPEG-2 video"}
 
 _LIB = None
+_H264 = None
 
 
 class UnsupportedVideo(NotImplementedError):
@@ -82,7 +95,8 @@ class UnsupportedVideo(NotImplementedError):
 
 def unsupported(what: str) -> UnsupportedVideo:
     return UnsupportedVideo(f"{what} is not decoded by this package (it reads MPEG-4 Part 2 "
-                            f"Simple Profile and Motion-JPEG in MP4/MOV and AVI): {ROADMAP_ENTRY}")
+                            f"Simple Profile, Motion-JPEG and progressive 8-bit 4:2:0 H.264 in "
+                            f"MP4/MOV and AVI): {ROADMAP_ENTRY}")
 
 
 def library() -> ctypes.CDLL:
@@ -99,7 +113,7 @@ def library() -> ctypes.CDLL:
         lib.yl_m4v_decode.argtypes = [ptr, buf, i64, buf, ctypes.c_int]
         lib.yl_m4v_frame.argtypes = [ptr, ptr, i64, i32]
         lib.yl_m4v_decode.restype = lib.yl_m4v_frame.restype = ctypes.c_int
-        lib.yl_yuv_to_bgr.argtypes = [ptr, i32, i32, i32, i32, ptr]
+        lib.yl_yuv_to_bgr.argtypes = [ptr, i32, i32, i32, i32, i32, ptr]
         lib.yl_m4v_headers.argtypes = [i32, i32, i32, ptr, i64]
         lib.yl_m4v_headers.restype = i64
         lib.yl_m4v_encode.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32, ptr, i64]
@@ -113,9 +127,36 @@ def libraries() -> None:
     is built yet) and loads them, so a missing compiler raises here."""
     from yololite_tpu_torch.csrc.build import build
     from yololite_tpu_torch.data import codecs
-    build(["videocodec", "imgcodec"])
+    build(["videocodec", "imgcodec", "h264dec"])
     library()
+    h264_library()
     codecs.library()
+
+
+def h264_library() -> ctypes.CDLL:
+    """The built `h264dec` library with its C functions typed."""
+    global _H264
+    if _H264 is None:
+        from yololite_tpu_torch.csrc.build import load
+        lib = load("h264dec")
+        buf, ptr, i32, i64 = ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        lib.yl_h264_open.argtypes = [buf, i64, ctypes.POINTER(ptr), buf, i32]
+        lib.yl_h264_open.restype = ctypes.c_int
+        lib.yl_h264_close.argtypes = [ptr]
+        lib.yl_h264_decode.argtypes = [ptr, buf, i64, i64, buf, i32]
+        lib.yl_h264_decode.restype = ctypes.c_int
+        lib.yl_h264_flush.argtypes = [ptr, buf, i32]
+        lib.yl_h264_flush.restype = ctypes.c_int
+        lib.yl_h264_pending.argtypes = [ptr, ptr]
+        lib.yl_h264_pending.restype = i32
+        lib.yl_h264_frame.argtypes = [ptr, ptr, i64]
+        lib.yl_h264_frame.restype = i32
+        lib.yl_h264_last_type.argtypes = [ptr]
+        lib.yl_h264_last_type.restype = i32
+        lib.yl_h264_size.argtypes = [ptr, ptr]
+        lib.yl_h264_size.restype = i32
+        _H264 = lib
+    return _H264
 
 
 def sniff(head: bytes) -> str:
@@ -133,13 +174,15 @@ def sniff(head: bytes) -> str:
 @dataclass
 class Track:
     """The first video track of a file."""
-    codec: str                       # "mp4v" or "mjpeg"
+    codec: str                       # "mp4v", "mjpeg" or "h264"
     width: int
     height: int
     fps: float
     frame_count: int
     extradata: bytes = b""
     samples: List[Tuple[int, int]] = field(default_factory=list)   # (offset, size)
+    shown: Optional[List[bool]] = None   # per sample: its picture is shown (edit list)
+    annexb_ps: Tuple[bytes, bytes] = (b"", b"")   # H.264 in MP4: avcC's SPSs, PPSs in Annex B
 
 
 def _codec_of(tag: bytes) -> str:
@@ -147,6 +190,8 @@ def _codec_of(tag: bytes) -> str:
         return "mp4v"
     if tag in MJPEG_TAGS:
         return "mjpeg"
+    if tag in H264_TAGS:
+        return "h264"
     name = NAMED_CODECS.get(tag)
     raise unsupported(f"{name} ({tag.decode('latin1')!r})" if name
                       else f"the codec {tag.decode('latin1')!r}")
@@ -252,6 +297,11 @@ def demux_mp4(f, file_size: int) -> Track:
         raise ValueError("no 'moov' box")
     if _child(moov, 0, len(moov), b"mvex"):
         raise unsupported("fragmented MP4 ('mvex')")
+    mvhd = _child(moov, 0, len(moov), b"mvhd")
+    movie_scale = 0
+    if mvhd:
+        ver = moov[mvhd[0]]
+        movie_scale = struct.unpack(">I", moov[mvhd[0] + (20 if ver == 1 else 12):][:4])[0]
     for kind, s, e in _boxes(moov, 0, len(moov)):
         if kind != b"trak":
             continue
@@ -259,11 +309,68 @@ def demux_mp4(f, file_size: int) -> Track:
         hdlr = mdia and _child(moov, *mdia, b"hdlr")
         if not hdlr or moov[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
             continue
-        return _mp4_track(moov, mdia)
+        return _mp4_track(moov, (s, e), mdia, movie_scale)
     raise ValueError("no video track")
 
 
-def _mp4_track(m: bytes, mdia) -> Track:
+def _avcc(record: bytes):
+    """(NAL length size, (the SPSs, the PPSs) in Annex B with 4-byte start
+    codes) of an AVCDecoderConfigurationRecord."""
+    if len(record) < 7 or record[0] != 1:
+        raise ValueError("'avcC' is not an AVCDecoderConfigurationRecord")
+    ps, i = [b"", b""], 5
+    for k, count_mask in enumerate((0x1F, 0xFF)):
+        if i >= len(record):
+            break
+        n = record[i] & count_mask
+        i += 1
+        for _ in range(n):
+            size = struct.unpack(">H", record[i:i + 2])[0]
+            ps[k] += b"\x00\x00\x00\x01" + record[i + 2:i + 2 + size]
+            i += 2 + size
+    return (record[4] & 3) + 1, tuple(ps)
+
+
+def _edit_list(m: bytes, trak, timescale: int, movie_scale: int):
+    """(media time, duration in the media's time scale or None) of the one
+    edit that plays media, None without an edit list."""
+    edts = _child(m, *trak, b"edts")
+    elst = edts and _child(m, *edts, b"elst")
+    if not elst:
+        return None
+    s, _ = elst
+    ver = m[s]
+    n = struct.unpack(">I", m[s + 4:s + 8])[0]
+    fmt, size = (">Qq", 16) if ver == 1 else (">Ii", 8)
+    edits = [struct.unpack(fmt, m[s + 8 + (size + 4) * i:s + 8 + (size + 4) * i + size])
+             for i in range(n)]
+    played = [(dur, t) for dur, t in edits if t != -1]
+    if len(played) > 1:
+        raise unsupported("an MP4 edit list of several edits")
+    if not played:
+        return None
+    dur, t = played[0]
+    if not movie_scale or not dur:
+        return t, None
+    return t, (dur * timescale + movie_scale // 2) // movie_scale
+
+
+def _apply_edit(dts, cts, keys, edit):
+    """FFmpeg's mov_fix_index for one edit: the first sample kept (the last
+    key frame whose dts and pts are at or before the edit's start) and, per
+    sample kept, whether its picture falls inside the edit."""
+    if edit is None:
+        return 0, [True] * len(dts)
+    start, dur = edit
+    first = max((i for i in range(len(dts)) if keys[i] and dts[i] <= start), default=-1)
+    while first >= 0 and not (keys[first] and cts[first] <= start):
+        first -= 1
+    first = max(first, 0)
+    end = None if dur is None else start + dur
+    return first, [start <= c and (end is None or c < end) for c in cts[first:]]
+
+
+def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
     mdhd = _child(m, *mdia, b"mdhd")
     ver = m[mdhd[0]]
     timescale = struct.unpack(">I", m[mdhd[0] + (20 if ver == 1 else 12):][:4])[0]
@@ -276,7 +383,7 @@ def _mp4_track(m: bytes, mdia) -> Track:
         raise ValueError("empty sample description")
     tag, es, ee = entries[0]
     width, height = struct.unpack(">HH", m[es + 24:es + 28])
-    extradata = b""
+    extradata, annexb_ps = b"", (b"", b"")
     if tag in (b"mp4v", b"MP4V"):
         esds = _child(m, es + 78, ee, b"esds")
         if esds is None:
@@ -285,16 +392,23 @@ def _mp4_track(m: bytes, mdia) -> Track:
         codec = _OTI.get(oti)
         if codec not in ("mp4v", "mjpeg"):
             raise unsupported(f"{codec or 'object type 0x%02x' % oti} in an 'mp4v' sample entry")
+    elif tag in (b"avc1", b"avc3"):
+        avcc = _child(m, es + 78, ee, b"avcC")
+        if avcc is None:
+            raise unsupported(f"H.264 ({tag.decode('latin1')!r}) without an 'avcC' record")
+        codec, extradata = "h264", bytes(m[avcc[0]:avcc[1]])
+        _, annexb_ps = _avcc(extradata)
     elif tag in (b"encv", b"encm"):
         raise unsupported("encrypted video")
     else:
         codec = _codec_of(tag)
-    # stts
+    # stts: decoding times
     s, _ = box[b"stts"]
     n = struct.unpack(">I", m[s + 4:s + 8])[0]
-    total, count = 0, 0
+    total, count, dts = 0, 0, []
     for i in range(n):
         c, d = struct.unpack(">II", m[s + 8 + 8 * i:s + 16 + 8 * i])
+        dts.extend(range(total, total + c * d, d) if d else [total] * c)
         total += c * d
         count += c
     # stsz
@@ -326,8 +440,31 @@ def _mp4_track(m: bytes, mdia) -> Track:
                 samples.append((off, sizes[k]))
                 off += sizes[k]
                 k += 1
+    # ctts: composition offsets; stss: key frames (every sample without it)
+    dts = (dts + [total] * len(samples))[:len(samples)]
+    cts = list(dts)
+    if b"ctts" in box:
+        s, _ = box[b"ctts"]
+        cver = m[s]
+        n = struct.unpack(">I", m[s + 4:s + 8])[0]
+        i = 0
+        for j in range(n):
+            c, o = struct.unpack(">Ii" if cver else ">II", m[s + 8 + 8 * j:s + 16 + 8 * j])
+            for _ in range(c):
+                if i < len(cts):
+                    cts[i] += o
+                i += 1
+    keys = [True] * len(samples)
+    if b"stss" in box:
+        s, _ = box[b"stss"]
+        n = struct.unpack(">I", m[s + 4:s + 8])[0]
+        keys = [False] * len(samples)
+        for j in struct.unpack(f">{n}I", m[s + 8:s + 8 + 4 * n]):
+            if 0 < j <= len(keys):
+                keys[j - 1] = True
+    first, shown = _apply_edit(dts, cts, keys, _edit_list(m, trak, timescale, movie_scale))
     fps = float(Fraction(timescale * count, total)) if total and timescale else 0.0
-    return Track(codec, width, height, fps, nsamp, extradata, samples)
+    return Track(codec, width, height, fps, nsamp, extradata, samples[first:], shown, annexb_ps)
 
 
 # --------------------------------------------------------------------------- #
@@ -500,16 +637,139 @@ def decode_mjpeg(packet: bytes) -> np.ndarray:
     h, w = y.shape
     planes = np.concatenate([y.ravel(), u.ravel(), v.ravel()])
     out = np.empty((h, w, 3), np.uint8)
-    library().yl_yuv_to_bgr(planes.ctypes.data, w, h, u.shape[0], 1, out.ctypes.data)
+    library().yl_yuv_to_bgr(planes.ctypes.data, w, h, u.shape[0], 1, 2, out.ctypes.data)
     return out
+
+
+# matrix_coefficients (H.264 Table E-5) swscale does not convert to BGR
+UNCONVERTED_MATRICES = {8: "YCgCo", 10: "BT.2020 constant luminance", 11: "SMPTE ST 2085",
+                        12: "chromaticity-derived non-constant luminance",
+                        13: "chromaticity-derived constant luminance", 14: "ICtCp"}
+
+
+class H264Decoder:
+    """One H.264 stream: packets (access units) in, BGR frames out in
+    FFmpeg's output order, each with the tag of the packet that began its
+    picture. `extradata` is an avcC record (packets then carry NAL units
+    with its length size) or Annex B parameter sets (packets in Annex B)."""
+
+    def __init__(self, extradata: bytes = b""):
+        self._lib = lib = h264_library()
+        msg, h = ctypes.create_string_buffer(_MSG_LEN), ctypes.c_void_p()
+        self._h = None
+        self.last_type = -1          # slice type of the last picture begun: 0 P, 1 B, 2 I
+        code = lib.yl_h264_open(bytes(extradata), len(extradata), ctypes.byref(h), msg, _MSG_LEN)
+        if code:
+            raise _error(code, msg)
+        self._h = h.value
+
+    def decode(self, packet: bytes, tag: int = 0, planes: bool = False) -> List[Tuple[np.ndarray, int]]:
+        """The frames a packet completes, as (BGR [h, w, 3], tag), or with
+        `planes` the cropped Y, Cb, Cr concatenated. A packet that does not
+        decode raises; the pictures before it stay for `flush`."""
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        code = self._lib.yl_h264_decode(self._h, bytes(packet), len(packet), tag, msg, _MSG_LEN)
+        self.last_type = self._lib.yl_h264_last_type(self._h)
+        if code:
+            raise _error(code, msg)
+        return self._ready(planes)
+
+    def flush(self, planes: bool = False) -> List[Tuple[np.ndarray, int]]:
+        """The pictures still waiting for output, at the end of the stream."""
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        code = self._lib.yl_h264_flush(self._h, msg, _MSG_LEN)
+        out = self._ready(planes)
+        if code:
+            raise _error(code, msg)
+        return out
+
+    def _ready(self, planes: bool):
+        lib, out = self._lib, []
+        info = np.zeros(5, np.int64)
+        while lib.yl_h264_pending(self._h, info.ctypes.data):
+            w, h, full, matrix, tag = (int(v) for v in info)
+            buf = np.empty(w * h + 2 * (w // 2) * (h // 2), np.uint8)
+            if lib.yl_h264_frame(self._h, buf.ctypes.data, buf.size):
+                raise ValueError("no decoded picture")
+            if planes:
+                out.append((buf, tag))
+                continue
+            if matrix in UNCONVERTED_MATRICES:
+                raise unsupported(f"H.264 with matrix_coefficients {matrix} "
+                                  f"({UNCONVERTED_MATRICES[matrix]})")
+            bgr = np.empty((h, w, 3), np.uint8)
+            library().yl_yuv_to_bgr(buf.ctypes.data, w, h, h // 2, full, matrix, bgr.ctypes.data)
+            out.append((bgr, tag))
+        return out
+
+    def size(self) -> Optional[Tuple[int, int]]:
+        """(w, h) cropped, of the first SPS the decoder holds; None before one."""
+        wh = np.zeros(2, np.int32)
+        return (int(wh[0]), int(wh[1])) if self._lib.yl_h264_size(self._h, wh.ctypes.data) == 0 else None
+
+    def close(self):
+        if getattr(self, "_h", None):
+            self._lib.yl_h264_close(self._h)
+            self._h = None
+
+    __del__ = close
+
+
+def mp4_to_annexb(sample: bytes, nal_size: int, ps: Tuple[bytes, bytes], state: dict) -> bytes:
+    """A length-prefixed H.264 sample in Annex B as FFmpeg's
+    `h264_mp4toannexb` filter writes it: a 4-byte start code for the first
+    NAL unit and for SPS/PPS, 3 bytes for the others; and from the `avcC`
+    parameter sets `ps` (SPSs, PPSs), both before an IDR slice that begins
+    a new IDR picture and has none of its own or before a buffering-period
+    SEI with none, the SPSs before a PPS without one, the PPSs before such
+    an IDR slice that has an SPS only. `state` carries `new_idr` from
+    sample to sample. A NAL unit that runs past the sample raises
+    `ValueError`, where the filter fails."""
+    sps, pps = ps
+    out = bytearray()
+    sps_seen = pps_seen = False
+    i = 0
+    while i + nal_size <= len(sample):
+        n = int.from_bytes(sample[i:i + nal_size], "big")
+        if n > len(sample) - i - nal_size:
+            raise ValueError(f"NAL unit of {n} bytes runs past its sample")
+        nal = sample[i + nal_size:i + nal_size + n]
+        i += nal_size + n
+        if not nal:
+            continue
+        t = nal[0] & 0x1F
+        if t == 7:
+            sps_seen = state["new_idr"] = True
+        elif t == 8:
+            pps_seen = state["new_idr"] = True
+            if not sps_seen and sps:
+                out += sps
+                sps_seen = True
+        if not state["new_idr"] and t == 5 and len(nal) > 1 and nal[1] & 0x80:
+            state["new_idr"] = True
+        if t == 6 and len(nal) > 1 and nal[1] == 0 and not sps_seen and not pps_seen:
+            out += sps + pps
+            sps_seen, pps_seen = bool(sps), bool(pps)
+        if state["new_idr"] and t == 5 and not sps_seen and not pps_seen:
+            out += sps + pps
+            state["new_idr"] = False
+        elif state["new_idr"] and t == 5 and sps_seen and not pps_seen:
+            out += pps
+        ps_nal = t in (7, 8)
+        out += (b"\x00\x00\x00\x01" if not out or ps_nal else b"\x00\x00\x01") + nal
+        if t == 1:
+            state["new_idr"] = True
+            sps_seen = pps_seen = False
+    return bytes(out)
 
 
 class VideoReader:
     """Frames of a video file as `cv2.VideoCapture(path).read()` gives them.
 
     `fps`, `frame_count`, `size` (w, h) and `codec` as cv2 reports them;
-    iterate for BGR uint8 [h, w, 3] frames, `packets()` for the raw samples.
-    A file that is missing raises `FileNotFoundError`, one that is no video
+    iterate for BGR uint8 [h, w, 3] frames, `packets()` for the raw samples;
+    after a read, `stop_reason` says why it ended early and `cut_short`
+    whether the file ends inside a sample. A file that is missing raises `FileNotFoundError`, one that is no video
     container `ValueError`, an unsupported one `UnsupportedVideo`."""
 
     def __init__(self, path: str):
@@ -520,18 +780,30 @@ class VideoReader:
         t = self.track
         self.fps, self.frame_count = t.fps, t.frame_count
         self.size, self.codec = (t.width, t.height), t.codec
-        self.stop_reason, self.damaged = None, []
+        self.stop_reason, self.damaged, self.cut_short = None, [], False
         libraries()                     # a missing compiler raises here, not in a read
+        if t.codec == "h264":
+            self.size = self._h264_size()
 
-    def packets(self):
-        """The samples of the track in order. A sample that runs past the end
-        of the file is the last, with the bytes the file holds (FFmpeg reads
-        it so and stops after it)."""
+    def _h264_size(self):
+        """The cropped size of the SPS in the extradata, else the
+        container's (an AVI's parameter sets come in band)."""
+        dec = H264Decoder(self.track.extradata)
+        try:
+            return dec.size() or self.size
+        finally:
+            dec.close()
+
+    def samples(self):
+        """The samples of the track in order, as the container stores them.
+        A sample that runs past the end of the file is the last, with the
+        bytes the file holds (FFmpeg reads it so and stops after it)."""
         with open(self.path, "rb") as f:
             for k, (off, size) in enumerate(self.track.samples):
                 f.seek(off)
                 data = f.read(size)
                 if len(data) < size:
+                    self.cut_short = True
                     self.stop_reason = (f"sample {k} of {len(self.track.samples)} is cut short "
                                         f"by the end of the file")
                     if data:
@@ -539,14 +811,34 @@ class VideoReader:
                     return
                 yield data
 
+    def packets(self):
+        """The packets cv2 yields with `CAP_PROP_FORMAT = -1`: the samples,
+        H.264 in an MP4 converted to Annex B as FFmpeg's bitstream filter
+        converts it."""
+        if self.codec != "h264" or not any(self.track.annexb_ps):
+            yield from self.samples()
+            return
+        nal_size = (self.track.extradata[4] & 3) + 1
+        state = {"new_idr": True}
+        for sample in self.samples():
+            try:
+                yield mp4_to_annexb(sample, nal_size, self.track.annexb_ps, state)
+            except ValueError:          # a NAL unit cut short: the filter fails, cv2 stops
+                return
+
     def __iter__(self):
         """BGR frames. A picture whose data stops decoding partway comes
         concealed (its index in `damaged`), as FFmpeg conceals and outputs
-        it; a packet with no picture that decodes ends the stream."""
-        self.stop_reason, self.damaged = None, []
+        it; a packet with no picture that decodes ends the stream. Pictures
+        the edit list leaves out are decoded and not yielded."""
+        self.stop_reason, self.damaged, self.cut_short = None, [], False
+        shown = self.track.shown
+        if self.codec == "h264":
+            yield from (f for f, k in self._h264() if shown is None or shown[k])
+            return
         dec = Mpeg4Decoder(self.track.extradata) if self.codec == "mp4v" else None
         try:
-            for k, pkt in enumerate(self.packets()):
+            for k, pkt in enumerate(self.samples()):
                 try:
                     frame = dec.decode(pkt) if dec is not None else decode_mjpeg(pkt)
                 except ValueError as e:
@@ -554,11 +846,33 @@ class VideoReader:
                     return
                 if dec is not None and dec.damage:
                     self.damaged.append(k)
-                if frame is not None:
+                if frame is not None and (shown is None or shown[k]):
                     yield frame
         finally:
             if dec is not None:
                 dec.close()
+
+    def _h264(self):
+        """(frame, sample index) in output order. At a sample that does not
+        decode, the whole pictures before it, then the end; in a file cut
+        short the pictures still held are not handed out, as cv2's reader
+        stops at the demuxer's error without draining its decoder."""
+        dec = H264Decoder(self.track.extradata)
+        try:
+            for k, sample in enumerate(self.samples()):
+                try:
+                    yield from dec.decode(sample, k)
+                except ValueError as e:
+                    self.stop_reason = self.stop_reason or f"packet {k} does not decode: {e}"
+                    break
+            if self.cut_short:
+                return
+            try:
+                yield from dec.flush()
+            except ValueError as e:
+                self.stop_reason = self.stop_reason or f"the last picture does not decode: {e}"
+        finally:
+            dec.close()
 
 
 # --------------------------------------------------------------------------- #

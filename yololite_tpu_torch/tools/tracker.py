@@ -10,13 +10,17 @@
 `--video` takes what `cv2.VideoCapture` opens, decoded as it decodes:
 
   - a video file (`data/video.py`): MP4/MOV or AVI holding MPEG-4 Part 2
-    (what the JAX tool's writer produces: mp4v, XVID, FMP4, DIVX) or
-    Motion-JPEG, read by the port's host decoders frame for frame as
-    OpenCV 5.0's FFmpeg gives them. A sample cut short by the end of the
-    file is the last (its picture concealed where its data stops), and a
-    packet that does not decode ends the stream; either prints a `[stop]`
-    line. H.264/HEVC, VP8/VP9/AV1, WebM, fragmented MP4 and the MPEG-4 tools
-    past Simple Profile raise `UnsupportedVideo` naming them;
+    (what the JAX tool's writer produces: mp4v, XVID, FMP4, DIVX),
+    Motion-JPEG or H.264 (progressive 8-bit 4:2:0, Baseline/Main/High: what
+    phones, screen recorders and ffmpeg/x264 write), read by the port's host
+    decoders frame for frame as OpenCV 5.0's FFmpeg gives them. A sample cut
+    short by the end of the file is the last (an MPEG-4 picture concealed
+    where its data stops; H.264 pictures still held for reordering are
+    dropped, as cv2 drops them), and a packet that does not decode ends the
+    stream; either prints a `[stop]` line. HEVC, VP8/VP9/AV1, WebM,
+    fragmented MP4, the MPEG-4 tools past Simple Profile and interlaced,
+    10-bit, 4:2:2/4:4:4 or lossless H.264 raise `UnsupportedVideo` naming
+    them;
   - a printf pattern of JPEG, PNG or BMP files (`frames/%04d.png`), decoded
     by the port's codecs from the first index in 0-4 that exists up to the
     first index missing, as OpenCV 5.0 does (a frame OpenCV cannot decode
