@@ -453,6 +453,24 @@ TRACK_TOP = 32
 EXPORT_FP32_RTOL = 1e-4
 EXPORT_BF16_MATCH = 0.99
 ONNX_TOL = 1e-3
+# TFLite in the export phase: batch-1 files of edge_n and edge_n_seg run by
+# the port's numpy runner on the host on TFLITE_IMAGES images, held against
+# the card's fp32 graph (TF32 off): fp32 "raw"/"decoded" within
+# TFLITE_FP32_TOL (abs and rel); fp16 "decoded" within TFLITE_QUANT_TOL of
+# each output's scale (the larger of 1 and its max abs; edge_n_seg's at 640
+# px on the CPU: 8.7e-3), dynamic int8 "decoded" by its mean error over each
+# output's mean magnitude (int8 activations, one scale an image a layer:
+# edge_n_seg's prototypes 0.125, max errors 0.27 of scale, on the CPU); the
+# "decoded" keep (batched_nms on the card) and the "nms" detections equal the
+# Predictor's at a conf in a wide gap of its scores (`_tflite_conf`).
+# Launches a model: the Predictor's keep, the "decoded" file's keep, the
+# Predictor's "nms" graph.
+TFLITE_IMAGES = 2
+TFLITE_FP32_TOL = 1e-4
+TFLITE_QUANT_TOL = {"fp16": 2e-2, "dynamic": 0.25}
+TFLITE_FILES = (("raw", None), ("decoded", None), ("nms", None), ("decoded", "fp16"),
+                ("decoded", "dynamic"))
+TFLITE_LAUNCHES = 3
 EXPORT_CONFIGS = ("configs/models/edge_n.yaml", "configs/models/edge_n_seg.yaml")
 KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
             "replaces": "yololite_tpu/ops/pallas_nms.py:74"}] + [
@@ -2496,7 +2514,9 @@ def phase_export(card: str, tmp: str):
     graph on one fixed uint8 batch, one nms_suppress launch an "nms" call;
     the bf16 "nms" artifact timed against the Predictor's graph; seg "nms"
     peak GB; edge_n "raw"/"decoded" ONNX (batch 1 and a dynamic-batch file)
-    run on the host against the card's fp32 "decoded"; YoloLite.export once."""
+    run on the host against the card's fp32 "decoded"; `.tflite` files of
+    both models run on the host against the card's fp32 graph
+    (export_tflite_host); YoloLite.export once."""
     rng = np.random.RandomState(8)
     x = torch.from_numpy((rng.rand(BATCH, IMG, IMG, 3) * 255).astype(np.uint8)).cuda()
     out = {"models": {}, "launches": 0}
@@ -2522,6 +2542,8 @@ def phase_export(card: str, tmp: str):
                     calls[f"{fmt}_{str(dtype)[6:]}"] = call
                     del want
                     torch.cuda.empty_cache()
+                if dtype == torch.float32:
+                    rows["tflite"] = export_tflite_host(card, rel, ckpt, pred, x, out_dir)
             finally:
                 torch.backends.cudnn.allow_tf32 = True
                 torch.backends.cuda.matmul.allow_tf32 = False
@@ -2556,6 +2578,151 @@ def phase_export(card: str, tmp: str):
     log(f"export: YoloLite.export() -> {os.path.basename(api_path)} (decoded, b1, bf16, "
         f"{out['api_export_s']:.1f} s), finite outputs on the card")
     return out
+
+
+def _tflite_conf(scores: torch.Tensor, lo: int = 64, hi: int = 384) -> float:
+    """A conf threshold in the widest gap between the scores of the images
+    (any image's) from the lowest lo-th to the highest hi-th of each image:
+    fewer than PRE_NMS_TOPK candidates pass, and no score within fp32
+    rounding of the threshold can cross it."""
+    s = scores.float().sort(dim=1, descending=True).values.cpu()
+    lo, hi = min(lo, s.shape[1] // 16), min(hi, s.shape[1] // 4)      # small test images
+    top, bottom = float(s[:, lo].min()), float(s[:, hi].max())
+    band = s.flatten()
+    band = band[(band <= top) & (band >= bottom)].sort().values
+    if len(band) < 2:
+        raise AssertionError(f"tflite: no score band between ranks {lo} and {hi}")
+    i = int((band[1:] - band[:-1]).argmax())
+    return float((band[i] + band[i + 1]) / 2)
+
+
+def _host_batch(call, host: np.ndarray, times: list):
+    """A batch-1 file's outputs over the images of `host`, one call each
+    (host ms appended to `times`), stacked on the batch axis."""
+    outs = []
+    for i in range(len(host)):
+        t0 = time.perf_counter()
+        outs.append(call(host[i:i + 1]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    if isinstance(outs[0], dict):
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    return [np.concatenate([o[j] for o in outs]) for j in range(len(outs[0]))]
+
+
+def _keep(dec: dict, conf: float, device):
+    """batched_nms on the card over "decoded" outputs: (boxes, scores,
+    classes, valid, idx)."""
+    t = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                            device=device).float() for k, v in dec.items()}
+    scores, classes = yolo_scores(t["obj_logits"][..., 0], t["cls_logits"])
+    return batched_nms(t["boxes_xyxy"], scores, classes, iou_th=0.65, conf_th=conf,
+                       max_det=300, pre_nms_topk=PRE_NMS_TOPK)
+
+
+def _same_dets(got, want, masks=None, want_masks=None) -> dict:
+    """valid and classes equal, the kept anchors equal where idx is given,
+    boxes and scores over TFLITE_FP32_TOL (abs + rel), mask pixel share."""
+    got = [torch.as_tensor(np.asarray(g)).cpu() if not isinstance(g, torch.Tensor)
+           else g.cpu() for g in got]
+    want = [w.cpu() for w in want]
+    row = {"valid_equal": bool(torch.equal(got[3].bool(), want[3].bool())),
+           "classes_equal": bool(torch.equal(got[2].int(), want[2].int())),
+           "dets": int(want[3].sum())}
+    if len(got) > 4 and len(want) > 4:
+        v = want[3].bool()
+        row["keep_equal"] = bool(torch.equal(got[4][v].long(), want[4][v].long()))
+    for name, j in (("boxes", 0), ("scores", 1)):
+        row[f"{name}_err_over_tol"] = float(((got[j].float() - want[j].float()).abs() / (
+            TFLITE_FP32_TOL + TFLITE_FP32_TOL * want[j].float().abs())).max())
+    if masks is not None:
+        row["mask_share"] = float(((torch.as_tensor(np.asarray(masks)) > 0.5)
+                                   != (want_masks.cpu() > 0.5)).float().mean())
+    row["ok"] = (row["valid_equal"] and row["classes_equal"] and row.get("keep_equal", True)
+                 and row["boxes_err_over_tol"] <= 1 and row["scores_err_over_tol"] <= 1
+                 and row.get("mask_share", 0.0) <= SEG_PIXEL_SHARE and row["dets"] > 0)
+    return row
+
+
+def export_tflite_host(card: str, rel: str, ckpt: str, pred, x: torch.Tensor, out_dir: str):
+    """The "raw", "decoded" and "nms" `.tflite` files (fp32, batch 1) and the
+    fp16 and dynamic "decoded" ones of `ckpt`, each loaded back through
+    load_exported and run by the port's runner on the host on the first
+    TFLITE_IMAGES images of `x`, against the card's fp32 Predictor `pred`
+    (see TFLITE_FP32_TOL); the "decoded" keep through batched_nms on the
+    card. Returns the rows and the nms_suppress launches."""
+    cpu = _cpu_name()
+    t_start = time.perf_counter()
+    x2 = x[:TFLITE_IMAGES]
+    host = x2.cpu().numpy()
+    seg = "seg" in rel
+    with torch.inference_mode():
+        ref = {"raw": _eager(pred, "raw", x2), "decoded": _eager(pred, "decoded", x2)}
+        scores, _ = yolo_scores(ref["decoded"]["obj_logits"][..., 0],
+                                ref["decoded"]["cls_logits"])
+    conf = _tflite_conf(scores)
+    torch.cuda.synchronize()
+    cuda_nms.LAUNCHES = 0
+    with torch.inference_mode():
+        ref_keep = _keep(ref["decoded"], conf, x2.device)
+        ref_nms = deploy_export.graph_outputs(pred, pred.forward(x2), "nms", IMG, conf, 0.65,
+                                              300)
+    rows = {"conf": conf}
+    for fmt, q in TFLITE_FILES:
+        key = f"{fmt}_{q or 'fp32'}"
+        t0 = time.perf_counter()
+        path = deploy_export.export_tflite(ckpt, out_dir=os.path.join(out_dir, "tflite", key),
+                                           fmt=fmt, batch=1, img_size=IMG,
+                                           conf=conf if fmt == "nms" else 0.001, quantize=q)
+        export_s = time.perf_counter() - t0
+        call, meta = deploy_export.load_exported(path)
+        ms = []
+        got = _host_batch(call, host, ms)
+        row = {"mb": os.path.getsize(path) / 1e6, "export_s": export_s, "host_ms": ms,
+               "outputs": meta["outputs"]}
+        if fmt == "nms":
+            row.update(_same_dets(got[:4], ref_nms[:4], got[4] if seg else None,
+                                  ref_nms[4] if seg else None))
+        else:
+            want = ref[fmt]
+            want = list(want.values()) if isinstance(want, dict) else list(want)
+            gl = list(got.values()) if isinstance(got, dict) else got
+            if isinstance(got, dict) and list(got) != deploy_export.output_names(seg, fmt, 3):
+                raise AssertionError(f"tflite {rel} {key}: outputs {list(got)}")
+            if q is None:
+                row["err_over_tol"] = max(float((np.abs(g - w.float().cpu().numpy()) / (
+                    TFLITE_FP32_TOL + TFLITE_FP32_TOL * np.abs(w.float().cpu().numpy())))
+                    .max()) for g, w in zip(gl, want))
+                row["ok"] = row["err_over_tol"] <= 1
+            else:
+                pairs = [(torch.from_numpy(g), w.float().cpu()) for g, w in zip(gl, want)]
+                row["scale_err"] = max(_scale_err(g, w) for g, w in pairs)
+                row["mean_rel_err"] = max(float((g - w).abs().mean() / w.abs().mean())
+                                          for g, w in pairs)
+                row["ok"] = row["scale_err" if q == "fp16" else "mean_rel_err"] <= \
+                    TFLITE_QUANT_TOL[q]
+            if fmt == "decoded" and q is None:
+                with torch.inference_mode():
+                    keep = _keep(got, conf, x2.device)
+                row["keep"] = _same_dets(keep, ref_keep)
+                row["ok"] = row["ok"] and row["keep"]["ok"]
+        torch.cuda.synchronize()
+        log(f"export tflite {os.path.basename(rel)} {key}: {row['mb']:.3f} MB, export "
+            f"{export_s:.1f} s, host {ms[0]:.1f} / {ms[1]:.1f} ms a {IMG} image (first / "
+            f"second call), " + ", ".join(f"{k} {v}" for k, v in row.items()
+                                          if k not in ("mb", "export_s", "host_ms",
+                                                       "outputs"))
+            + f" [{cpu}; {card}]")
+        if not row["ok"]:
+            raise AssertionError(f"tflite {rel} {key} disagrees with the card's fp32 graph")
+        rows[key] = row
+    rows["launches"] = cuda_nms.LAUNCHES
+    rows["seconds"] = time.perf_counter() - t_start
+    log(f"export tflite {os.path.basename(rel)}: conf {conf:.6f}, {rows['launches']} "
+        f"nms_suppress launches (predicted {TFLITE_LAUNCHES}), {rows['seconds']:.1f} s for "
+        f"{len(TFLITE_FILES)} files [{card}]")
+    if rows["launches"] != TFLITE_LAUNCHES:
+        raise AssertionError(f"tflite {rel}: {rows['launches']} launches")
+    return rows
 
 
 def export_onnx_host(card: str, ckpt: str, out_dir: str, x: torch.Tensor):

@@ -522,12 +522,11 @@ def _list_modification() -> hf.Stream:
     return parsed.build()
 
 
-def _gaps() -> hf.Stream:
+def _double_frame_num(parsed: Parsed) -> None:
     """gaps_in_frame_num_value_allowed, frame_num doubled: a non-existing
-    frame before each picture, in the sliding window and the lists (P-only,
-    3 references, x264's list modifications and MMCO differences doubled
-    with it, max_num_ref_frames raised to hold them)."""
-    parsed = Parsed(hf.encode(hf.scene(12, 96, 128), profile="main", params="bframes=0:ref=3"))
+    frame before each picture, in the sliding window and the lists (x264's
+    list modifications and MMCO differences doubled with it,
+    max_num_ref_frames raised to hold them)."""
     parsed.sps["gaps"] = 1
     parsed.sps["log2_fn"] += 1
     parsed.sps["max_refs"] = min(16, 2 * parsed.sps["max_refs"] + 2)
@@ -538,6 +537,33 @@ def _gaps() -> hf.Stream:
         if h.get("mmco"):
             h["mmco"] = [(op, 2 * a[0] + 1, *a[1:]) if op in (1, 3) else (op, *a)
                          for op, *a in h["mmco"]]
+
+
+def _gaps() -> hf.Stream:
+    """P-only, 3 references, frame_num doubled (`_double_frame_num`)."""
+    parsed = Parsed(hf.encode(hf.scene(12, 96, 128), profile="main", params="bframes=0:ref=3"))
+    _double_frame_num(parsed)
+    return parsed.build()
+
+
+def gaps_b_frames(colocated_non_existing: bool = False) -> hf.Stream:
+    """Non-reference B pictures with temporal direct across frame_num gaps
+    (`_double_frame_num`): before each B the decoder makes a non-existing
+    frame, a copy of the last reference with its POC + 2 (as FFmpeg fills
+    it), which lands in the B's lists, at the B's own POC for the first.
+    colocated_non_existing: each B's POC is moved to just after the last
+    reference's, so that list 1 starts with that non-existing frame, the
+    colocated picture of temporal direct."""
+    parsed = Parsed(hf.encode(hf.scene(12, 96, 128), profile="main",
+                              params="bframes=1:b-adapt=0:direct=temporal:ref=2:weightb=0"))
+    _double_frame_num(parsed)
+    max_lsb = 1 << parsed.sps["log2_lsb"]
+    last_ref_lsb = 0
+    for _, h in parsed.slices():
+        if h["type"] == 1 and colocated_non_existing:
+            h["lsb"] = (last_ref_lsb + 1) % max_lsb
+        if h["ref_idc"]:
+            last_ref_lsb = h["lsb"]
     return parsed.build()
 
 
@@ -798,6 +824,7 @@ REWRITES = {
     "mmco": _mmco,
     "list_modification": _list_modification,
     "gaps": _gaps,
+    "gaps_b_frames": gaps_b_frames,
     "direct_4x4": _direct_4x4,
     "second_chroma_offset": _second_chroma_offset,
     "explicit_bipred": _explicit_bipred,

@@ -453,8 +453,36 @@ def test_pt2_nms_through_infer_exported(world, tmp_path, capsys):
     want_plot = draw_detections(frame[..., ::-1], drawn["boxes"], drawn["scores"],
                                 drawn["classes"], NAMES)
     np.testing.assert_array_equal(cv2.imread(out_path), want_plot[..., ::-1])
-    with pytest.raises(NotImplementedError, match="TFLite"):
-        export_tool.main(["--weights", ckpt, "--runtime", "tflite"])
+    path = export_tool.main(["--weights", ckpt, "--runtime", "tflite", "--quantize",
+                             "dynamic", "--out_dir", str(tmp_path / "tflite")])
+    assert path.endswith("edge_n_decoded.tflite")
+    assert "Sanity run OK; output tree: dict" in capsys.readouterr().out
+    assert json.load(open(path + ".json"))["quantize"] == "dynamic"
+
+
+def test_tflite_nms_through_infer_exported_matches_jax_cli(world, tmp_path, monkeypatch,
+                                                           capsys):
+    """The port's "nms" `.tflite` through the port's infer_exported (its
+    numpy runner) and JAX's tools/infer_exported.py (tf.lite.Interpreter)."""
+    data, ckpt = world
+    frame = os.path.join(_val_dir(data), "0003.png")
+    path = export_tool.main(["--weights", ckpt, "--format", "nms", "--runtime", "tflite",
+                             "--out_dir", str(tmp_path), "--iou", "0.5"])
+    assert "Sanity run OK; output tree: tuple" in capsys.readouterr().out
+    kw = ["--img", frame, "--conf", "0.05"]
+    _run_jax_tool("infer_exported", ["--artifact", path] + kw, monkeypatch)
+    jax_lines = capsys.readouterr().out.splitlines()
+    got = infer_exported_tool.main(["--artifact", path] + kw)
+    port_lines = capsys.readouterr().out.splitlines()
+    pred = Predictor(ckpt, device="cpu", dtype=torch.float32)
+    want = pred.infer_image_profiled(cv2.imread(frame), conf=0.05, iou=0.5)
+    assert len(got["boxes"]) == len(want["boxes"]) > 0
+    np.testing.assert_array_equal(got["classes"], want["classes"])
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=1e-3, atol=1e-3)
+    assert port_lines[0].split("|")[0] == jax_lines[0].split("|")[0]
+    for mine, theirs in zip(port_lines[1:], jax_lines[1:]):   # class, score, box
+        a, b = mine.split(maxsplit=3), theirs.split(maxsplit=3)
+        assert a[1] == b[1] and a[3] == b[3] and abs(float(a[2]) - float(b[2])) < 2e-3
 
 
 # --------------------------------------------------------------------------- #

@@ -217,6 +217,32 @@ def test_rewritten_syntax_equals_cv2(x264, tmp_path, case):
     assert len(hf.cv2_read(path)[4]) == len(stream.packets)      # legal: every picture shown
 
 
+def test_b_slices_whose_colocated_is_a_non_existing_frame(x264, tmp_path):
+    """A deliberate difference: the B pictures whose list-1 picture, the
+    colocated one of temporal direct, is a frame made for a frame_num gap.
+    The port gives that frame no motion (its macroblocks count as intra);
+    FFmpeg reads the motion buffers its picture pool hands the frame, left
+    from earlier pictures (8.2.5.2 leaves the frame's content unspecified).
+    Every other picture equals cv2; those B pictures differ in the few
+    macroblocks that take direct prediction from it."""
+    path = str(tmp_path / "gaps_colocated.mp4")
+    stream = hs.gaps_b_frames(colocated_non_existing=True)
+    hf.write_mp4(path, stream)
+    parsed = hs.Parsed(stream)
+    pocs = hs.poc_type0(parsed)
+    kinds = [h["type"] for p, h in parsed.slices() if h["first_mb"] == 0]
+    b_shown = {k for k, (_, t) in enumerate(sorted(zip(pocs, kinds))) if t == 1}
+    assert len(b_shown) == 5 and len(kinds) == len(stream.packets) == 12
+    frames = hf.cv2_read(path)[4]
+    got = port_read(path)[1]
+    assert len(got) == len(frames) == 12
+    for k, (a, b) in enumerate(zip(got, frames)):
+        if k in b_shown:
+            assert np.abs(a.astype(np.int16) - b).mean() < 0.5, k
+        else:
+            assert np.array_equal(a, b), k
+
+
 def test_decoder_refuses_syntax_it_does_not_decode(x264):
     for case, match in hs.REFUSED_SYNTAX.items():
         stream = hs.refused_stream(case)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX, flax, optax, orbax or yololite_tpu
 import anywhere in yololite_tpu_torch/ or chip_smoke.py, and none of the
-libraries the card's machine lacks (cv2, PIL, PyYAML, msgpack); its entry
-points default to the card."""
+libraries the card's machine lacks (cv2, PIL, PyYAML, msgpack; TensorFlow
+and flatbuffers on the export path, where the TFLite writer and runner are
+the port's own); its entry points default to the card."""
 
 import ast
 import inspect
@@ -12,6 +13,10 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yololite_tpu",
              "cv2", "PIL", "yaml", "msgpack"}
+# train/writers.py's optional TensorBoard backend imports tensorflow, as JAX's does
+EXPORT_PATH = ("deploy/export.py", "deploy/tflite_schema.py", "deploy/tflite_emit.py",
+               "deploy/tflite_run.py", "deploy/infer_exported.py", "tools/export.py",
+               "tools/infer_exported.py")
 
 
 def _port_files():
@@ -44,6 +49,13 @@ def test_no_jax_or_reference_imports(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", EXPORT_PATH)
+def test_export_path_needs_no_tensorflow(rel):
+    path = os.path.join(ROOT, "yololite_tpu_torch", rel)
+    bad = sorted(set(_imported_roots(path)) & {"tensorflow", "tflite_runtime", "flatbuffers"})
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_entry_points_default_to_cuda():
     from yololite_tpu_torch.api import YoloLite
     from yololite_tpu_torch.deploy.predictor import Predictor
@@ -72,6 +84,7 @@ def test_deploy_and_track_modules_are_covered():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     for rel in ("deploy/export.py", "deploy/onnx_emit.py", "deploy/onnx_proto.py",
                 "deploy/onnx_run.py", "deploy/infer_exported.py", "deploy/predictor.py",
+                "deploy/tflite_schema.py", "deploy/tflite_emit.py", "deploy/tflite_run.py",
                 "track/__init__.py", "track/kalman.py"):
         assert os.path.join("yololite_tpu_torch", rel) in files
 

@@ -90,8 +90,14 @@ def test_onnx_gates_and_unmapped_ops(ckpt, out_dir, tmp_path):
         export.export_onnx(ckpt, out_dir=out_dir, fmt="nms")
     with pytest.raises(ValueError):
         jax_export.export_onnx(ckpt, out_dir=out_dir, fmt="nms")
-    with pytest.raises(NotImplementedError, match="TFLite"):
-        export.export_tflite(ckpt)
+    # TFLite export is ported: its "raw" file gives the ONNX file's maps
+    tfl, _ = export.load_exported(export.export_tflite(
+        ckpt, out_dir=os.path.join(out_dir, "tfl"), fmt="raw", img_size=IMG))
+    onnx_raw = load_onnx(export.export_onnx(ckpt, out_dir=os.path.join(out_dir, "tfl"),
+                                            fmt="raw", img_size=IMG))
+    x = _batch(1, seed=9)
+    for g, w in zip(tfl(x), onnx_raw(x)):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
     class Cumsum(torch.nn.Module):
         def forward(self, x):

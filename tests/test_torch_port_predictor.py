@@ -98,9 +98,12 @@ def test_api_predict_and_unported_entry_points(ckpt, tmp_path, monkeypatch):
     cv2.imwrite(str(tmp_path / "f.gif"), frames[0])           # GIF is not decoded
     with pytest.raises(UnsupportedImage, match="GIF"):
         model.predict(str(tmp_path / "f.gif"))
-    from yololite_tpu_torch.deploy.export import export_tflite
-    with pytest.raises(NotImplementedError, match="TFLite"):
-        export_tflite(ckpt)
+    from yololite_tpu_torch.deploy.export import export_tflite, load_exported
+    call, meta = load_exported(export_tflite(ckpt, out_dir=str(tmp_path / "tflite")))
+    out = call(np.stack(frames)[:1])               # TFLite export runs on the host
+    assert meta["runtime"] == "tflite" and meta["img_size"] == IMG
+    assert set(out) == {"boxes_xyxy", "cls_logits", "obj_logits"}
+    assert np.isfinite(out["boxes_xyxy"]).all() and out["boxes_xyxy"].shape[0] == 1
     # training, validation and both mesh axes are ported: train(spatial_parallel=2)
     # (with or without the recipe's augmentation) spawns a 1 x 2 mesh, rank r
     # at (data index, spatial index) = divmod(r, 2); the spawn is recorded

@@ -1,5 +1,6 @@
-"""Model export: `torch.export` artifacts (raw / decoded / nms) and
-first-party ONNX (raw / decoded). Port of `deploy/export.py`.
+"""Model export: `torch.export` artifacts (raw / decoded / nms), first-party
+ONNX (raw / decoded) and first-party TFLite (raw / decoded / nms). Port of
+`deploy/export.py`.
 
   - "raw"     : the graph emits the tuple of per-level maps [B,A,S,S,5+C(+K)]
                 (and the prototypes [B,Hp,Wp,K] of a segmentation model)
@@ -16,7 +17,13 @@ counterpart of JAX's serialized StableHLO) with a `.json` sidecar of JAX's
 keys; it runs on the device it was exported on. `export_onnx` writes the
 "raw" and "decoded" graphs in fp32 as opset-17 ONNX through the port's own
 emitter (`deploy/onnx_emit.py`), which needs no `onnx` package; the port's
-`deploy/onnx_run.py` (numpy) runs them on a host.
+`deploy/onnx_run.py` (numpy) runs them on a host. `export_tflite` writes
+all three formats in fp32, fp16 weights or dynamic-range int8 weights as a
+`.tflite` file of builtin ops through the port's own emitter
+(`deploy/tflite_emit.py`; no TensorFlow), with JAX's `serving_default`
+signature (input `images`) and sidecar, so that JAX's `load_tflite` and
+`tf.lite.Interpreter` run it; the port's `deploy/tflite_run.py` (numpy)
+runs it on a host without TensorFlow.
 """
 
 from __future__ import annotations
@@ -179,10 +186,13 @@ def _read_sidecar(path: str) -> dict:
 
 
 def load_exported(path: str):
-    """Load an artifact; returns (callable(images_u8), meta). `.onnx` runs on
-    the host through `load_onnx_artifact`; anything else is a `torch.export`
+    """Load an artifact; returns (callable(images_u8), meta). `.tflite` and
+    `.onnx` run on the host through `load_tflite` and `load_onnx_artifact`;
+    anything else is a `torch.export`
     program, which runs on the device it was exported on and takes a uint8
     tensor or array. "decoded" returns a dict, "raw" and "nms" tuples."""
+    if path.endswith(".tflite"):
+        return load_tflite(path)
     if path.endswith(".onnx"):
         return load_onnx_artifact(path)
     from yololite_tpu_torch.ops import cuda_nms  # noqa: F401 registers yololite::nms_suppress
@@ -251,7 +261,56 @@ def load_onnx_artifact(path: str):
     return call, meta
 
 
-def export_tflite(*args, **kwargs):
-    raise NotImplementedError(
-        "TFLite export goes through jax2tf and TensorFlow, which the port does not "
-        "use: ROADMAP, 'when a user needs them' (TFLite)")
+def export_tflite(weights, out_dir: Optional[str] = None, fmt: str = "decoded",
+                  batch: int = 1, img_size: Optional[int] = None, conf: float = 0.001,
+                  iou: float = 0.65, max_det: int = 300,
+                  quantize: Optional[str] = None) -> str:
+    """TFLite export (JAX's signature): the fp32 graph of `fmt`, traced on the
+    CPU at a static [batch, S, S, 3] uint8 input and written by
+    `deploy/tflite_emit.py`, the ImageNet normalize in the graph (not
+    folded). quantize: None, "fp16" (float16 weights, each
+    dequantized) or "dynamic" (int8 weights per output channel; the
+    runtime's hybrid kernels). "nms" holds the whole class-aware NMS in
+    builtin ops (a WHILE loop for the greedy scan). Returns
+    `<stem>_<fmt>.tflite`; a `.json` sidecar of JAX's keys sits next to it."""
+    from yololite_tpu_torch.deploy.predictor import Predictor
+    from yololite_tpu_torch.deploy.tflite_emit import QUANTIZE, export_program_to_tflite
+    if quantize not in QUANTIZE:
+        raise ValueError(f"quantize must be one of {QUANTIZE}, got {quantize!r}")
+    # the normalize stays in the graph, as in JAX's file: the folded stem's
+    # correction map would be a constant of the stem's output size (6.6 MB
+    # for edge_n @640, three times its weights)
+    pred = Predictor(weights, device="cpu", dtype=torch.float32, fold_normalize=False)
+    img_size = int(img_size or pred.img_size)
+    graph = DeployGraph(pred, img_size, fmt, conf, iou, max_det)
+    images = torch.zeros((int(batch), img_size, img_size, 3), dtype=torch.uint8)
+    with torch.no_grad():
+        program = torch.export.export(graph, (images,))
+    path = _artifact_path(weights, out_dir, fmt, ".tflite")
+    names = _output_names(pred, fmt)
+    export_program_to_tflite(program, path, input_names=["images"], output_names=names,
+                             quantize=quantize,
+                             description=f"YoloLite {fmt} deploy graph @{img_size}px")
+    _sidecar(path, weights, pred, fmt, img_size, int(batch), conf, iou, max_det,
+             outputs=names, quantize=quantize, normalize="imagenet/in-graph",
+             runtime="tflite")
+    return path
+
+
+def load_tflite(path: str):
+    """Load a .tflite artifact; returns (callable(images_u8) -> numpy
+    outputs, meta), run on the host by the port's numpy executor
+    (`deploy/tflite_run.py`): "decoded" gives the dict of outputs, "raw" and
+    "nms" the tuple in the sidecar's `outputs` order."""
+    from yololite_tpu_torch.deploy.tflite_run import TFLiteModel
+    meta = _read_sidecar(path)
+    model = TFLiteModel(path)
+    names = meta.get("outputs") or model.output_names
+    as_dict = meta.get("format") == "decoded"
+
+    def call(images_u8):
+        x = images_u8.cpu().numpy() if isinstance(images_u8, torch.Tensor) else images_u8
+        out = model.run_signature(images=np.ascontiguousarray(x, np.uint8))
+        return {n: out[n] for n in names} if as_dict else tuple(out[n] for n in names)
+
+    return call, meta

@@ -2,7 +2,8 @@
 
 The library half of the JAX package's `tools/infer_exported.py`: letterbox
 a BGR frame, run an artifact loaded by `deploy/export.load_exported` (a
-`.pt2` program on its device, or an `.onnx` file on the host), then either
+`.pt2` program on its device, or an `.onnx` or `.tflite` file on the host),
+then either
 unpack the "nms" format's in-graph detections or, for "decoded", apply
 sigmoid, score and per-class greedy NMS on the host (`ops/nms.nms_numpy`),
 assemble a segmentation model's masks on the host

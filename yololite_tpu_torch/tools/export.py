@@ -1,15 +1,17 @@
 """Export CLI (port of `tools/export.py`).
 
     python -m yololite_tpu_torch.tools.export --weights best.ckpt --format nms \
-        [--runtime pt2|onnx] [--batch B] [--fp32] [--device cuda]
+        [--runtime pt2|onnx|tflite] [--quantize dynamic|fp16] [--batch B] [--fp32]
+        [--device cuda]
 
 Formats: "raw" (per-level maps), "decoded" (boxes and logits, NMS outside)
 and "nms" (the whole graph, NMS included). Runtimes: "pt2" (the default, a
 `torch.export` program on `--device`, the counterpart of JAX's StableHLO
 artifact), "onnx" (fp32 "raw"/"decoded", `--dynamic_batch` for a symbolic
-batch axis) and "tflite", which raises (jax2tf and TensorFlow; ROADMAP,
-"When a user needs them"). Ends with JAX's load-back sanity run on one zero
-batch.
+batch axis) and "tflite" (all three formats, traced on the CPU and written
+by the port's own emitter; `--quantize fp16|dynamic` for float16 or int8
+weights; it runs on a host CPU). Ends with JAX's load-back sanity run on one
+zero batch.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fp32", action="store_true", help="export in fp32 (default bf16)")
     ap.add_argument("--runtime", default="pt2", choices=["pt2", "tflite", "onnx"],
                     help="pt2: torch.export program for the card; onnx: opset-17 "
-                         "ONNX for a host runtime; tflite: not ported")
+                         "ONNX for a host runtime; tflite: a TFLite file for a host CPU")
     ap.add_argument("--quantize", default=None, choices=[None, "dynamic", "fp16"],
                     help="tflite only")
     ap.add_argument("--dynamic_batch", action="store_true",

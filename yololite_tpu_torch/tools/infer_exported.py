@@ -2,10 +2,11 @@
 
     python -m yololite_tpu_torch.tools.infer_exported --artifact model_nms.pt2 --img x.jpg
     python -m yololite_tpu_torch.tools.infer_exported --artifact model_decoded.onnx --img x.jpg
+    python -m yololite_tpu_torch.tools.infer_exported --artifact model_nms.tflite --img x.jpg
 
-Loads a `.pt2` program (it runs on the device it was exported on) or an
-`.onnx` file (the port's numpy runner, on the host) with its `.json`
-sidecar, reads the image with the port's codecs and runs
+Loads a `.pt2` program (it runs on the device it was exported on), an
+`.onnx` or a `.tflite` file (the port's numpy runners, on the host) with its
+`.json` sidecar, reads the image with the port's codecs and runs
 `deploy/infer_exported.infer_frame`: letterbox, the artifact, then the
 "decoded" format's host sigmoid, score and per-class NMS, or the "nms"
 format's in-graph detections filtered by --conf on the host (its iou and
@@ -25,7 +26,7 @@ from yololite_tpu_torch.deploy.infer_exported import infer_frame
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--artifact", required=True, help="*.pt2 or *.onnx path")
+    ap.add_argument("--artifact", required=True, help="*.pt2, *.onnx or *.tflite path")
     ap.add_argument("--img", required=True)
     ap.add_argument("--conf", type=float, default=0.25)
     ap.add_argument("--iou", type=float, default=0.45)
