@@ -480,7 +480,7 @@ KERNELS = [{"name": "nms_suppress", "route": "cuda", "source": cuda_nms.SOURCE,
                            ("int8_conv_depthwise",
                             "yololite_tpu/ops/quant.py:48 (XLA, no Pallas)"))]
 KERNEL_SOURCES = ["nms_suppress", "int8_conv"]      # csrc/<name>.cu
-HOST_LIBS = ["imgcodec", "webpcodec", "videocodec", "h264dec", "native"]   # host C++
+HOST_LIBS = ["imgcodec", "webpcodec", "videocodec", "h264dec", "hevcdec", "native"]   # host C++
 #   (csrc/*.cpp): image and video codecs (H.264 in h264dec); NMS, matcher, pack
 CODEC_FIXTURES = os.path.join(ROOT, "tests", "data", "codecs")
 
@@ -4180,6 +4180,18 @@ H264_FIXTURES = os.path.join(VIDEO_FIXTURES, "h264")   # libx264's clips, cv2's 
 H264_TIMED = ("d_high_640x480.mp4", "e_high_1920x1080.mp4")
 H264_TRACKED = "d_high_640x480.mp4"         # 48 frames, High with B-frames, 25 fps
 H264_FPS = 25.0
+HEVC_FIXTURES = os.path.join(VIDEO_FIXTURES, "hevc")   # libx265's clips, cv2's manifest
+HEVC_TIMED = ("l_640x480.mp4", "m_1920x1080.mp4", "n_main10_bt601_640x480.mp4")
+HEVC_TRACKED = "l_640x480.mp4"             # 24 frames, x265's defaults (WPP, B-pyramid), 25 fps
+# clips whose BGR frames differ from cv2's on purpose (ROADMAP, "Where the
+# port deliberately differs"): their planes are held to the MD5 SEI alone
+HEVC_CV2_DIFFERS = ("c_ctu16_slices_328x244.mov",)
+# clips whose colours cv2 maps before BGR (BT.2020 HLG): the port refuses
+# their frames naming this, and holds their planes to the MD5 SEI
+HEVC_COLOUR_MANAGED = {"f_main10_hlg_640x480.mov": "ARIB STD-B67 (HLG)"}
+# access units whose MD5 SEI x265 wrote for pictures its stream does not code
+# (motion search at 64-wide pictures; tests/hevc_fixtures.py MD5_DIFFERS)
+HEVC_MD5_DIFFERS = {"o_noise64_qp4.mp4": (1, 2, 3, 4), "o_noise64_qp20.mp4": (2, 3)}
 VIDEO_FRAMES = 60                           # of make_clip's, written and tracked (cut for the time limit)
 
 
@@ -4308,8 +4320,9 @@ def _h264_timings(card: str) -> dict:
         lib = host_video.library()
         bgr = np.empty((h, w, 3), np.uint8)
         for planes, _ in got[:DRAW_REPS]:
+            flat = np.concatenate([c.ravel() for c in planes])
             t0 = time.perf_counter()
-            lib.yl_yuv_to_bgr(planes.ctypes.data, w, h, h // 2, 0, 2, bgr.ctypes.data)
+            lib.yl_yuv_to_bgr(flat.ctypes.data, w, h, h // 2, 0, 2, bgr.ctypes.data)
             conv.append(time.perf_counter() - t0)
         ms = {k: float(np.median([r[i] for r in runs for i in range(len(kinds))
                                   if kinds[i] == k]) * 1e3) for k in sorted(set(kinds))}
@@ -4364,6 +4377,181 @@ def _h264_tracker(card: str, ckpt: str, conf: float, work: str, launches: dict,
         f"sequence's [{_cpu_name()}; {card}]")
     return {"frames_per_s": fps, "tracks": sum(map(len, tracks)),
             "png_frames_per_s": n / secs["tracker_h264_png"]}
+
+
+def _hevc_picture_md5s(annexb: bytes) -> list:
+    """The planes' MD5s of each decoded picture hash SEI (suffix SEI,
+    payloadType 132, hash_type 0) in an Annex B access unit."""
+    out = []
+    for part in annexb.split(b"\x00\x00\x01")[1:]:
+        if (part[0] >> 1) & 0x3F != 40:
+            continue
+        p, zeros = bytearray(), 0                  # without emulation prevention
+        for b in part[2:]:
+            if zeros >= 2 and b == 3:
+                zeros = 0
+                continue
+            zeros = zeros + 1 if b == 0 else 0
+            p.append(b)
+        i = 0
+        while i + 2 < len(p) and p[i] != 0x80:
+            kind = size = 0
+            while p[i] == 0xFF:
+                kind, i = kind + 255, i + 1
+            kind, i = kind + p[i], i + 1
+            while p[i] == 0xFF:
+                size, i = size + 255, i + 1
+            size, i = size + p[i], i + 1
+            if kind == 132 and p[i] == 0:
+                out.append([bytes(p[i + 1 + 16 * c:i + 17 + 16 * c]) for c in range(3)])
+            i += size
+    return out
+
+
+def _hevc_fixtures(card: str) -> dict:
+    """Every committed HEVC clip decoded on this host, held to cv2's manifest
+    (packets, fps, frame count, size, every frame's SHA-256 but for the
+    clips of HEVC_CV2_DIFFERS; the frames of HEVC_COLOUR_MANAGED refused by
+    name) and every decoded picture's planes to its MD5
+    SEI; each refused format raises UnsupportedVideo naming it."""
+    with open(os.path.join(HEVC_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    sha = lambda b: hashlib.sha256(bytes(b)).hexdigest()
+    out, pictures = {}, 0
+    for name, want in sorted(manifest.items()):
+        path = os.path.join(HEVC_FIXTURES, name)
+        if "refused" in want:
+            try:
+                host_video.VideoReader(path)
+            except host_video.UnsupportedVideo as e:
+                if want["refused"] not in str(e):
+                    raise AssertionError(f"video: {name} raised {e!r}, not naming "
+                                         f"{want['refused']!r}")
+                out[name] = {"refused": str(e).split(": ROADMAP")[0]}
+                continue
+            raise AssertionError(f"video: {name} ({want['refused']}) did not raise")
+        t0 = time.perf_counter()
+        reader = host_video.VideoReader(path)
+        meta = [reader.fps, reader.frame_count, list(reader.size)]
+        annexb = list(reader.packets())
+        if name in HEVC_COLOUR_MANAGED:
+            try:
+                next(iter(reader))
+                raise AssertionError(f"video: {name} gave a frame cv2 converts colour-managed")
+            except host_video.UnsupportedVideo as e:
+                if HEVC_COLOUR_MANAGED[name] not in str(e):
+                    raise AssertionError(f"video: {name} raised {e!r}") from e
+            frames = want["frames"]
+        else:
+            frames = [sha(np.ascontiguousarray(f)) for f in reader]
+        secs = time.perf_counter() - t0
+        held = name not in HEVC_CV2_DIFFERS and name not in HEVC_COLOUR_MANAGED
+        if (meta != [want["fps"], want["frame_count"], want["size"]]
+                or [sha(p) for p in annexb] != want["packets"]
+                or len(frames) != len(want["frames"]) or (held and frames != want["frames"])):
+            raise AssertionError(f"video: {name} differs from cv2's manifest: {meta} vs "
+                                 f"{[want['fps'], want['frame_count'], want['size']]}, "
+                                 f"{len(frames)} frames of {len(want['frames'])}")
+        dec = host_video.HevcDecoder(reader.track.extradata, uncropped=True)
+        planes = []
+        try:
+            for k, sample in enumerate(reader.samples()):
+                planes += dec.decode(sample, k, planes=True)
+            planes += dec.flush(planes=True)
+        except ValueError:              # the truncated clip's last sample
+            if not reader.cut_short:
+                raise
+        finally:
+            dec.close()
+        for pl, k in planes:
+            md5 = [hashlib.md5(np.ascontiguousarray(c).astype(c.dtype.newbyteorder("<")).tobytes())
+                   .digest() for c in pl]
+            miss = k in HEVC_MD5_DIFFERS.get(name, ())
+            if ([md5] == _hevc_picture_md5s(annexb[k])[:1]) == miss:
+                raise AssertionError(f"video: {name}: the picture of access unit {k} "
+                                     f"{'equals' if miss else 'differs from'} its MD5 SEI")
+        pictures += len(planes)
+        out[name] = {"frames": len(frames), "pictures_md5": len(planes), "seconds": secs,
+                     "frames_held_to_cv2": held, "stop": reader.stop_reason}
+    decoded = [n for n, r in out.items() if "frames" in r]
+    log(f"video HEVC fixtures: {len(decoded)} clips ({sum(out[n]['frames'] for n in decoded)} "
+        f"frames; Main/Main 10/Main Still Picture, WPP, CTU 16 slices, transform skip, scaling "
+        f"lists, AMP, weighted prediction, lossless and QP 4 noise, 64x64 noise, full-range "
+        f"BT.709, Main 10 BT.601 and HLG in a .mov with dvvC, hev1 in-band, dvh1, AVI, an edit list, a truncated file) every "
+        f"packet, fps, frame count and size equal to cv2's manifest, every frame's SHA-256 but "
+        f"{list(HEVC_CV2_DIFFERS)}'s, {list(HEVC_COLOUR_MANAGED)}'s frames refused as cv2 "
+        f"converts them colour-managed, and {pictures} pictures' planes held to their MD5 SEI: equal "
+        f"but the {sum(map(len, HEVC_MD5_DIFFERS.values()))} x265 misses of HEVC_MD5_DIFFERS, "
+        f"which differ; "
+        f"{len(out) - len(decoded)} refused formats raise UnsupportedVideo naming "
+        f"{sorted({r['refused'] for r in out.values() if 'refused' in r})} [{_cpu_name()}]")
+    return out
+
+
+def _hevc_timings(card: str) -> dict:
+    """Host ms (1 thread) a picture to decode HEVC by picture type (cropped
+    planes, no conversion) and to convert a frame to BGR, at 640x480 and
+    1920x1080 (8-bit) and 640x480 Main 10, median over DRAW_REPS passes."""
+    out = {}
+    for name in HEVC_TIMED:
+        reader = host_video.VideoReader(os.path.join(HEVC_FIXTURES, name))
+        samples = list(reader.samples())
+        kinds, runs, conv = [], [], []
+        for rep in range(DRAW_REPS):
+            dec = host_video.HevcDecoder(reader.track.extradata)
+            times, got = [], []
+            for k, sample in enumerate(samples):
+                t0 = time.perf_counter()
+                got += dec.decode(sample, k, planes=True)
+                times.append(time.perf_counter() - t0)
+                if rep == 0:
+                    kinds.append("PBI"[dec.last_type])
+            got += dec.flush(planes=True)
+            dec.close()
+            runs.append(times)
+        w, h = reader.size
+        depth = 10 if got[0][0][0].dtype == np.uint16 else 8
+        for planes, _ in got[:DRAW_REPS]:
+            flat = np.concatenate([c.ravel() for c in planes])
+            t0 = time.perf_counter()
+            host_video.to_bgr(flat, host_video.Picture(w, h, 0, 2, 0, depth=depth), "HEVC")
+            conv.append(time.perf_counter() - t0)
+        ms = {k: float(np.median([r[i] for r in runs for i in range(len(kinds))
+                                  if kinds[i] == k]) * 1e3) for k in sorted(set(kinds))}
+        ms["to_bgr"] = float(np.median(conv) * 1e3)
+        ms["frames_per_s"] = len(samples) / float(np.median([sum(r) for r in runs]))
+        out[name] = {"size": [w, h], "bits": depth, "kinds": "".join(kinds), "ms": ms}
+        log(f"video HEVC host decode ms a {w}x{h} {depth}-bit picture (1 thread): "
+            + ", ".join(f"{k} {ms[k]:.2f}" for k in sorted(set(kinds)))
+            + f"; to BGR {ms['to_bgr']:.2f}; {ms['frames_per_s']:.1f} pictures/s over the clip "
+            f"({''.join(kinds)}, {name}) [{_cpu_name()}]")
+    return out
+
+
+def _hevc_tracker(card: str, ckpt: str, conf: float, work: str, launches: dict,
+                  secs: dict) -> dict:
+    """tracker --device cuda --video <HEVC .mp4> --out out.mp4: a frame's
+    nms_suppress launch each and the warmup's, every frame written at the
+    clip's rate."""
+    clip = os.path.join(HEVC_FIXTURES, HEVC_TRACKED)
+    n = host_video.VideoReader(clip).frame_count
+    target = os.path.join(work, "tracker_hevc_out.mp4")
+    argv = ["--weights", ckpt, "--video", clip, "--conf", str(conf), "--device", "cuda",
+            "--out", target]
+    with contextlib.redirect_stdout(io.StringIO()):
+        tracks = _counted("tracker_hevc_out", n + 1, launches, secs,
+                          lambda: cli_tracker.main(argv))
+    reader = host_video.VideoReader(target)
+    if len(tracks) != n or (reader.frame_count, reader.fps) != (n, H264_FPS):
+        raise AssertionError(f"video tracker_hevc_out: {len(tracks)} frames of {n}, --out "
+                             f"holds {reader.frame_count} frames at {reader.fps} fps")
+    fps = n / secs["tracker_hevc_out"]
+    log(f"video tracker_hevc_out: {n} frames 640x480 of {HEVC_TRACKED} (HEVC) with --out "
+        f"out.mp4 in {secs['tracker_hevc_out']:.2f} s, {fps:.1f} frames/s, "
+        f"{sum(map(len, tracks))} tracks, {launches['tracker_hevc_out']} nms_suppress launches "
+        f"(frames + 1 = {n + 1}) [{_cpu_name()}; {card}]")
+    return {"frames_per_s": fps, "tracks": sum(map(len, tracks)), "launches":
+            launches["tracker_hevc_out"]}
 
 
 def _video_timings(card: str, frame) -> dict:
@@ -4472,6 +4660,14 @@ def phase_video(card: str, tmp: str, cli: dict, draw: dict):
                                     launches, secs)
     out["tracker_h264"] = _h264_tracker(card, cli["sharpened"], draw["conf"], work, launches,
                                         secs)
+    t0 = time.perf_counter()
+    out["hevc_fixtures"] = _hevc_fixtures(card)
+    out["hevc_decode_ms"] = _hevc_timings(card)
+    out["tracker_hevc"] = _hevc_tracker(card, cli["sharpened"], draw["conf"], work, launches,
+                                        secs)
+    out["hevc_seconds"] = time.perf_counter() - t0
+    log(f"video HEVC part of the phase: {out['hevc_seconds']:.1f} s (fixtures, MD5s, timings, "
+        f"tracker) [{_cpu_name()}; {card}]")
     out["seconds"], out["launches"] = secs, launches
     log(f"video: nms_suppress launches {json.dumps(launches)}, each as predicted [{card}]")
     return out

@@ -761,10 +761,7 @@ def _pcm_idr(cabac: bool) -> hf.Stream:
     w_px, h_px = stream.size
     mbw, mbh = parsed.sps["mbw"], parsed.sps["mbh"]
     assert (mbw * 16, mbh * 16) == (w_px, h_px)
-    n = w_px * h_px
-    lum = planes[:n].reshape(h_px, w_px)
-    cb = planes[n:n * 5 // 4].reshape(h_px // 2, w_px // 2)
-    cr = planes[n * 5 // 4:].reshape(h_px // 2, w_px // 2)
+    lum, cb, cr = planes
     p0, units = parsed.packets[0]
     idr = next(u for u in units if u[0] == 5)
     h = dict(idr[2], first_mb=0)

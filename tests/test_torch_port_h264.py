@@ -181,6 +181,31 @@ def test_x264_matrix_equals_cv2(x264, tmp_path, name, size, n, kw):
     assert_equal_cv2(path)
 
 
+@pytest.mark.parametrize("params,match", [
+    ("colorprim=bt2020:transfer=bt709:colormatrix=bt2020nc", r"colour_primaries 9 \(BT\.2020\)"),
+    ("colorprim=bt2020:transfer=smpte2084:colormatrix=bt2020nc",
+     r"colour_primaries 9 .* and transfer_characteristics 16 \(SMPTE ST 2084 \(PQ\)\)"),
+    ("transfer=arib-std-b67", r"transfer_characteristics 18 \(ARIB STD-B67 \(HLG\)\)"),
+], ids=["bt2020", "bt2020_pq", "hlg"])
+def test_colour_managed_streams_raise_naming_it(x264, tmp_path, params, match):
+    """cv2 5.0 maps wide primaries and the PQ and HLG transfers to BT.709
+    SDR before BGR (FFmpeg 8's swscale), which the port does not reproduce:
+    the frames raise naming what cv2 maps, and differ from cv2's when
+    converted as an untagged stream's."""
+    stream = hf.encode(hf.scene(2, 48, 64), profile="high", params=params)
+    path = str(tmp_path / "mapped.mp4")
+    hf.write_mp4(path, stream)
+    with pytest.raises(video.UnsupportedVideo, match=match + ".*colour-managed"):
+        list(video.VideoReader(path))
+    dec = video.H264Decoder(stream.extradata)
+    planes = [f for p in stream.packets for f, _ in dec.decode(p.data, planes=True)]
+    planes += [f for f, _ in dec.flush(planes=True)]
+    flat = np.concatenate([c.ravel() for c in planes[0]])
+    plain = video.to_bgr(flat, video.Picture(64, 48, 0, 9 if "2020" in params else 2, 0), "H.264")
+    cap = cv2.VideoCapture(path)
+    assert not np.array_equal(plain, cap.read()[1])
+
+
 def test_avi_variants_equal_cv2(x264, tmp_path):
     stream = hf.encode(hf.scene(8, 48, 64), profile="high", params="bframes=2")
     for fourcc in (b"H264", b"X264", b"avc1"):

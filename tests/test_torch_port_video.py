@@ -169,7 +169,7 @@ def _stub(tmp_path, src, old, new, name):
 
 @pytest.mark.parametrize("case,match", [
     ("webm", "WebM"), ("avc1", "H.264"), ("hev1", "HEVC"), ("vp09", "VP9"),
-    ("moof", "fragmented MP4"), ("avi_hevc", "HEVC"), ("avix", "OpenDML"),
+    ("moof", "fragmented MP4"), ("avi_vp90", "VP9"), ("avix", "OpenDML"),
     ("avi_div3", "MS-MPEG4"),
 ])
 def test_containers_that_raise(tmp_path, case, match):
@@ -183,11 +183,11 @@ def test_containers_that_raise(tmp_path, case, match):
         path.write_bytes(open(os.path.join(DIR, "mp4v_320x240_30.mp4"), "rb").read()
                          + struct.pack(">I4s", 8, b"moof"))
         path = str(path)
-    elif case == "avi_hevc":             # H.264 in AVI is read (test_torch_port_h264.py)
+    elif case == "avi_vp90":     # H.264 and HEVC in AVI are read (test_torch_port_h264/hevc.py)
         path = _stub(tmp_path, "xvid_320x240.avi", b"strf(\x00\x00\x00(\x00\x00\x00@\x01\x00\x00"
                      b"\xf0\x00\x00\x00\x01\x00\x18\x00XVID",
                      b"strf(\x00\x00\x00(\x00\x00\x00@\x01\x00\x00\xf0\x00\x00\x00\x01\x00"
-                     b"\x18\x00HEVC", "hevc.avi")
+                     b"\x18\x00VP90", "vp90.avi")
     elif case == "avi_div3":
         path = _stub(tmp_path, "xvid_320x240.avi", b"\x18\x00XVID", b"\x18\x00DIV3", "div3.avi")
     else:

@@ -1230,6 +1230,124 @@ void yuv_to_bgr(const uint8_t* py, int ys, const uint8_t* pu, const uint8_t* pv,
   }
 }
 
+// 10-bit 4:2:0 (yuv420p10le, chroma sited left) -> BGR24 as swscale's
+// scaled path converts it on x86 with SWS_BICUBIC, which is how cv2 5.0
+// gets the frame. Exact for pictures of at least 14x14 (below that swscale
+// shortens its filters; the caller refuses them).
+//  - Horizontal: luma to 15 bits (x << 5); chroma through the bicubic
+//    (B 0, C 0.6) filter that moves it from left siting to the RGB
+//    column pairs: 14-bit taps over columns j-1..j+2, clamped at the
+//    edges, sum >> 9, at most 32767.
+//  - Vertical, rows 0..h-3: the MMX packed path. Chroma rows through
+//    12-bit bicubic taps (2x, centre-sited; rows 0 and 2 have swscale's own
+//    edge taps, the rest clamp), each product to its high half (pmulhw),
+//    plus a rounder of 4; luma (x << 5) * 4096 >> 16 + 4. Then the same
+//    coefficients and 16-bit arithmetic as `yuv_to_bgr`.
+//  - The last two rows: swscale's C packed path (its MMX one would write
+//    past the line), each sample rounded to 8 bits ((sum + 2^18) >> 19)
+//    and looked up in the tables of ff_yuv2rgb_c_init_tables.
+// --------------------------------------------------------------------------
+
+// the C path's tables: BGR from 8-bit Y, Cb, Cr (swscale yuv2rgb.c)
+struct Yuv2RgbTables {
+  static const int kLumaHeadroom = 512;
+  int y_table[1024 + 2 * kLumaHeadroom];
+  int yoffs, crv, cbu, cgu, cgv;
+  Yuv2RgbTables(bool full, int matrix) {
+    if (matrix <= 0 || matrix > 10 || matrix == 8) matrix = 5;
+    const int32_t* m = kYuvCoeffs[matrix];
+    int64_t cr = m[0], cb = m[1], gu = -m[2], gv = -m[3];
+    int64_t cy = 1 << 16, oy = 0;
+    if (!full) {
+      cy = (cy * 255) / 219;
+      oy = (int64_t)16 << 16;
+    } else {
+      cr = (cr * 224) / 255; cb = (cb * 224) / 255;
+      gu = (gu * 224) / 255; gv = (gv * 224) / 255;
+    }
+    // C division truncates toward zero, as swscale's does
+    crv = (int)(((cr << 16) + 0x8000) / cy); cbu = (int)(((cb << 16) + 0x8000) / cy);
+    cgu = (int)(((gu << 16) + 0x8000) / cy); cgv = (int)(((gv << 16) + 0x8000) / cy);
+    yoffs = (full ? 384 : 326) + kLumaHeadroom;
+    int64_t yb = -((int64_t)384 << 16) - kLumaHeadroom * cy - oy;
+    for (int i = 0; i < 1024 + 2 * kLumaHeadroom; i++, yb += cy) y_table[i] = clip8((int)((yb + 0x8000) >> 16));
+  }
+  // (int64 >> 16 of a negative product floors, as the tables' do)
+  int off(int v, int c) const { return (int)(((int64_t)clip8(v) * c) >> 16); }
+  void put(int y, int u, int v, uint8_t* o) const {
+    int base = yoffs + y;
+    o[0] = (uint8_t)y_table[base - (cbu >> 9) + off(u, cbu)];
+    o[1] = (uint8_t)y_table[base - (cgu >> 9) + off(u, cgu) - (cgv >> 9) + off(v, cgv)];
+    o[2] = (uint8_t)y_table[base - (crv >> 9) + off(v, crv)];
+  }
+};
+
+// taps of chroma rows first..first+n-1 for output row y (chroma height ch)
+int vchroma_taps(int y, int ch, int* taps) {
+  static const int kEven[4] = {-115, 985, 3572, -346}, kOdd[4] = {-346, 3572, 985, -115};
+  static const int kRow0[4] = {4432, -336, 0, 0}, kRow2[4] = {959, 3473, -336, 0};
+  const int* f = y == 0 ? kRow0 : y == 2 ? kRow2 : (y & 1) ? kOdd : kEven;
+  int first = (y == 0 || y == 2) ? 0 : (y >> 1) - ((y & 1) ? 1 : 2);
+  for (int t = 0; t < 4; t++) taps[t] = 0;
+  // rows past the picture fold into its edge rows; return the first row
+  int lo = std::min(std::max(first, 0), ch - 1);
+  for (int t = 0; t < 4; t++) {
+    int r = std::min(std::max(first + t, 0), ch - 1);
+    taps[r - lo] += f[t];
+  }
+  return lo;
+}
+
+void yuv10_to_bgr(const uint16_t* py, const uint16_t* pu, const uint16_t* pv, int w, int h,
+                  bool full, int matrix, uint8_t* out) {
+  static const int kH[4] = {-1382, 14284, 3943, -461};
+  const Yuv2Rgb k(full, matrix);
+  const Yuv2RgbTables tab(full, matrix);
+  int cw = w / 2, ch = h / 2;
+  std::vector<int16_t> hu((size_t)cw * ch), hv((size_t)cw * ch);
+  for (int r = 0; r < ch; r++)
+    for (int j = 0; j < cw; j++) {
+      int su = 0, sv = 0;
+      for (int t = 0; t < 4; t++) {
+        int x = std::min(std::max(j - 1 + t, 0), cw - 1);
+        su += pu[(size_t)r * cw + x] * kH[t];
+        sv += pv[(size_t)r * cw + x] * kH[t];
+      }
+      hu[(size_t)r * cw + j] = (int16_t)std::min(su >> 9, 32767);
+      hv[(size_t)r * cw + j] = (int16_t)std::min(sv >> 9, 32767);
+    }
+  std::vector<int> ur(cw), vr(cw);
+  for (int y = 0; y < h; y++) {
+    int taps[4];
+    int first = vchroma_taps(y, ch, taps);
+    bool mmx = y < h - 2;
+    std::fill(ur.begin(), ur.end(), mmx ? 4 : 1 << 18);
+    std::fill(vr.begin(), vr.end(), mmx ? 4 : 1 << 18);
+    for (int t = 0; t < 4 && first + t < ch; t++) {
+      if (!taps[t]) continue;
+      const int16_t* a = &hu[(size_t)(first + t) * cw];
+      const int16_t* b = &hv[(size_t)(first + t) * cw];
+      for (int x = 0; x < cw; x++) {
+        ur[x] += mmx ? mulhi(a[x], taps[t]) : a[x] * taps[t];
+        vr[x] += mmx ? mulhi(b[x], taps[t]) : b[x] * taps[t];
+      }
+    }
+    const uint16_t* yr = py + (size_t)y * w;
+    uint8_t* o = out + (size_t)y * w * 3;
+    for (int x = 0; x < w; x++) {
+      if (mmx) {
+        int yy = mulhi(mulhi(yr[x] << 5, 4096) + 4 - k.y_offset, k.y_coeff);
+        int u = ur[x >> 1] - 1024, v = vr[x >> 1] - 1024;
+        o[3 * x] = clip8(yy + mulhi(u, k.ub));
+        o[3 * x + 1] = clip8(yy + mulhi(u, k.ug) + mulhi(v, k.vg));
+        o[3 * x + 2] = clip8(yy + mulhi(v, k.vr));
+      } else {
+        tab.put((yr[x] + 2) >> 2, ur[x >> 1] >> 19, vr[x >> 1] >> 19, o + 3 * x);
+      }
+    }
+  }
+}
+
 // --------------------------------------------------------------------------
 // the encoder: I-VOPs at a fixed quantizer, H.263 quantization, intra DC by
 // its VLC, no AC prediction, no resync markers
@@ -1538,6 +1656,13 @@ void yl_yuv_to_bgr(const uint8_t* planes, int32_t w, int32_t h, int32_t ch, int3
   const uint8_t* u = planes + (size_t)w * h;
   const uint8_t* v = u + (size_t)cw * ch;
   yuv_to_bgr(planes, w, u, v, cw, w, h, ch == h ? 0 : 1, full != 0, out, matrix);
+}
+
+// 10-bit planes Y [h, w], Cb, Cr [h/2, w/2] (uint16, 4:2:0) into BGR [h, w, 3]
+void yl_yuv10_to_bgr(const uint16_t* planes, int32_t w, int32_t h, int32_t full, int32_t matrix,
+                     uint8_t* out) {
+  const uint16_t* u = planes + (size_t)w * h;
+  yuv10_to_bgr(planes, u, u + (size_t)(w / 2) * (h / 2), w, h, full != 0, matrix, out);
 }
 
 // VOS/VO/VOL headers into out (capacity cap); returns their length

@@ -7,44 +7,54 @@ Containers are parsed here, in the standard library:
     `moov` (which may come after `mdat`), its sample description (`mp4v`
     with the `esds` DecoderSpecificInfo, the VOL; `jpeg`/`mjpa`, or `mp4v`
     whose object type is JPEG, for Motion-JPEG; `avc1`/`avc3` with `avcC`
-    for H.264), its sample table (`stts`, `ctts`, `stss`, `stsc`, `stsz`,
+    for H.264; `hvc1`/`hev1`, and Dolby Vision's `dvh1`/`dvhe`, with
+    `hvcC` for HEVC), its sample table (`stts`, `ctts`, `stss`, `stsc`, `stsz`,
     `stco`/`co64`) and its edit list (`edts/elst`), applied as FFmpeg's
     mov demuxer applies one edit: samples from the last key frame at or
     before the edit's start, pictures shown from its start to its end;
   - RIFF AVI: `hdrl/avih/strl/strh/strf`, then the video stream's
     `##dc`/`##db` chunks of `movi`, by `idx1` where present and else by
     walking `movi`; FMP4/XVID/DIVX/DX50/MP4V as MPEG-4 Part 2, MJPG as
-    Motion-JPEG, H264/X264/avc1 as H.264 in Annex B.
+    Motion-JPEG, H264/X264/avc1 as H.264 and HEVC/H265/hvc1/hev1 (any case)
+    as HEVC, both in Annex B.
 
 The reader reports `fps` (`CAP_PROP_FPS`: the track's frame count over its
 `stts` duration in an MP4, `rate / scale` of the stream in an AVI),
 `frame_count` (`CAP_PROP_FRAME_COUNT`: the samples of the track, the
-stream's length in an AVI), `size` (w, h, H.264's cropped) and `codec`. Its
-packets are byte for byte what cv2 yields with `CAP_PROP_FORMAT = -1`: the
-container's samples, and for H.264 in an MP4 those samples in Annex B as
-FFmpeg's `h264_mp4toannexb` filter writes them (the `avcC` parameter sets
-before each IDR picture that does not carry its own).
+stream's length in an AVI), `size` (w, h, H.264's and HEVC's cropped) and
+`codec`. Its packets are byte for byte what cv2 yields with
+`CAP_PROP_FORMAT = -1`: the container's samples, and for H.264 in an MP4
+those samples in Annex B as FFmpeg's `h264_mp4toannexb` filter writes them
+(the `avcC` parameter sets before each IDR picture that does not carry its
+own), for HEVC as `hevc_mp4toannexb` writes them (4-byte start codes, the
+`hvcC` arrays before the first IRAP slice of a sample).
 
 Frames decode on the host in C++ (`csrc/videocodec.cpp` for MPEG-4 Part 2,
 `csrc/imgcodec.cpp` for the planes of a Motion-JPEG frame, `csrc/h264dec.cpp`
-for progressive 8-bit 4:2:0 H.264 of the Baseline, Main and High profiles),
-built at first use (`csrc/build.py`), to BGR uint8 as cv2.VideoCapture gives
-them: FFmpeg's decoders (simple IDCT, its MPEG-4 prediction and motion
-compensation; H.264's normative decoding and FFmpeg's output order) and
-swscale's YUV -> BGR24 conversion (limited range for MPEG-4, full range for
-Motion-JPEG, H.264's signalled range and matrix, chroma not interpolated). A
+for progressive 8-bit 4:2:0 H.264 of the Baseline, Main and High profiles,
+`csrc/hevcdec.cpp` for HEVC Main, Main 10 and Main Still Picture), built at
+first use (`csrc/build.py`), to BGR uint8 as cv2.VideoCapture gives them:
+FFmpeg's decoders (simple IDCT, its MPEG-4 prediction and motion
+compensation; H.264's and HEVC's normative decoding and FFmpeg's output
+order) and swscale's YUV -> BGR24 conversion (limited range for MPEG-4, full
+range for Motion-JPEG, H.264's and HEVC's signalled range and matrix, chroma
+not interpolated at 8 bits, 10 bits as `to_bgr` says). A
 sample that is missing from the file or does not decode ends the stream,
-where cv2's `read` returns False; an H.264 decoder hands out the pictures it
-still holds first.
+where cv2's `read` returns False; an H.264 or HEVC decoder hands out the
+pictures it still holds first.
 
-What is not read raises `UnsupportedVideo` naming it: HEVC (`hvc1`/`hev1`),
-VP8/VP9/AV1 and WebM/Matroska, fragmented MP4 (`moof`), several edits in
-one edit list, OpenDML AVI beyond the first RIFF, any other codec; within
-MPEG-4 Part 2 B-VOPs, quarter-pel, GMC, interlace, data partitioning and
-RVLC; within H.264 interlaced coding (fields, MBAFF), bit depths above 8,
-chroma other than 4:2:0, lossless coding, SP/SI slices, data partitioning,
-slice groups and colour matrices swscale does not convert (ROADMAP, "When a
-user needs them": video codecs).
+What is not read raises `UnsupportedVideo` naming it: VP8/VP9/AV1 and
+WebM/Matroska, fragmented MP4 (`moof`), several edits in one edit list,
+OpenDML AVI beyond the first RIFF, any other codec; within MPEG-4 Part 2
+B-VOPs, quarter-pel, GMC, interlace, data partitioning and RVLC; within
+H.264 interlaced coding (fields, MBAFF), bit depths above 8, chroma other
+than 4:2:0, lossless coding, SP/SI slices, data partitioning, slice groups
+and colour matrices swscale does not convert; within HEVC bit depths other
+than 8 and 10, chroma other than 4:2:0, the range and screen content
+extensions, tiles, PCM, dependent slice segments, long-term reference
+pictures and reference list modification; and in both the frames cv2 5.0
+converts colour-managed (wide-gamut primaries, PQ, HLG; `to_bgr`) (ROADMAP,
+"When a user needs them": video codecs).
 
 `VideoWriter` encodes each BGR frame as an MPEG-4 Part 2 I-VOP (Simple
 Profile, H.263 quantization at a fixed quantizer, BT.601 limited range,
@@ -74,8 +84,12 @@ MPEG4_TAGS = {b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V", b"mp4v", b"xvid", b"d
               b"fmp4", b"M4S2", b"3IV2", b"DIV5"}
 MJPEG_TAGS = {b"MJPG", b"mjpg", b"jpeg", b"mjpa", b"AVRn", b"dmb1"}
 H264_TAGS = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1"}
+# HEVC: the MP4 sample entries FFmpeg's mov demuxer maps to it (Dolby
+# Vision's dvh1/dvhe too) and the AVI FourCCs of FFmpeg's riff tags,
+# which it matches without regard to case
+HEVC_ENTRIES = {b"hvc1", b"hev1", b"dvh1", b"dvhe"}
+HEVC_FOURCCS = {b"HEVC", b"H265", b"HVC1", b"HEV1"}
 NAMED_CODECS = {
-    b"hvc1": "HEVC", b"hev1": "HEVC", b"HEVC": "HEVC", b"H265": "HEVC",
     b"vp08": "VP8", b"VP80": "VP8", b"vp09": "VP9", b"VP90": "VP9", b"av01": "AV1",
     b"AV01": "AV1", b"DIV3": "MS-MPEG4 v3", b"MP43": "MS-MPEG4 v3", b"MP42": "MS-MPEG4 v2",
     b"WMV3": "WMV3",
@@ -87,6 +101,7 @@ _OTI = {0x20: "mp4v", 0x6C: "mjpeg", 0x21: "H.264", 0x23: "HEVC", 0x6A: "MPEG-1 
 
 _LIB = None
 _H264 = None
+_HEVC = None
 
 
 class UnsupportedVideo(NotImplementedError):
@@ -95,8 +110,8 @@ class UnsupportedVideo(NotImplementedError):
 
 def unsupported(what: str) -> UnsupportedVideo:
     return UnsupportedVideo(f"{what} is not decoded by this package (it reads MPEG-4 Part 2 "
-                            f"Simple Profile, Motion-JPEG and progressive 8-bit 4:2:0 H.264 in "
-                            f"MP4/MOV and AVI): {ROADMAP_ENTRY}")
+                            f"Simple Profile, Motion-JPEG, progressive 8-bit 4:2:0 H.264 and "
+                            f"8- and 10-bit 4:2:0 HEVC in MP4/MOV and AVI): {ROADMAP_ENTRY}")
 
 
 def library() -> ctypes.CDLL:
@@ -114,6 +129,7 @@ def library() -> ctypes.CDLL:
         lib.yl_m4v_frame.argtypes = [ptr, ptr, i64, i32]
         lib.yl_m4v_decode.restype = lib.yl_m4v_frame.restype = ctypes.c_int
         lib.yl_yuv_to_bgr.argtypes = [ptr, i32, i32, i32, i32, i32, ptr]
+        lib.yl_yuv10_to_bgr.argtypes = [ptr, i32, i32, i32, i32, ptr]
         lib.yl_m4v_headers.argtypes = [i32, i32, i32, ptr, i64]
         lib.yl_m4v_headers.restype = i64
         lib.yl_m4v_encode.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32, ptr, i64]
@@ -127,36 +143,44 @@ def libraries() -> None:
     is built yet) and loads them, so a missing compiler raises here."""
     from yololite_tpu_torch.csrc.build import build
     from yololite_tpu_torch.data import codecs
-    build(["videocodec", "imgcodec", "h264dec"])
+    build(["videocodec", "imgcodec", "h264dec", "hevcdec"])
     library()
     h264_library()
+    hevc_library()
     codecs.library()
+
+
+def _decoder_library(name: str, prefix: str, frame_args: int) -> ctypes.CDLL:
+    """The built library `name` with its `yl_<prefix>_*` decoder functions
+    typed (`frame_args`: the arguments of `yl_<prefix>_frame`)."""
+    from yololite_tpu_torch.csrc.build import load
+    lib = load(name)
+    buf, ptr, i32, i64 = ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    types = {"open": ([buf, i64, ctypes.POINTER(ptr), buf, i32], ctypes.c_int),
+             "close": ([ptr], None), "decode": ([ptr, buf, i64, i64, buf, i32], ctypes.c_int),
+             "flush": ([ptr, buf, i32], ctypes.c_int), "pending": ([ptr, ptr], i32),
+             "frame": ([ptr, ptr, i64, i32][:frame_args], i32), "last_type": ([ptr], i32),
+             "size": ([ptr, ptr], i32)}
+    for fn, (args, res) in types.items():
+        f = getattr(lib, f"yl_{prefix}_{fn}")
+        f.argtypes, f.restype = args, res
+    return lib
 
 
 def h264_library() -> ctypes.CDLL:
     """The built `h264dec` library with its C functions typed."""
     global _H264
     if _H264 is None:
-        from yololite_tpu_torch.csrc.build import load
-        lib = load("h264dec")
-        buf, ptr, i32, i64 = ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.yl_h264_open.argtypes = [buf, i64, ctypes.POINTER(ptr), buf, i32]
-        lib.yl_h264_open.restype = ctypes.c_int
-        lib.yl_h264_close.argtypes = [ptr]
-        lib.yl_h264_decode.argtypes = [ptr, buf, i64, i64, buf, i32]
-        lib.yl_h264_decode.restype = ctypes.c_int
-        lib.yl_h264_flush.argtypes = [ptr, buf, i32]
-        lib.yl_h264_flush.restype = ctypes.c_int
-        lib.yl_h264_pending.argtypes = [ptr, ptr]
-        lib.yl_h264_pending.restype = i32
-        lib.yl_h264_frame.argtypes = [ptr, ptr, i64]
-        lib.yl_h264_frame.restype = i32
-        lib.yl_h264_last_type.argtypes = [ptr]
-        lib.yl_h264_last_type.restype = i32
-        lib.yl_h264_size.argtypes = [ptr, ptr]
-        lib.yl_h264_size.restype = i32
-        _H264 = lib
+        _H264 = _decoder_library("h264dec", "h264", 3)
     return _H264
+
+
+def hevc_library() -> ctypes.CDLL:
+    """The built `hevcdec` library with its C functions typed."""
+    global _HEVC
+    if _HEVC is None:
+        _HEVC = _decoder_library("hevcdec", "hevc", 4)
+    return _HEVC
 
 
 def sniff(head: bytes) -> str:
@@ -174,7 +198,7 @@ def sniff(head: bytes) -> str:
 @dataclass
 class Track:
     """The first video track of a file."""
-    codec: str                       # "mp4v", "mjpeg" or "h264"
+    codec: str                       # "mp4v", "mjpeg", "h264" or "hevc"
     width: int
     height: int
     fps: float
@@ -182,7 +206,7 @@ class Track:
     extradata: bytes = b""
     samples: List[Tuple[int, int]] = field(default_factory=list)   # (offset, size)
     shown: Optional[List[bool]] = None   # per sample: its picture is shown (edit list)
-    annexb_ps: Tuple[bytes, bytes] = (b"", b"")   # H.264 in MP4: avcC's SPSs, PPSs in Annex B
+    annexb_ps: Tuple[bytes, bytes] = (b"", b"")   # in MP4: avcC's SPSs, PPSs, or hvcC's NAL units, in Annex B
 
 
 def _codec_of(tag: bytes) -> str:
@@ -192,6 +216,8 @@ def _codec_of(tag: bytes) -> str:
         return "mjpeg"
     if tag in H264_TAGS:
         return "h264"
+    if tag.upper() in HEVC_FOURCCS:
+        return "hevc"
     name = NAMED_CODECS.get(tag)
     raise unsupported(f"{name} ({tag.decode('latin1')!r})" if name
                       else f"the codec {tag.decode('latin1')!r}")
@@ -331,6 +357,27 @@ def _avcc(record: bytes):
     return (record[4] & 3) + 1, tuple(ps)
 
 
+def _hvcc(record: bytes):
+    """(NAL length size, (its NAL units in Annex B with 4-byte start codes,
+    b"")) of an HEVCDecoderConfigurationRecord, as FFmpeg's
+    `hevc_mp4toannexb` filter lays out its extradata: the arrays in order."""
+    if len(record) < 23 or record[0] != 1:
+        raise ValueError("'hvcC' is not an HEVCDecoderConfigurationRecord")
+    out, i = b"", 23
+    for _ in range(record[22]):
+        if i + 3 > len(record):
+            raise ValueError("'hvcC' cut short")
+        n = struct.unpack(">H", record[i + 1:i + 3])[0]
+        i += 3
+        for _ in range(n):
+            size = struct.unpack(">H", record[i:i + 2])[0]
+            if i + 2 + size > len(record):
+                raise ValueError("'hvcC' cut short")
+            out += b"\x00\x00\x00\x01" + record[i + 2:i + 2 + size]
+            i += 2 + size
+    return (record[21] & 3) + 1, (out, b"")
+
+
 def _edit_list(m: bytes, trak, timescale: int, movie_scale: int):
     """(media time, duration in the media's time scale or None) of the one
     edit that plays media, None without an edit list."""
@@ -398,6 +445,12 @@ def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
             raise unsupported(f"H.264 ({tag.decode('latin1')!r}) without an 'avcC' record")
         codec, extradata = "h264", bytes(m[avcc[0]:avcc[1]])
         _, annexb_ps = _avcc(extradata)
+    elif tag in HEVC_ENTRIES:
+        hvcc = _child(m, es + 78, ee, b"hvcC")
+        if hvcc is None:
+            raise unsupported(f"HEVC ({tag.decode('latin1')!r}) without an 'hvcC' record")
+        codec, extradata = "hevc", bytes(m[hvcc[0]:hvcc[1]])
+        _, annexb_ps = _hvcc(extradata)
     elif tag in (b"encv", b"encm"):
         raise unsupported("encrypted video")
     else:
@@ -645,74 +698,203 @@ def decode_mjpeg(packet: bytes) -> np.ndarray:
 UNCONVERTED_MATRICES = {8: "YCgCo", 10: "BT.2020 constant luminance", 11: "SMPTE ST 2085",
                         12: "chromaticity-derived non-constant luminance",
                         13: "chromaticity-derived constant luminance", 14: "ICtCp"}
+# colour_primaries and transfer_characteristics (H.264 Tables E-3, E-4; the
+# same in HEVC) for which cv2 5.0's swscale (FFmpeg 8) maps the colours to
+# BT.709 SDR before it converts to BGR (gamut and tone mapping through a 3D
+# LUT, then a dither), which this package does not reproduce
+MAPPED_PRIMARIES = {8: "generic film", 9: "BT.2020", 10: "SMPTE ST 428 (CIE XYZ)",
+                    11: "SMPTE RP 431 (DCI-P3)", 12: "SMPTE EG 432 (Display P3)",
+                    22: "EBU Tech 3213"}
+MAPPED_TRANSFERS = {9: "logarithmic 100:1", 10: "logarithmic 316:1",
+                    16: "SMPTE ST 2084 (PQ)", 18: "ARIB STD-B67 (HLG)"}
+# below this width or height swscale shortens its 10-bit chroma filters
+MIN_10BIT_SIDE = 14
 
 
-class H264Decoder:
-    """One H.264 stream: packets (access units) in, BGR frames out in
+@dataclass
+class Picture:
+    """What a decoder says of the next picture it hands out."""
+    w: int                    # cropped to the conformance window
+    h: int
+    full: int                 # video_full_range_flag
+    matrix: int               # matrix_coefficients
+    tag: int                  # of the packet that began the picture
+    depth: int = 8            # bits a sample
+    coded: Tuple[int, int] = (0, 0)    # (w, h) before cropping
+    primaries: int = 2        # colour_primaries
+    transfer: int = 2         # transfer_characteristics
+    chroma_loc: int = -1      # chroma_sample_loc_type_top_field, -1 when not sent
+
+
+def to_bgr(planes: np.ndarray, pic: Picture, codec: str) -> np.ndarray:
+    """Cropped 4:2:0 planes (Y, Cb, Cr concatenated; uint16 past 8 bits) to
+    BGR as cv2 5.0 gets them from swscale: 8 bits through its unscaled
+    converter (`yl_yuv_to_bgr`), 10 bits (yuv420p10le, chroma sited left)
+    through its scaled bicubic path (`yl_yuv10_to_bgr`). What cv2 converts
+    another way raises `UnsupportedVideo` naming it."""
+    if pic.matrix in UNCONVERTED_MATRICES:
+        raise unsupported(f"{codec} with matrix_coefficients {pic.matrix} "
+                          f"({UNCONVERTED_MATRICES[pic.matrix]})")
+    mapped = [f"{what} {value} ({names[value]})" for what, value, names in
+              (("colour_primaries", pic.primaries, MAPPED_PRIMARIES),
+               ("transfer_characteristics", pic.transfer, MAPPED_TRANSFERS)) if value in names]
+    if mapped:
+        raise unsupported(f"{codec} with {' and '.join(mapped)}, which cv2 converts to BGR "
+                          f"colour-managed")
+    w, h = pic.w, pic.h
+    bgr = np.empty((h, w, 3), np.uint8)
+    if pic.depth > 8:
+        if min(w, h) < MIN_10BIT_SIDE:
+            raise unsupported(f"{pic.depth}-bit {codec} of {w}x{h} (under {MIN_10BIT_SIDE} "
+                              f"samples a side, swscale's filters change)")
+        if pic.chroma_loc > 0:
+            raise unsupported(f"{pic.depth}-bit {codec} with chroma_sample_loc_type "
+                              f"{pic.chroma_loc} (chroma not sited left)")
+        library().yl_yuv10_to_bgr(planes.ctypes.data, w, h, pic.full, pic.matrix,
+                                  bgr.ctypes.data)
+    else:
+        library().yl_yuv_to_bgr(planes.ctypes.data, w, h, h // 2, pic.full, pic.matrix,
+                                bgr.ctypes.data)
+    return bgr
+
+
+class _CodedDecoder:
+    """One H.264 or HEVC stream: packets (access units) in, frames out in
     FFmpeg's output order, each with the tag of the packet that began its
-    picture. `extradata` is an avcC record (packets then carry NAL units
-    with its length size) or Annex B parameter sets (packets in Annex B)."""
+    picture. `extradata` is an avcC/hvcC record (packets then carry NAL
+    units with its length size) or Annex B parameter sets (packets in Annex
+    B). A frame is BGR [h, w, 3] as `to_bgr` makes it, or with `planes` the
+    planes Y [h, w], Cb, Cr [h/2, w/2] (uint8, uint16 past 8 bits) cropped
+    to the picture."""
+
+    codec = ""                # the name messages give
+    _prefix = ""              # of the C functions: yl_<prefix>_open, ...
 
     def __init__(self, extradata: bytes = b""):
-        self._lib = lib = h264_library()
+        self._lib = self._library()
         msg, h = ctypes.create_string_buffer(_MSG_LEN), ctypes.c_void_p()
         self._h = None
         self.last_type = -1          # slice type of the last picture begun: 0 P, 1 B, 2 I
-        code = lib.yl_h264_open(bytes(extradata), len(extradata), ctypes.byref(h), msg, _MSG_LEN)
+        code = self._c("open")(bytes(extradata), len(extradata), ctypes.byref(h), msg, _MSG_LEN)
         if code:
             raise _error(code, msg)
         self._h = h.value
 
-    def decode(self, packet: bytes, tag: int = 0, planes: bool = False) -> List[Tuple[np.ndarray, int]]:
-        """The frames a packet completes, as (BGR [h, w, 3], tag), or with
-        `planes` the cropped Y, Cb, Cr concatenated. A packet that does not
-        decode raises; the pictures before it stay for `flush`."""
+    def _c(self, name: str):
+        return getattr(self._lib, f"yl_{self._prefix}_{name}")
+
+    def decode(self, packet: bytes, tag: int = 0, planes: bool = False) -> list:
+        """The frames a packet completes, as (frame, tag). A packet that
+        does not decode raises; the pictures before it stay for `flush`."""
         msg = ctypes.create_string_buffer(_MSG_LEN)
-        code = self._lib.yl_h264_decode(self._h, bytes(packet), len(packet), tag, msg, _MSG_LEN)
-        self.last_type = self._lib.yl_h264_last_type(self._h)
+        code = self._c("decode")(self._h, bytes(packet), len(packet), tag, msg, _MSG_LEN)
+        self.last_type = self._c("last_type")(self._h)
         if code:
             raise _error(code, msg)
         return self._ready(planes)
 
-    def flush(self, planes: bool = False) -> List[Tuple[np.ndarray, int]]:
+    def flush(self, planes: bool = False) -> list:
         """The pictures still waiting for output, at the end of the stream."""
         msg = ctypes.create_string_buffer(_MSG_LEN)
-        code = self._lib.yl_h264_flush(self._h, msg, _MSG_LEN)
+        code = self._c("flush")(self._h, msg, _MSG_LEN)
         out = self._ready(planes)
         if code:
             raise _error(code, msg)
         return out
 
-    def _ready(self, planes: bool):
-        lib, out = self._lib, []
-        info = np.zeros(5, np.int64)
-        while lib.yl_h264_pending(self._h, info.ctypes.data):
-            w, h, full, matrix, tag = (int(v) for v in info)
-            buf = np.empty(w * h + 2 * (w // 2) * (h // 2), np.uint8)
-            if lib.yl_h264_frame(self._h, buf.ctypes.data, buf.size):
+    def _ready(self, planes: bool) -> list:
+        out = []
+        info = np.zeros(11, np.int64)
+        while self._c("pending")(self._h, info.ctypes.data):
+            pic = self._picture([int(v) for v in info])
+            w, h = self._window(pic)
+            buf = np.empty(w * h + 2 * (w // 2) * (h // 2), np.uint16 if pic.depth > 8 else np.uint8)
+            if self._fetch(buf):
                 raise ValueError("no decoded picture")
             if planes:
-                out.append((buf, tag))
-                continue
-            if matrix in UNCONVERTED_MATRICES:
-                raise unsupported(f"H.264 with matrix_coefficients {matrix} "
-                                  f"({UNCONVERTED_MATRICES[matrix]})")
-            bgr = np.empty((h, w, 3), np.uint8)
-            library().yl_yuv_to_bgr(buf.ctypes.data, w, h, h // 2, full, matrix, bgr.ctypes.data)
-            out.append((bgr, tag))
+                n, c = w * h, (w // 2) * (h // 2)
+                out.append(([buf[:n].reshape(h, w), buf[n:n + c].reshape(h // 2, w // 2),
+                             buf[n + c:].reshape(h // 2, w // 2)], pic.tag))
+            else:
+                out.append((to_bgr(buf, pic, self.codec), pic.tag))
         return out
+
+    def _window(self, pic: Picture) -> Tuple[int, int]:
+        return pic.w, pic.h
 
     def size(self) -> Optional[Tuple[int, int]]:
         """(w, h) cropped, of the first SPS the decoder holds; None before one."""
         wh = np.zeros(2, np.int32)
-        return (int(wh[0]), int(wh[1])) if self._lib.yl_h264_size(self._h, wh.ctypes.data) == 0 else None
+        return (int(wh[0]), int(wh[1])) if self._c("size")(self._h, wh.ctypes.data) == 0 else None
 
     def close(self):
         if getattr(self, "_h", None):
-            self._lib.yl_h264_close(self._h)
+            self._c("close")(self._h)
             self._h = None
 
     __del__ = close
+
+
+class H264Decoder(_CodedDecoder):
+    """Progressive 8-bit 4:2:0 H.264 (`csrc/h264dec.cpp`)."""
+
+    codec, _prefix = "H.264", "h264"
+    _library = staticmethod(h264_library)
+
+    def _picture(self, info: List[int]) -> Picture:
+        return Picture(*info[:5], primaries=info[5], transfer=info[6])
+
+    def _fetch(self, buf: np.ndarray) -> int:
+        return self._c("frame")(self._h, buf.ctypes.data, buf.nbytes)
+
+
+class HevcDecoder(_CodedDecoder):
+    """HEVC Main, Main 10 and Main Still Picture (`csrc/hevcdec.cpp`).
+    With `uncropped=True` the planes come as decoded, before the
+    conformance window crops them (what the MD5 hash SEI covers)."""
+
+    codec, _prefix = "HEVC", "hevc"
+    _library = staticmethod(hevc_library)
+
+    def __init__(self, extradata: bytes = b"", uncropped: bool = False):
+        super().__init__(extradata)
+        self.uncropped = uncropped
+
+    def _picture(self, info: List[int]) -> Picture:
+        return Picture(*info[:6], coded=(info[6], info[7]), primaries=info[8],
+                       transfer=info[9], chroma_loc=info[10])
+
+    def _window(self, pic: Picture) -> Tuple[int, int]:
+        return pic.coded if self.uncropped else (pic.w, pic.h)
+
+    def _fetch(self, buf: np.ndarray) -> int:
+        return self._c("frame")(self._h, buf.ctypes.data, buf.nbytes, int(self.uncropped))
+
+
+def hevc_mp4_to_annexb(sample: bytes, nal_size: int, ps: bytes) -> bytes:
+    """A length-prefixed HEVC sample in Annex B as FFmpeg's
+    `hevc_mp4toannexb` filter writes it: a 4-byte start code before every
+    NAL unit, and the `hvcC` arrays `ps` before the first IRAP slice of the
+    sample. A NAL unit shorter than its header or running past the sample
+    raises `ValueError`, where the filter fails."""
+    out = bytearray()
+    got_irap = False
+    i = 0
+    while i < len(sample):
+        if i + nal_size > len(sample):
+            raise ValueError("NAL unit length cut short")
+        n = int.from_bytes(sample[i:i + nal_size], "big")
+        i += nal_size
+        if n < 2 or n > len(sample) - i:
+            raise ValueError(f"NAL unit of {n} bytes does not fit its sample")
+        nal = sample[i:i + n]
+        i += n
+        irap = 16 <= (nal[0] >> 1) & 0x3F <= 23
+        if irap and not got_irap:
+            out += ps
+        got_irap |= irap
+        out += b"\x00\x00\x00\x01" + nal
+    return bytes(out)
 
 
 def mp4_to_annexb(sample: bytes, nal_size: int, ps: Tuple[bytes, bytes], state: dict) -> bytes:
@@ -782,13 +964,16 @@ class VideoReader:
         self.size, self.codec = (t.width, t.height), t.codec
         self.stop_reason, self.damaged, self.cut_short = None, [], False
         libraries()                     # a missing compiler raises here, not in a read
-        if t.codec == "h264":
-            self.size = self._h264_size()
+        if t.codec in ("h264", "hevc"):
+            self.size = self._coded_size()
 
-    def _h264_size(self):
+    def _decoder(self):
+        return (H264Decoder if self.codec == "h264" else HevcDecoder)(self.track.extradata)
+
+    def _coded_size(self):
         """The cropped size of the SPS in the extradata, else the
         container's (an AVI's parameter sets come in band)."""
-        dec = H264Decoder(self.track.extradata)
+        dec = self._decoder()
         try:
             return dec.size() or self.size
         finally:
@@ -815,8 +1000,16 @@ class VideoReader:
         """The packets cv2 yields with `CAP_PROP_FORMAT = -1`: the samples,
         H.264 in an MP4 converted to Annex B as FFmpeg's bitstream filter
         converts it."""
-        if self.codec != "h264" or not any(self.track.annexb_ps):
+        if self.codec not in ("h264", "hevc") or not any(self.track.annexb_ps):
             yield from self.samples()
+            return
+        if self.codec == "hevc":
+            nal_size = (self.track.extradata[21] & 3) + 1
+            for sample in self.samples():
+                try:
+                    yield hevc_mp4_to_annexb(sample, nal_size, self.track.annexb_ps[0])
+                except ValueError:      # the filter fails, cv2 stops
+                    return
             return
         nal_size = (self.track.extradata[4] & 3) + 1
         state = {"new_idr": True}
@@ -833,8 +1026,8 @@ class VideoReader:
         the edit list leaves out are decoded and not yielded."""
         self.stop_reason, self.damaged, self.cut_short = None, [], False
         shown = self.track.shown
-        if self.codec == "h264":
-            yield from (f for f, k in self._h264() if shown is None or shown[k])
+        if self.codec in ("h264", "hevc"):
+            yield from (f for f, k in self._coded() if shown is None or shown[k])
             return
         dec = Mpeg4Decoder(self.track.extradata) if self.codec == "mp4v" else None
         try:
@@ -852,12 +1045,13 @@ class VideoReader:
             if dec is not None:
                 dec.close()
 
-    def _h264(self):
-        """(frame, sample index) in output order. At a sample that does not
-        decode, the whole pictures before it, then the end; in a file cut
-        short the pictures still held are not handed out, as cv2's reader
-        stops at the demuxer's error without draining its decoder."""
-        dec = H264Decoder(self.track.extradata)
+    def _coded(self):
+        """H.264 or HEVC (frame, sample index) in output order. At a sample
+        that does not decode, the whole pictures before it, then the end;
+        in a file cut short the pictures still held are not handed out, as
+        cv2's reader stops at the demuxer's error without draining its
+        decoder."""
+        dec = self._decoder()
         try:
             for k, sample in enumerate(self.samples()):
                 try:
