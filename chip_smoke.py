@@ -4193,6 +4193,14 @@ HEVC_COLOUR_MANAGED = {"f_main10_hlg_640x480.mov": "ARIB STD-B67 (HLG)"}
 # (motion search at 64-wide pictures; tests/hevc_fixtures.py MD5_DIFFERS)
 HEVC_MD5_DIFFERS = {"o_noise64_qp4.mp4": (1, 2, 3, 4), "o_noise64_qp20.mp4": (2, 3)}
 VIDEO_FRAMES = 60                           # of make_clip's, written and tracked (cut for the time limit)
+# the containers around the decoders (tests/container_fixtures.py): Matroska,
+# MPEG-TS/M2TS, fragmented MP4, raw Annex B and OpenDML AVI, cv2's manifest
+CONTAINER_FIXTURES = os.path.join(VIDEO_FIXTURES, "containers")
+# (clip, --out or None, the fragmented .mp4 of the same stream its tracks must equal)
+CONTAINER_TRACKED = (("a_h264.mkv", "tracker_mkv_out.mkv", "a_h264_frag.mp4"),
+                     ("b_hevc.ts", None, "b_hevc_frag.mp4"))
+CONTAINER_CONF = 0.01
+CONTAINER_REPS = 3
 
 
 def _luma_psnr_min(path: str, canvases) -> float:
@@ -4554,6 +4562,110 @@ def _hevc_tracker(card: str, ckpt: str, conf: float, work: str, launches: dict,
             launches["tracker_hevc_out"]}
 
 
+def _container_kind(name: str) -> str:
+    ext = os.path.splitext(name)[1]
+    if ext == ".mp4":
+        return "fragmented mp4"
+    if ext == ".avi":
+        return "opendml avi"
+    return {".h264": "annexb", ".hevc": "annexb"}.get(ext, ext[1:])
+
+
+def _container_fixtures(card: str) -> dict:
+    """Every committed container clip (Matroska, MPEG-TS/M2TS, fragmented
+    MP4, raw Annex B, OpenDML AVI) read on this host and held to cv2's
+    manifest: fps, frame count (the port's own where cv2's has no meaning,
+    `port_frame_count`), size, every packet's and frame's SHA-256; and the
+    host's demux ms a packet (parsing the container and reading its
+    packets, no decoder; median of CONTAINER_REPS) for each kind of
+    container."""
+    with open(os.path.join(CONTAINER_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    sha = lambda b: hashlib.sha256(bytes(b)).hexdigest()
+    out, demux = {}, {}
+    for name, want in sorted(manifest.items()):
+        path = os.path.join(CONTAINER_FIXTURES, name)
+        reader = host_video.VideoReader(path)
+        meta = [reader.fps, reader.frame_count, list(reader.size)]
+        packets = [sha(p) for p in reader.packets()]
+        frames = [sha(np.ascontiguousarray(f)) for f in reader]
+        expect = [want["fps"], want.get("port_frame_count", want["frame_count"]), want["size"]]
+        if meta != expect or packets != want["packets"] or frames != want["frames"]:
+            raise AssertionError(f"video: {name} differs from cv2's manifest: {meta} vs {expect}, "
+                                 f"{len(packets)} packets, {len(frames)} frames of "
+                                 f"{len(want['frames'])}")
+        def parse():                    # the container's parse and its packets, no decoder
+            reader.track = host_video.probe(path)
+            return list(reader.packets())
+        ms = _median_ms(parse, CONTAINER_REPS) / len(packets)
+        demux.setdefault(_container_kind(name), []).append(ms)
+        out[name] = {"frames": len(frames), "codec": reader.codec, "demux_ms_a_packet": ms}
+    out["demux_ms_a_packet"] = {k: float(np.median(v)) for k, v in sorted(demux.items())}
+    log(f"video containers: {len(manifest)} clips, every packet, fps, frame count, size and frame "
+        f"SHA-256 equal to cv2's manifest (raw Annex B and Matroska without Duration: the port's "
+        f"frame count); host demux ms a packet (parse + packets, median of {CONTAINER_REPS}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["demux_ms_a_packet"].items())
+        + f" [{_cpu_name()}]")
+    return out
+
+
+def _container_checkpoint(work: str) -> str:
+    """A seeded edge_n at 64 px (torch's default initialisation, seed 0, 3
+    classes), which reports boxes on the 128x96 container clips at
+    CONTAINER_CONF; the cli phase's sharpened 640 px model finds none there."""
+    cfg = read_yaml(os.path.join(ROOT, "configs", "models", "edge_n.yaml"))
+    cfg["model"] = dict(cfg["model"], num_classes=3)
+    cfg["training"] = {"img_size": 64}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model_from_config(cfg).eval()
+    return save_checkpoint(os.path.join(work, "edge_n_64.ckpt"), *to_flax(model),
+                           build_meta(cfg, {}, "AP", ["c0", "c1", "c2"],
+                                      model.get_num_anchors_per_level()))
+
+
+def _container_trackers(card: str, work: str, launches: dict, secs: dict) -> dict:
+    """tracker --device cuda on H.264 in .mkv with --out x.mkv, and on HEVC
+    in .ts, each against the same tracker on the fragmented .mp4 of its
+    stream: a frame's nms_suppress launch each and the warmup's, tracks
+    reported and equal to the .mp4's; the .mkv written at the clip's rate,
+    every frame."""
+    ckpt = _container_checkpoint(work)
+    key = lambda per_frame: [[(t["track_id"], t["cls"], t["score"], t["bbox"].tolist())
+                              for t in ts] for ts in per_frame]
+    out = {}
+    for name, target, mp4 in CONTAINER_TRACKED:
+        clip = os.path.join(CONTAINER_FIXTURES, name)
+        src = host_video.VideoReader(clip)
+        n = src.frame_count
+        run = "tracker_" + name.replace(".", "_")
+        argv = ["--weights", ckpt, "--conf", str(CONTAINER_CONF), "--min_hits", "1",
+                "--device", "cuda"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            tracks = _counted(run, n + 1, launches, secs, lambda: cli_tracker.main(
+                argv + ["--video", clip] + (["--out", os.path.join(work, target)]
+                                            if target else [])))
+            same = _counted(run + "_mp4", n + 1, launches, secs, lambda: cli_tracker.main(
+                argv + ["--video", os.path.join(CONTAINER_FIXTURES, mp4)]))
+        if len(tracks) != n or key(tracks) != key(same) or not sum(map(len, tracks)):
+            raise AssertionError(f"video {run}: {len(tracks)} frames of {n}, "
+                                 f"{sum(map(len, tracks))} tracks, equal to {mp4}'s "
+                                 f"{sum(map(len, same))}: {key(tracks) == key(same)}")
+        if target:
+            reader = host_video.VideoReader(os.path.join(work, target))
+            if (reader.frame_count, reader.fps, len(list(reader))) != (n, src.fps, n):
+                raise AssertionError(f"video {run}: --out holds {reader.frame_count} frames at "
+                                     f"{reader.fps} fps")
+        log(f"video {run}: {n} frames {src.size[0]}x{src.size[1]} of {name} ({src.codec})"
+            f"{' with --out ' + target if target else ''} in {secs[run]:.2f} s, "
+            f"{sum(map(len, tracks))} tracks (edge_n @64 seed 0, conf {CONTAINER_CONF}) equal "
+            f"to those on {mp4}, {launches[run]} nms_suppress launches (frames + 1 = {n + 1}) "
+            f"[{_cpu_name()}; {card}]")
+        out[run] = {"frames": n, "tracks": sum(map(len, tracks)), "launches": launches[run],
+                    "seconds": secs[run], "mp4_launches": launches[run + "_mp4"]}
+    return out
+
+
 def _video_timings(card: str, frame) -> dict:
     """Host ms (1 thread) to decode a 640x480 I-VOP, a P-VOP and a
     Motion-JPEG frame, median of DRAW_REPS."""
@@ -4626,7 +4738,11 @@ def _video_tracker(card: str, ckpt: str, conf: float, mp4: str, frames, work: st
 
 def phase_video(card: str, tmp: str, cli: dict, draw: dict):
     """Video files on the card's host and the tracker on one, edge_n @640
-    with the cli phase's sharpened checkpoint at the draw phase's conf."""
+    with the cli phase's sharpened checkpoint at the draw phase's conf: MP4,
+    AVI, H.264 and HEVC, then the containers (Matroska, MPEG-TS/M2TS,
+    fragmented MP4, raw Annex B, OpenDML AVI) and the tracker on a .mkv
+    (with --out .mkv) and on a .ts."""
+    t_phase = time.perf_counter()
     work = os.path.join(tmp, "video")
     os.makedirs(work)
     launches, secs = {}, {}
@@ -4668,7 +4784,15 @@ def phase_video(card: str, tmp: str, cli: dict, draw: dict):
     out["hevc_seconds"] = time.perf_counter() - t0
     log(f"video HEVC part of the phase: {out['hevc_seconds']:.1f} s (fixtures, MD5s, timings, "
         f"tracker) [{_cpu_name()}; {card}]")
+    t0 = time.perf_counter()
+    out["container_fixtures"] = _container_fixtures(card)
+    out["tracker_containers"] = _container_trackers(card, work, launches, secs)
+    out["containers_seconds"] = time.perf_counter() - t0
+    log(f"video containers part of the phase: {out['containers_seconds']:.1f} s (fixtures, demux "
+        f"timings, .mkv and .ts trackers) [{_cpu_name()}; {card}]")
     out["seconds"], out["launches"] = secs, launches
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"video phase: {out['phase_seconds']:.1f} s [{_cpu_name()}; {card}]")
     log(f"video: nms_suppress launches {json.dumps(launches)}, each as predicted [{card}]")
     return out
 

@@ -33,7 +33,7 @@ import torch
 import cv2
 
 import chip_smoke
-from yololite_tpu_torch.data import codecs, video
+from yololite_tpu_torch.data import codecs, mpegts, video
 from yololite_tpu_torch.data.imwrite import AviWriter
 from yololite_tpu_torch.tools import tracker as tracker_tool
 
@@ -168,21 +168,32 @@ def _stub(tmp_path, src, old, new, name):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("webm", "WebM"), ("avc1", "H.264"), ("hev1", "HEVC"), ("vp09", "VP9"),
-    ("moof", "fragmented MP4"), ("avi_vp90", "VP9"), ("avix", "OpenDML"),
-    ("avi_div3", "MS-MPEG4"),
+    ("webm", "VP8"), ("avc1", "H.264"), ("hev1", "HEVC"), ("vp09", "VP9"),
+    ("mkv_vp9", "VP9 .'V_VP9'. in Matroska"), ("avi_vp90", "VP9"),
+    ("ts_mpeg2", r"MPEG-2 video \(stream type 0x02\) in MPEG-TS"), ("avi_div3", "MS-MPEG4"),
 ])
 def test_containers_that_raise(tmp_path, case, match):
+    """Fragmented MP4, OpenDML AVI and WebM's container are read
+    (tests/test_torch_port_containers.py); VP9 in Matroska and MPEG-2 video
+    in a transport stream are refused by name."""
     if case == "webm":
         path = os.path.join(DIR, "vp80_64x48.webm")
+    elif case == "mkv_vp9":
+        path = _stub(tmp_path, "vp80_64x48.webm", b"V_VP8", b"V_VP9", "vp9.mkv")
+    elif case == "ts_mpeg2":
+        path = tmp_path / "mpeg2.ts"
+        data = bytearray(open(os.path.join(DIR, "containers", "a_h264.ts"), "rb").read())
+        pmt = data.find(b"\x1b\xe1\x00")                 # H.264 on PID 0x100 in the PMT
+        start = pmt - 12                                  # the section, after the pointer field
+        assert pmt > 0 and data[start] == 0x02
+        data[pmt] = 0x02                                  # MPEG-2 video, and the CRC again
+        end = start + 3 + ((data[start + 1] & 0x0F) << 8 | data[start + 2])
+        data[end - 4:end] = struct.pack(">I", mpegts.crc32(bytes(data[start:end - 4])))
+        path.write_bytes(bytes(data))
+        path = str(path)
     elif case in ("avc1", "hev1", "vp09"):
         path = _stub(tmp_path, "mp4v_320x240_30.mp4", b"mp4v\x00\x00", case.encode() + b"\x00\x00",
                      f"{case}.mp4")
-    elif case == "moof":
-        path = tmp_path / "frag.mp4"
-        path.write_bytes(open(os.path.join(DIR, "mp4v_320x240_30.mp4"), "rb").read()
-                         + struct.pack(">I4s", 8, b"moof"))
-        path = str(path)
     elif case == "avi_vp90":     # H.264 and HEVC in AVI are read (test_torch_port_h264/hevc.py)
         path = _stub(tmp_path, "xvid_320x240.avi", b"strf(\x00\x00\x00(\x00\x00\x00@\x01\x00\x00"
                      b"\xf0\x00\x00\x00\x01\x00\x18\x00XVID",
@@ -190,11 +201,6 @@ def test_containers_that_raise(tmp_path, case, match):
                      b"\x18\x00VP90", "vp90.avi")
     elif case == "avi_div3":
         path = _stub(tmp_path, "xvid_320x240.avi", b"\x18\x00XVID", b"\x18\x00DIV3", "div3.avi")
-    else:
-        path = tmp_path / "avix.avi"
-        path.write_bytes(open(os.path.join(DIR, "xvid_320x240.avi"), "rb").read()
-                         + b"RIFF" + struct.pack("<I", 4) + b"AVIX")
-        path = str(path)
     with pytest.raises(video.UnsupportedVideo, match=match):
         video.VideoReader(str(path))
 
@@ -419,8 +425,8 @@ def test_writer_read_by_cv2(tmp_path, ext, fps):
 
 
 def test_writer_rejects(tmp_path):
-    with pytest.raises(ValueError, match="writes"):
-        video.VideoWriter(str(tmp_path / "x.mkv"), 30, (64, 48))
+    with pytest.raises(ValueError, match=r"writes.*MPEG-TS is not written"):
+        video.VideoWriter(str(tmp_path / "x.ts"), 30, (64, 48))
     with video.VideoWriter(str(tmp_path / "x.mp4"), 30, (64, 48)) as w:
         with pytest.raises(ValueError, match="differs"):
             w.write(np.zeros((48, 60, 3), np.uint8))
@@ -539,4 +545,4 @@ def test_tracker_sources_that_raise(ckpt, tmp_path):
                            os.path.join(DIR, "vp80_64x48.webm")])
     with pytest.raises(NotImplementedError, match="other containers"):
         tracker_tool.main(["--weights", ckpt, "--device", "cpu", "--video",
-                           os.path.join(DIR, "mp4v_320x240_30.mp4"), "--out", "o.mkv"])
+                           os.path.join(DIR, "mp4v_320x240_30.mp4"), "--out", "o.ts"])

@@ -364,7 +364,7 @@ def test_tracker_refuses_what_it_cannot_write(ckpt, tmp_path):  # noqa: F811
     seq.mkdir()
     cv2.imwrite(str(seq / "0000.png"), _frame(1, 48, 64))
     argv = ["--weights", ckpt, "--video", str(seq / "%04d.png"), "--device", "cpu"]
-    for out in ("o.mkv", "out_dir"):
+    for out in ("o.ts", "out_dir"):
         with pytest.raises(NotImplementedError, match="other containers are not written"):
             tracker_tool.main(argv + ["--out", str(tmp_path / out)])
     with pytest.raises(NotImplementedError, match="--show"):

@@ -1,7 +1,9 @@
-"""Video files: read MP4/MOV and AVI as `cv2.VideoCapture` reads them, and
-write MPEG-4 Part 2 ("mp4v") as `cv2.VideoWriter(path, "mp4v", ...)` does.
+"""Video files: read MP4/MOV, AVI, Matroska/WebM, MPEG-TS/M2TS and raw
+H.264/HEVC Annex B as `cv2.VideoCapture` reads them, and write MPEG-4 Part 2
+("mp4v") as `cv2.VideoWriter(path, "mp4v", ...)` does.
 
-Containers are parsed here, in the standard library:
+Containers are parsed here and in `mkv.py`, `mpegts.py` and `esparse.py`,
+in the standard library; `sniff` picks one by content, as FFmpeg probes:
 
   - ISO BMFF (`ftyp`: `.mp4`, `.m4v`, `.mov`): the first video track of
     `moov` (which may come after `mdat`), its sample description (`mp4v`
@@ -11,20 +13,35 @@ Containers are parsed here, in the standard library:
     `hvcC` for HEVC), its sample table (`stts`, `ctts`, `stss`, `stsc`, `stsz`,
     `stco`/`co64`) and its edit list (`edts/elst`), applied as FFmpeg's
     mov demuxer applies one edit: samples from the last key frame at or
-    before the edit's start, pictures shown from its start to its end;
+    before the edit's start, pictures shown from its start to its end.
+    Movie fragments follow the samples of `moov` (none with `empty_moov`):
+    `mvex/trex` defaults, `moof/traf` with `tfhd` (base data offset,
+    default-base-is-moof, or the end of the previous run), `tfdt` and
+    `trun`; `sidx` and `mfra` are not needed;
   - RIFF AVI: `hdrl/avih/strl/strh/strf`, then the video stream's
     `##dc`/`##db` chunks of `movi`, by `idx1` where present and else by
-    walking `movi`; FMP4/XVID/DIVX/DX50/MP4V as MPEG-4 Part 2, MJPG as
-    Motion-JPEG, H264/X264/avc1 as H.264 and HEVC/H265/hvc1/hev1 (any case)
-    as HEVC, both in Annex B.
+    walking `movi`; OpenDML files by the `indx` super index and its `ix##`
+    standard indexes, else by walking the `movi` of every `AVIX` RIFF;
+    FMP4/XVID/DIVX/DX50/MP4V as MPEG-4 Part 2, MJPG as Motion-JPEG,
+    H264/X264/avc1 as H.264 and HEVC/H265/hvc1/hev1 (any case) as HEVC,
+    both in Annex B;
+  - Matroska and WebM (`mkv.py`): H.264 (avcC), HEVC (hvcC), MPEG-4 Part 2,
+    Motion-JPEG and `V_MS/VFW/FOURCC`, laced, header-stripped or zlib
+    frames, unknown sizes and files cut short;
+  - MPEG-TS and M2TS (`mpegts.py`) and raw Annex B H.264/HEVC: the
+    elementary stream cut into packets as FFmpeg's parsers cut it
+    (`esparse.py`).
 
-The reader reports `fps` (`CAP_PROP_FPS`: the track's frame count over its
-`stts` duration in an MP4, `rate / scale` of the stream in an AVI),
-`frame_count` (`CAP_PROP_FRAME_COUNT`: the samples of the track, the
-stream's length in an AVI), `size` (w, h, H.264's and HEVC's cropped) and
+The reader reports `fps` (`CAP_PROP_FPS`, FFmpeg's `avg_frame_rate`: the
+track's frame count over its `stts` duration in an MP4, `rate / scale` of
+the stream in an AVI, FFmpeg's estimate elsewhere, 25 for raw Annex B),
+`frame_count` (`CAP_PROP_FRAME_COUNT`: the samples of `moov`, the stream's
+length in an AVI, else the duration x fps, rounded; the packets where cv2's
+count has no meaning), `size` (w, h, H.264's and HEVC's cropped) and
 `codec`. Its packets are byte for byte what cv2 yields with
-`CAP_PROP_FORMAT = -1`: the container's samples, and for H.264 in an MP4
-those samples in Annex B as FFmpeg's `h264_mp4toannexb` filter writes them
+`CAP_PROP_FORMAT = -1`: the container's samples (a TS's or raw stream's as
+FFmpeg's parser cuts them), and for H.264 in an MP4 or Matroska file those
+samples in Annex B as FFmpeg's `h264_mp4toannexb` filter writes them
 (the `avcC` parameter sets before each IDR picture that does not carry its
 own), for HEVC as `hevc_mp4toannexb` writes them (4-byte start codes, the
 `hvcC` arrays before the first IRAP slice of a sample).
@@ -43,9 +60,11 @@ sample that is missing from the file or does not decode ends the stream,
 where cv2's `read` returns False; an H.264 or HEVC decoder hands out the
 pictures it still holds first.
 
-What is not read raises `UnsupportedVideo` naming it: VP8/VP9/AV1 and
-WebM/Matroska, fragmented MP4 (`moof`), several edits in one edit list,
-OpenDML AVI beyond the first RIFF, any other codec; within MPEG-4 Part 2
+What is not read raises `UnsupportedVideo` naming it: VP8/VP9/AV1 (in
+WebM/Matroska, MP4 or AVI), MPEG-1/2 video and the other codecs of a
+Matroska track or a TS stream type, encrypted content (`encv`, `senc`,
+Matroska's ContentEncryption), Matroska's bzlib/LZO compression, several
+edits in one edit list, any other codec; within MPEG-4 Part 2
 B-VOPs, quarter-pel, GMC, interlace, data partitioning and RVLC; within
 H.264 interlaced coding (fields, MBAFF), bit depths above 8, chroma other
 than 4:2:0, lossless coding, SP/SI slices, data partitioning, slice groups
@@ -59,9 +78,11 @@ converts colour-managed (wide-gamut primaries, PQ, HLG; `to_bgr`) (ROADMAP,
 `VideoWriter` encodes each BGR frame as an MPEG-4 Part 2 I-VOP (Simple
 Profile, H.263 quantization at a fixed quantizer, BT.601 limited range,
 chroma from each 2x2 mean) and muxes it into an MP4 (`.mp4`, `.m4v`,
-`.mov`: `ftyp`, `mdat`, then `moov` with `mp4v`/`esds`) or an AVI (`.avi`,
-FourCC `FMP4`), as the JAX tracker's `cv2.VideoWriter(..., "mp4v")` writes
-both; the bytes differ from FFmpeg's, which rate-controls P-VOPs.
+`.mov`: `ftyp`, `mdat`, then `moov` with `mp4v`/`esds`), an AVI (`.avi`,
+FourCC `FMP4`) or a Matroska file (`.mkv`, `mkv.MkvMuxer`), as the JAX
+tracker's `cv2.VideoWriter(..., "mp4v")` writes them; the bytes differ
+from FFmpeg's, which rate-controls P-VOPs. `.ts`, `.m2ts`, `.mpg` and
+`.3gp`, which cv2 also writes, raise by name.
 """
 
 from __future__ import annotations
@@ -71,12 +92,12 @@ import os
 import struct
 from dataclasses import dataclass, field
 from fractions import Fraction
-from typing import List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 ROADMAP_ENTRY = "ROADMAP, 'When a user needs them' (video codecs)"
-SNIFF_BYTES = 16
+SNIFF_BYTES = 1 << 20               # FFmpeg's largest probe
 WRITER_QUANT = 2                     # the writer's fixed quantizer (vop_quant)
 _MSG_LEN = 256
 
@@ -111,7 +132,9 @@ class UnsupportedVideo(NotImplementedError):
 def unsupported(what: str) -> UnsupportedVideo:
     return UnsupportedVideo(f"{what} is not decoded by this package (it reads MPEG-4 Part 2 "
                             f"Simple Profile, Motion-JPEG, progressive 8-bit 4:2:0 H.264 and "
-                            f"8- and 10-bit 4:2:0 HEVC in MP4/MOV and AVI): {ROADMAP_ENTRY}")
+                            f"8- and 10-bit 4:2:0 HEVC in MP4/MOV (fragmented too), AVI "
+                            f"(OpenDML too), Matroska/WebM, MPEG-TS/M2TS and raw Annex B): "
+                            f"{ROADMAP_ENTRY}")
 
 
 def library() -> ctypes.CDLL:
@@ -183,16 +206,33 @@ def hevc_library() -> ctypes.CDLL:
     return _HEVC
 
 
-def sniff(head: bytes) -> str:
-    """The container by content: "mp4" (ISO BMFF), "avi", "ebml"
-    (WebM/Matroska) or "" (anything else)."""
-    if head[4:8] in (b"ftyp", b"moov", b"mdat", b"wide", b"free", b"skip"):
+def sniff(head: bytes, name: str = "") -> str:
+    """The container by content, as FFmpeg probes it: "mp4" (ISO BMFF),
+    "avi", "ebml" (WebM/Matroska), "ts" (MPEG-TS, M2TS), "h264" or "hevc"
+    (a raw Annex B stream: FFmpeg's probe of it, or the extension of
+    `name` where the probe finds nothing else), or "" (anything else).
+    `head` is the file's first bytes (`SNIFF_BYTES`)."""
+    from yololite_tpu_torch.data import esparse, mpegts
+    if head[4:8] in (b"ftyp", b"moov", b"mdat", b"wide", b"free", b"skip", b"styp", b"moof",
+                     b"sidx"):
         return "mp4"
     if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
         return "avi"
     if head[:4] == b"\x1a\x45\xdf\xa3":
         return "ebml"
-    return ""
+    if mpegts.packet_layout(head):
+        return "ts"
+    return esparse.sniff_raw(head, name)
+
+
+class Sample(NamedTuple):
+    """One sample of a track: `size` bytes at `offset` of the track's
+    source (the file, or a TS's elementary stream), zlib-compressed when
+    `inflate`, after the bytes `prefix` (Matroska's stripped header)."""
+    offset: int
+    size: int
+    prefix: bytes = b""
+    inflate: bool = False
 
 
 @dataclass
@@ -204,9 +244,10 @@ class Track:
     fps: float
     frame_count: int
     extradata: bytes = b""
-    samples: List[Tuple[int, int]] = field(default_factory=list)   # (offset, size)
+    samples: List[Sample] = field(default_factory=list)
     shown: Optional[List[bool]] = None   # per sample: its picture is shown (edit list)
     annexb_ps: Tuple[bytes, bytes] = (b"", b"")   # in MP4: avcC's SPSs, PPSs, or hvcC's NAL units, in Annex B
+    source: Optional[Callable] = None   # the open file -> what the offsets count in, if not it
 
 
 def _codec_of(tag: bytes) -> str:
@@ -271,6 +312,14 @@ def _child(data: bytes, start: int, end: int, kind: bytes):
     return None
 
 
+def _need(data: bytes, start: int, end: int, kind: bytes):
+    """The child box `kind`, which the file must have."""
+    box = _child(data, start, end, kind)
+    if box is None:
+        raise ValueError(f"no '{kind.decode('latin1')}' box")
+    return box
+
+
 def _descriptor(data: bytes, pos: int):
     """(tag, body start, body end) of the MPEG-4 systems descriptor at pos."""
     tag = data[pos]
@@ -312,22 +361,27 @@ def _esds(data: bytes, s: int, e: int):
 
 
 def demux_mp4(f, file_size: int) -> Track:
-    moov = None
+    moov, moofs = None, []
     for kind, off, size in _top_level(f, file_size):
         if kind == b"moof":
-            raise unsupported("fragmented MP4 ('moof')")
+            f.seek(off)
+            moofs.append((off - 8, f.read(min(size, file_size - off))))
         if kind == b"moov" and moov is None:
             f.seek(off)
-            moov = f.read(size)
+            moov = f.read(min(size, file_size - off))
     if moov is None:
         raise ValueError("no 'moov' box")
-    if _child(moov, 0, len(moov), b"mvex"):
-        raise unsupported("fragmented MP4 ('mvex')")
     mvhd = _child(moov, 0, len(moov), b"mvhd")
     movie_scale = 0
     if mvhd:
         ver = moov[mvhd[0]]
         movie_scale = struct.unpack(">I", moov[mvhd[0] + (20 if ver == 1 else 12):][:4])[0]
+    mvex = _child(moov, 0, len(moov), b"mvex")
+    trex = {}
+    for kind, s, e in _boxes(moov, *mvex) if mvex else ():
+        if kind == b"trex" and e - s >= 24:
+            tid, _, dur, size, flags = struct.unpack(">IIIII", moov[s + 4:s + 24])
+            trex[tid] = (dur, size, flags)
     for kind, s, e in _boxes(moov, 0, len(moov)):
         if kind != b"trak":
             continue
@@ -335,8 +389,112 @@ def demux_mp4(f, file_size: int) -> Track:
         hdlr = mdia and _child(moov, *mdia, b"hdlr")
         if not hdlr or moov[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
             continue
-        return _mp4_track(moov, (s, e), mdia, movie_scale)
+        return _mp4_track(moov, (s, e), mdia, movie_scale, moofs, trex, file_size)
     raise ValueError("no video track")
+
+
+# trun flags, tfhd flags (ISO/IEC 14496-12 8.8.7, 8.8.8)
+TRUN_DATA_OFFSET, TRUN_FIRST_FLAGS, TRUN_DURATION, TRUN_SIZE, TRUN_FLAGS, TRUN_CTS = (
+    0x1, 0x4, 0x100, 0x200, 0x400, 0x800)
+TFHD_BASE_OFFSET, TFHD_DESC, TFHD_DURATION, TFHD_SIZE, TFHD_FLAGS, TFHD_BASE_IS_MOOF = (
+    0x1, 0x2, 0x8, 0x10, 0x20, 0x20000)
+SAMPLE_NON_SYNC, SAMPLE_DEPENDS_YES = 0x10000, 0x1000000
+
+
+def _fragments(moofs, track_id: int, trex, start_dts: int, file_size: int):
+    """The samples of one track in the movie fragments, as FFmpeg's mov
+    demuxer reads `moof/traf` (`tfhd` defaults over `trex`'s, `tfdt`,
+    `trun`): each as (offset, size, dts, cts, key, duration). A run lists
+    at most one sample a byte of the file after its data offset, and one
+    without per-sample sizes no empty samples; its samples that start past
+    the end of the file are not listed (cv2 stops at the first sample cut
+    short)."""
+    out = []
+    dts = start_dts
+    d_dur, d_size, d_flags = trex.get(track_id, (0, 0, 0))
+    for moof_off, m in moofs:
+        implicit = moof_off
+        for kind, s, e in _boxes(m, 0, len(m)):
+            if kind != b"traf":
+                continue
+            tfhd = _child(m, s, e, b"tfhd")
+            if tfhd is None:
+                continue
+            p = tfhd[0]
+            flags = int.from_bytes(m[p + 1:p + 4], "big")
+            if struct.unpack(">I", m[p + 4:p + 8])[0] != track_id:
+                continue
+            if _child(m, s, e, b"senc"):
+                raise unsupported("encrypted fragmented MP4 ('senc')")
+            q = p + 8
+            base = implicit
+            if flags & TFHD_BASE_OFFSET:
+                base = struct.unpack(">Q", m[q:q + 8])[0]
+                q += 8
+            elif flags & TFHD_BASE_IS_MOOF:
+                base = moof_off
+            if flags & TFHD_DESC:
+                q += 4
+            dur, size, sflags = d_dur, d_size, d_flags
+            for bit, name in ((TFHD_DURATION, "dur"), (TFHD_SIZE, "size"), (TFHD_FLAGS, "flags")):
+                if flags & bit:
+                    v = struct.unpack(">I", m[q:q + 4])[0]
+                    q += 4
+                    if name == "dur":
+                        dur = v
+                    elif name == "size":
+                        size = v
+                    else:
+                        sflags = v
+            tfdt = _child(m, s, e, b"tfdt")
+            if tfdt is not None:
+                ver = m[tfdt[0]]
+                dts = (struct.unpack(">Q", m[tfdt[0] + 4:tfdt[0] + 12])[0] if ver == 1
+                       else struct.unpack(">I", m[tfdt[0] + 4:tfdt[0] + 8])[0])
+            for tk, ts, te in _boxes(m, s, e):
+                if tk != b"trun":
+                    continue
+                ver = m[ts]
+                tflags = int.from_bytes(m[ts + 1:ts + 4], "big")
+                n = struct.unpack(">I", m[ts + 4:ts + 8])[0]
+                q = ts + 8
+                offset = base
+                if tflags & TRUN_DATA_OFFSET:
+                    offset = base + struct.unpack(">i", m[q:q + 4])[0]
+                    q += 4
+                first = None
+                if tflags & TRUN_FIRST_FLAGS:
+                    first = struct.unpack(">I", m[q:q + 4])[0]
+                    q += 4
+                fields = [b for b in (TRUN_DURATION, TRUN_SIZE, TRUN_FLAGS, TRUN_CTS) if tflags & b]
+                if q + 4 * len(fields) * n > te:
+                    raise ValueError("'trun' runs past its box")
+                if n > max(file_size - offset, 0) or (n and not size and not tflags & TRUN_SIZE):
+                    raise ValueError(f"'trun' lists {n} samples at {offset} of a "
+                                     f"{file_size}-byte file")
+                for k in range(n):
+                    if offset >= file_size:
+                        break
+                    sd, ss, sf, co = dur, size, sflags, 0
+                    if k == 0 and first is not None:
+                        sf = first
+                    for b in fields:
+                        v = m[q:q + 4]
+                        q += 4
+                        if b == TRUN_DURATION:
+                            sd = struct.unpack(">I", v)[0]
+                        elif b == TRUN_SIZE:
+                            ss = struct.unpack(">I", v)[0]
+                        elif b == TRUN_FLAGS:
+                            sf = struct.unpack(">I", v)[0]
+                        else:
+                            co = struct.unpack(">i" if ver else ">I", v)[0]
+                    key = not sf & (SAMPLE_NON_SYNC | SAMPLE_DEPENDS_YES)
+                    out.append((offset, ss, dts, dts + co, key, sd))
+                    offset += ss
+                    dts += sd
+                implicit = offset
+    return out
 
 
 def _avcc(record: bytes):
@@ -417,12 +575,12 @@ def _apply_edit(dts, cts, keys, edit):
     return first, [start <= c and (end is None or c < end) for c in cts[first:]]
 
 
-def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
-    mdhd = _child(m, *mdia, b"mdhd")
+def _mp4_track(m: bytes, trak, mdia, movie_scale: int, moofs, trex, file_size: int) -> Track:
+    mdhd = _need(m, *mdia, b"mdhd")
     ver = m[mdhd[0]]
     timescale = struct.unpack(">I", m[mdhd[0] + (20 if ver == 1 else 12):][:4])[0]
-    minf = _child(m, *mdia, b"minf")
-    stbl = _child(m, *minf, b"stbl")
+    minf = _need(m, *mdia, b"minf")
+    stbl = _need(m, *minf, b"stbl")
     box = {k: (s, e) for k, s, e in _boxes(m, *stbl)}
     s, e = box[b"stsd"]
     entries = list(_boxes(m, s + 8, e))
@@ -455,20 +613,22 @@ def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
         raise unsupported("encrypted video")
     else:
         codec = _codec_of(tag)
+    # stsz; the samples listed are those the file can hold (nb_frames counts all)
+    s, _ = box[b"stsz"]
+    const, nsamp = struct.unpack(">II", m[s + 4:s + 12])
+    limit = min(nsamp, file_size // const + 1) if const else nsamp
+    sizes = ([const] * limit if const else
+             list(struct.unpack(f">{nsamp}I", m[s + 12:s + 12 + 4 * nsamp])))
     # stts: decoding times
     s, _ = box[b"stts"]
     n = struct.unpack(">I", m[s + 4:s + 8])[0]
     total, count, dts = 0, 0, []
     for i in range(n):
         c, d = struct.unpack(">II", m[s + 8 + 8 * i:s + 16 + 8 * i])
-        dts.extend(range(total, total + c * d, d) if d else [total] * c)
+        take = max(min(c, limit - len(dts)), 0)
+        dts.extend(range(total, total + take * d, d) if d else [total] * take)
         total += c * d
         count += c
-    # stsz
-    s, _ = box[b"stsz"]
-    const, nsamp = struct.unpack(">II", m[s + 4:s + 12])
-    sizes = ([const] * nsamp if const else
-             list(struct.unpack(f">{nsamp}I", m[s + 12:s + 12 + 4 * nsamp])))
     # chunk offsets
     if b"stco" in box:
         s, _ = box[b"stco"]
@@ -488,7 +648,7 @@ def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
         for c in range(first - 1, last):
             off = chunks[c]
             for _ in range(per):
-                if k >= nsamp:
+                if k >= limit:
                     break
                 samples.append((off, sizes[k]))
                 off += sizes[k]
@@ -503,10 +663,9 @@ def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
         i = 0
         for j in range(n):
             c, o = struct.unpack(">Ii" if cver else ">II", m[s + 8 + 8 * j:s + 16 + 8 * j])
-            for _ in range(c):
-                if i < len(cts):
-                    cts[i] += o
-                i += 1
+            for t in range(i, min(i + c, len(cts))):
+                cts[t] += o
+            i += c
     keys = [True] * len(samples)
     if b"stss" in box:
         s, _ = box[b"stss"]
@@ -515,9 +674,28 @@ def _mp4_track(m: bytes, trak, mdia, movie_scale: int) -> Track:
         for j in struct.unpack(f">{n}I", m[s + 8:s + 8 + 4 * n]):
             if 0 < j <= len(keys):
                 keys[j - 1] = True
-    first, shown = _apply_edit(dts, cts, keys, _edit_list(m, trak, timescale, movie_scale))
     fps = float(Fraction(timescale * count, total)) if total and timescale else 0.0
-    return Track(codec, width, height, fps, nsamp, extradata, samples[first:], shown, annexb_ps)
+    frame_count = nsamp
+    if moofs:
+        tkhd = _need(m, *trak, b"tkhd")
+        tver = m[tkhd[0]]
+        track_id = struct.unpack(">I", m[tkhd[0] + (20 if tver == 1 else 12):][:4])[0]
+        frag = _fragments(moofs, track_id, trex or {}, total, file_size)
+        samples += [(o, n) for o, n, _, _, _, _ in frag]
+        dts += [d for _, _, d, _, _, _ in frag]
+        cts += [c for _, _, _, c, _, _ in frag]
+        keys += [k for _, _, _, _, k, _ in frag]
+        if not nsamp and frag and timescale:
+            # no nb_frames: cv2 counts the fragments' duration x FFmpeg's estimated rate
+            from yololite_tpu_torch.data import esparse
+            durations = [d for _, _, _, _, _, d in frag]
+            tb = Fraction(1, timescale)
+            fps = float(esparse.avg_rate(durations[:esparse.ANALYZED], dts[:esparse.ANALYZED], tb))
+            us = round(Fraction(sum(durations) * 10 ** 6, timescale))
+            frame_count = esparse.frame_count(us / 1e6, fps)
+    first, shown = _apply_edit(dts, cts, keys, _edit_list(m, trak, timescale, movie_scale))
+    return Track(codec, width, height, fps, frame_count, extradata,
+                 [Sample(o, n) for o, n in samples[first:]], shown, annexb_ps)
 
 
 # --------------------------------------------------------------------------- #
@@ -546,17 +724,24 @@ def demux_avi(f, file_size: int) -> Track:
     for cid, kind, off, size in _chunks(f, 12, min(riff_end, file_size)):
         if kind == b"hdrl" and hdrl is None:
             f.seek(off)
-            hdrl = f.read(size)
+            hdrl = f.read(max(min(size, file_size - off), 0))
         elif kind == b"movi" and movi is None:
             movi = (off - 4, off, off + size)
         elif cid == b"idx1":
             f.seek(off)
-            idx1 = f.read(size)
-    if riff_end + 12 <= file_size:
-        f.seek(riff_end + (riff_end & 1))
+            idx1 = f.read(max(min(size, file_size - off), 0))
+    extended = []                      # the 'movi' lists of the OpenDML 'AVIX' RIFFs
+    pos = riff_end + (riff_end & 1)
+    while pos + 12 <= file_size:
+        f.seek(pos)
         more = f.read(12)
-        if more[:4] == b"RIFF" and more[8:12] == b"AVIX":
-            raise unsupported("OpenDML AVI beyond the first RIFF ('AVIX')")
+        if more[:4] != b"RIFF" or more[8:12] != b"AVIX":
+            break
+        end = pos + 8 + struct.unpack("<I", more[4:8])[0]
+        for cid, kind, off, size in _chunks(f, pos + 12, min(end, file_size)):
+            if kind == b"movi":
+                extended.append((off, off + size))
+        pos = end + (end & 1)
     if hdrl is None or movi is None:
         raise ValueError("AVI without 'hdrl' or 'movi'")
     stream, track = 0, None
@@ -565,7 +750,7 @@ def demux_avi(f, file_size: int) -> Track:
         cid, size = struct.unpack("<4sI", hdrl[pos:pos + 8])
         if cid == b"LIST" and hdrl[pos + 8:pos + 12] == b"strl":
             body = hdrl[pos + 12:pos + 8 + size]
-            strh = strf = None
+            strh = strf = indx = None
             q = 0
             while q + 8 <= len(body):
                 c2, s2 = struct.unpack("<4sI", body[q:q + 8])
@@ -573,8 +758,12 @@ def demux_avi(f, file_size: int) -> Track:
                     strh = body[q + 8:q + 8 + s2]
                 elif c2 == b"strf":
                     strf = body[q + 8:q + 8 + s2]
+                elif c2 == b"indx":
+                    indx = body[q + 8:q + 8 + s2]
                 q += 8 + s2 + (s2 & 1)
             if strh is not None and strh[:4] == b"vids":
+                if strf is None or len(strf) < 20:
+                    raise ValueError("AVI video stream without a BITMAPINFOHEADER ('strf')")
                 handler = strh[4:8]
                 scale, rate, _, length = struct.unpack("<IIII", strh[20:36])
                 w, h = struct.unpack("<ii", strf[4:12])
@@ -591,26 +780,56 @@ def demux_avi(f, file_size: int) -> Track:
         raise ValueError("AVI without a video stream")
     ids = (b"%02ddc" % stream, b"%02ddb" % stream)
     movi_fourcc, movi_start, movi_end = movi
-    samples = []
-    if idx1:
+    samples = _odml_index(f, file_size, indx) if indx else []
+    if not samples and idx1:
         entries = [struct.unpack("<4sIII", idx1[i:i + 16]) for i in range(0, len(idx1) - 15, 16)]
         mine = [e for e in entries if e[0] in ids]
         if mine:
             # offsets from the 'movi' fourcc, or absolute (FFmpeg's check)
             base = movi_fourcc if mine[0][2] < movi_fourcc else 0
             samples = [(base + off + 8, size) for _, _, off, size in mine]
+    def walk(start, end):
+        for cid, kind, off, size in _chunks(f, start, end):
+            if kind == b"rec ":
+                walk(off, off + size)
+            elif cid in ids:
+                samples.append((off, size))
+
     if not samples:
-        def walk(start, end):
-            for cid, kind, off, size in _chunks(f, start, end):
-                if kind == b"rec ":
-                    walk(off, off + size)
-                elif cid in ids:
-                    samples.append((off, size))
         walk(movi_start, min(movi_end, file_size))
+    if extended and not indx:
+        for start, end in extended:
+            walk(start, min(end, file_size))
     if not track.frame_count:
         track.frame_count = len(samples)
-    track.samples = samples
+    track.samples = [Sample(o, n) for o, n in samples]
     return track
+
+
+def _odml_index(f, file_size: int, indx: bytes) -> List[Tuple[int, int]]:
+    """The samples an OpenDML super index ('indx') lists, through each
+    standard index ('ix##') it points to, as FFmpeg's read_odml_index reads
+    them; [] where it is not one."""
+    if len(indx) < 24 or indx[3] != 0:             # AVI_INDEX_OF_INDEXES
+        return []
+    n = struct.unpack("<I", indx[4:8])[0]
+    out = []
+    for k in range(min(n, (len(indx) - 24) // 16)):
+        off, size, _ = struct.unpack("<QII", indx[24 + 16 * k:40 + 16 * k])
+        if off + 8 + 24 > file_size:
+            break
+        f.seek(off + 8)
+        ix = f.read(min(size, file_size - off - 8) if size else 24)
+        if len(ix) < 24 or ix[3] != 1:            # AVI_INDEX_OF_CHUNKS
+            break
+        per, entries, base = struct.unpack("<H", ix[0:2])[0], struct.unpack("<I", ix[4:8])[0], \
+            struct.unpack("<Q", ix[12:20])[0]
+        if per != 2:
+            raise unsupported("an OpenDML field index")
+        for j in range(min(entries, (len(ix) - 24) // 8)):
+            rel, length = struct.unpack("<II", ix[24 + 8 * j:32 + 8 * j])
+            out.append((base + rel, length & 0x7FFFFFFF))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -623,15 +842,85 @@ def probe(path: str) -> Track:
     not read raises `UnsupportedVideo`."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
-        kind = sniff(f.read(SNIFF_BYTES))
+        kind = sniff(f.read(SNIFF_BYTES), os.path.basename(path))
         f.seek(0)
-        if kind == "ebml":
-            raise unsupported("WebM/Matroska (VP8/VP9/AV1)")
-        if kind == "mp4":
-            return demux_mp4(f, size)
-        if kind == "avi":
-            return demux_avi(f, size)
-    raise ValueError(f"{path}: not a video container this package reads (MP4/MOV, AVI)")
+        demux = {"mp4": demux_mp4, "avi": demux_avi, "ebml": demux_mkv, "ts": demux_ts,
+                 "h264": lambda f, n: demux_annexb(f, n, "h264"),
+                 "hevc": lambda f, n: demux_annexb(f, n, "hevc")}.get(kind)
+        if demux is not None:
+            try:
+                return demux(f, size)
+            except (IndexError, KeyError, struct.error, EOFError, OverflowError) as e:
+                raise ValueError(f"{path}: damaged {kind} container ({type(e).__name__}: "
+                                 f"{e})") from e
+    raise ValueError(f"{path}: not a video container this package reads (MP4/MOV, AVI, "
+                     f"Matroska/WebM, MPEG-TS/M2TS, raw H.264/HEVC)")
+
+
+def demux_mkv(f, file_size: int) -> Track:
+    """Matroska/WebM (`data/mkv.py`)."""
+    from yololite_tpu_torch.data import mkv
+    d = mkv.demux(f, file_size)
+    annexb_ps = (b"", b"")              # V_MS/VFW/FOURCC: Annex B, as in an AVI
+    if d.codec == "h264" and not d.tag:
+        annexb_ps = _avcc(d.extradata)[1]
+    elif d.codec == "hevc" and not d.tag:
+        annexb_ps = _hvcc(d.extradata)[1]
+    return Track(d.codec, d.width, d.height, d.fps, d.frame_count, d.extradata,
+                 d.samples, None, annexb_ps)
+
+
+def stream_headers(codec: str, first: bytes) -> bytes:
+    """What an Annex B stream's first packet holds before its first picture:
+    the parameter sets (4-byte start codes) for H.264 and HEVC, the VOS and
+    VOL for MPEG-4 Part 2; the decoder opens with them, as FFmpeg opens its
+    decoder with the extradata it extracts from the stream."""
+    from yololite_tpu_torch.data import esparse
+    if codec == "mp4v":
+        vop = first.find(b"\x00\x00\x01\xb6")
+        return bytes(first[:vop if vop >= 0 else len(first)])
+    kinds = (7, 8) if codec == "h264" else (32, 33, 34)
+    nals = [n for n in esparse.nal_units(first) if n]
+    keep = [n for n in nals if (n[0] & 0x1F if codec == "h264" else (n[0] >> 1) & 0x3F) in kinds]
+    return b"".join(b"\x00\x00\x00\x01" + n for n in keep)
+
+
+def demux_ts(f, file_size: int) -> Track:
+    """MPEG-TS or M2TS (`data/mpegts.py`)."""
+    from yololite_tpu_torch.data import mpegts
+    f.seek(0)
+    layout = mpegts.packet_layout(f.read(SNIFF_BYTES))
+    d = mpegts.demux(f, file_size, layout)
+    es = d.source(f)
+    es.seek(d.samples[0].offset)
+    first = es.read(d.samples[0].size)
+    return Track(d.codec, 0, 0, d.fps, d.frame_count, stream_headers(d.codec, first), d.samples,
+                 source=d.source)
+
+
+RAW_FPS = 25.0              # FFmpeg's raw video demuxers' default -framerate
+
+
+def demux_annexb(f, file_size: int, codec: str) -> Track:
+    """A raw H.264 or HEVC elementary stream, cut into access units as
+    FFmpeg's parser cuts it. cv2 reports 25 fps (the raw demuxer's
+    default rate) and a meaningless frame count (its duration is unknown);
+    the port reports the access units."""
+    from yololite_tpu_torch.data import esparse
+    f.seek(0)
+    sp, cuts = esparse.Splitter(codec), []
+    while True:
+        chunk = f.read(1 << 20)
+        cuts += sp.feed(chunk, final=not chunk)
+        if not chunk:
+            break
+    edges = [0] + [c for c in cuts if 0 < c < file_size] + [file_size]
+    packets = [Sample(a, b - a) for a, b in zip(edges, edges[1:]) if b > a]
+    if not packets:
+        raise ValueError("empty Annex B stream")
+    f.seek(0)
+    first = f.read(packets[0].size)
+    return Track(codec, 0, 0, RAW_FPS, len(packets), stream_headers(codec, first), packets)
 
 
 class Mpeg4Decoder:
@@ -966,6 +1255,12 @@ class VideoReader:
         libraries()                     # a missing compiler raises here, not in a read
         if t.codec in ("h264", "hevc"):
             self.size = self._coded_size()
+        elif t.codec == "mp4v" and not all(self.size):
+            dec = Mpeg4Decoder(t.extradata)     # a stream that names its size only in its VOL
+            try:
+                self.size = dec.size()
+            finally:
+                dec.close()
 
     def _decoder(self):
         return (H264Decoder if self.codec == "h264" else HevcDecoder)(self.track.extradata)
@@ -984,10 +1279,24 @@ class VideoReader:
         A sample that runs past the end of the file is the last, with the
         bytes the file holds (FFmpeg reads it so and stops after it)."""
         with open(self.path, "rb") as f:
-            for k, (off, size) in enumerate(self.track.samples):
-                f.seek(off)
-                data = f.read(size)
-                if len(data) < size:
+            src = self.track.source(f) if self.track.source else f
+            end = os.fstat(f.fileno()).st_size
+            for k, sample in enumerate(self.track.samples):
+                n = sample.size             # of the file: no more than it holds there
+                if src is f:
+                    n = min(n, end - sample.offset) if 0 <= sample.offset < end else 0
+                src.seek(sample.offset if n else 0)
+                data = src.read(n)
+                short = len(data) < sample.size
+                if sample.inflate and not short:
+                    from yololite_tpu_torch.data import mkv
+                    try:
+                        data = mkv.inflate(data)
+                    except ValueError as e:
+                        self.stop_reason = f"sample {k}: {e}"
+                        return
+                data = sample.prefix + data
+                if short:
                     self.cut_short = True
                     self.stop_reason = (f"sample {k} of {len(self.track.samples)} is cut short "
                                         f"by the end of the file")
@@ -1206,18 +1515,25 @@ class Mp4Muxer:
         return _box(b"moov", mvhd, trak)
 
 
-WRITE_EXTENSIONS = (".mp4", ".m4v", ".mov", ".avi")
+WRITE_EXTENSIONS = (".mp4", ".m4v", ".mov", ".avi", ".mkv")
+# what cv2.VideoWriter(path, "mp4v", ...) also writes and this writer does
+# not (ROADMAP, deliberate differences); `.webm` cv2 does not open either
+UNWRITTEN = {".ts": "MPEG-TS", ".m2ts": "M2TS", ".mts": "M2TS", ".mpg": "MPEG-PS",
+             ".mpeg": "MPEG-PS", ".3gp": "3GP", ".webm": "WebM (cv2 cannot write mp4v in it)"}
 
 
 class VideoWriter:
     """BGR frames of one size written as MPEG-4 Part 2 at `fps`, into an MP4
-    (`.mp4`, `.m4v`, `.mov`) or an AVI (`.avi`, FourCC FMP4); any other
-    extension raises `ValueError`."""
+    (`.mp4`, `.m4v`, `.mov`), an AVI (`.avi`, FourCC FMP4) or a Matroska
+    file (`.mkv`, as FFmpeg's matroska muxer writes cv2's); any other
+    extension raises `ValueError` (naming the container where cv2 writes
+    it)."""
 
     def __init__(self, path: str, fps: float, size):
         ext = os.path.splitext(path)[1].lower()
         if ext not in WRITE_EXTENSIONS:
-            raise ValueError(f"{path}: the video writer writes {', '.join(WRITE_EXTENSIONS)}")
+            named = f" ({UNWRITTEN[ext]} is not written)" if ext in UNWRITTEN else ""
+            raise ValueError(f"{path}: the video writer writes {', '.join(WRITE_EXTENSIONS)}{named}")
         self.enc = Mpeg4Encoder(size, fps)
         coded = (self.enc.w, self.enc.h)
         if ext == ".avi":
@@ -1226,6 +1542,10 @@ class VideoWriter:
             self.mux = AviWriter(path, fps, coded, fourcc=b"FMP4",
                                  encode=lambda frame: headers + self.enc._encode(frame))
             self._write = lambda frame: self.mux.write(self.enc.crop(frame))
+        elif ext == ".mkv":
+            from yololite_tpu_torch.data.mkv import MkvMuxer
+            self.mux = MkvMuxer(path, coded, fps, self.enc.headers)
+            self._write = lambda frame: self.mux.write(self.enc.encode(frame))
         else:
             self.mux = Mp4Muxer(path, coded, self.enc.rate, self.enc.headers)
             self._write = lambda frame: self.mux.write(self.enc.encode(frame))

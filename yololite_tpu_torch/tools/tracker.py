@@ -9,18 +9,22 @@
 
 `--video` takes what `cv2.VideoCapture` opens, decoded as it decodes:
 
-  - a video file (`data/video.py`): MP4/MOV or AVI holding MPEG-4 Part 2
-    (what the JAX tool's writer produces: mp4v, XVID, FMP4, DIVX),
-    Motion-JPEG or H.264 (progressive 8-bit 4:2:0, Baseline/Main/High: what
-    phones, screen recorders and ffmpeg/x264 write), read by the port's host
-    decoders frame for frame as OpenCV 5.0's FFmpeg gives them. A sample cut
-    short by the end of the file is the last (an MPEG-4 picture concealed
-    where its data stops; H.264 pictures still held for reordering are
-    dropped, as cv2 drops them), and a packet that does not decode ends the
-    stream; either prints a `[stop]` line. HEVC, VP8/VP9/AV1, WebM,
-    fragmented MP4, the MPEG-4 tools past Simple Profile and interlaced,
-    10-bit, 4:2:2/4:4:4 or lossless H.264 raise `UnsupportedVideo` naming
-    them;
+  - a video file (`data/video.py`): MP4/MOV (fragmented too), AVI (OpenDML
+    too), Matroska/WebM (`data/mkv.py`: OBS recordings, laced and
+    header-stripped blocks, a file whose recording stopped before its
+    sizes were written), MPEG-TS and M2TS (`data/mpegts.py`: dashcam and
+    camcorder files) or a raw H.264/HEVC Annex B stream, holding MPEG-4
+    Part 2 (what the JAX tool's writer produces: mp4v, XVID, FMP4, DIVX),
+    Motion-JPEG, H.264 (progressive 8-bit 4:2:0, Baseline/Main/High) or
+    HEVC (Main, Main 10: 8- and 10-bit 4:2:0), read by the port's host
+    decoders frame for frame as OpenCV 5.0's FFmpeg gives them. A sample
+    cut short by the end of the file is the last (an MPEG-4 picture
+    concealed where its data stops; H.264/HEVC pictures still held for
+    reordering are dropped, as cv2 drops them), and a packet that does not
+    decode ends the stream; either prints a `[stop]` line. VP8/VP9/AV1,
+    MPEG-1/2 video, encrypted files, the MPEG-4 tools past Simple Profile,
+    interlaced, 4:2:2/4:4:4 or lossless H.264 and the HEVC tools x265
+    never writes raise `UnsupportedVideo` naming them;
   - a printf pattern of JPEG, PNG or BMP files (`frames/%04d.png`), decoded
     by the port's codecs from the first index in 0-4 that exists up to the
     first index missing, as OpenCV 5.0 does (a frame OpenCV cannot decode
@@ -32,13 +36,15 @@ source ...")`, as the JAX tool's `cap.isOpened()` check does; a camera index
 raises `NotImplementedError` (the card's machine has no camera).
 
 `--out` draws each frame as the JAX tool does (track boxes and labels in
-the class colour, the FPS line) and writes it: `.mp4`, `.m4v`, `.mov` or
-`.avi` as MPEG-4 Part 2 (the JAX tool's `cv2.VideoWriter(..., "mp4v")`; the
+the class colour, the FPS line) and writes it: `.mp4`, `.m4v`, `.mov`,
+`.avi` or `.mkv` as MPEG-4 Part 2 (the JAX tool's `cv2.VideoWriter(...,
+"mp4v")`; the
 port's writer codes I-VOPs at a fixed quantizer, `data/video.VideoWriter`)
 at the source's rate, `cap.get(CAP_PROP_FPS) or 30`, which OpenCV 5.0
 reports as 25 for an image sequence; a printf pattern as a sequence of image
 files numbered from 1 (as OpenCV's image-sequence writer numbers them),
-encoded by their extension. Any other container raises
+encoded by their extension. Any other container (`.ts`, `.m2ts`, `.mpg`,
+`.3gp`, which cv2 also writes; `.webm`, which it cannot) raises
 `NotImplementedError`; `--show` (a window) raises as well.
 """
 
@@ -68,17 +74,19 @@ FIRST_INDICES = range(5)
 SEQUENCE_FPS = 25.0
 # the JAX tool's writer rate when its source reports none
 DEFAULT_FPS = 30.0
-VIDEO_OUT = (".mp4", ".m4v", ".mov", ".avi")
+VIDEO_OUT = (".mp4", ".m4v", ".mov", ".avi", ".mkv")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--weights", required=True)
     ap.add_argument("--video", required=True,
-                    help="video file (.mp4/.mov/.avi) or printf pattern of image files, "
+                    help="video file (.mp4/.mov/.avi/.mkv/.webm/.ts/.m2ts/.h264/.hevc) or "
+                         "printf pattern of image files, "
                          "e.g. frames/%%04d.png")
     ap.add_argument("--out", default=None,
-                    help="output: out.mp4 (or .m4v/.mov/.avi; mp4v) or a pattern out/%%04d.jpg")
+                    help="output: out.mp4 (or .m4v/.mov/.avi/.mkv; mp4v) or a pattern "
+                         "out/%%04d.jpg")
     ap.add_argument("--conf", type=float, default=0.35)
     ap.add_argument("--iou", type=float, default=0.45)
     ap.add_argument("--track_iou", type=float, default=0.3)
